@@ -6,12 +6,13 @@
 Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
 
 0. environment: card name and power limit (nvidia-smi), torch/CUDA
-   versions, kernel build time;
+   versions, kernel build time, ptxas's registers and spills, and a SASS
+   summary of the RS(10,4) instantiation (cuobjdump);
 1. kernel vs plain PyTorch version on the card, (R, k) in
-   {(4,10), (1,10), (2,10), (3,10), (3,6), (4,12)} x widths
-   {1, 15, 16, 17, 65537, 32 MiB}, plus strided and unaligned layouts —
-   byte-equal or fail; the kernel's time at the encode shape beside its
-   bound and the plain version's time;
+   {(4,10), (1,10), (2,10), (3,10), (3,6), (4,12), (8,10), (16,10), (4,16),
+   (4,17), (64,64), (4,1)} x widths {1, 15, 16, 17, 65537, 32 MiB}, plus
+   strided and unaligned layouts — byte-equal or fail; the kernel's time at
+   the encode shape beside its bound and the plain version's time;
 2. device-resident RS(10,4) encode of one default-size 30 GB volume (data
    uint8[10, 3 GiB] made on the card from a seed) through
    CudaCodec.matmul_device, every parity byte checked against the plain
@@ -36,9 +37,11 @@ last line is the device record. Any mismatch or error exits non-zero.
 
 from __future__ import annotations
 
+import collections
 import hashlib
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -83,16 +86,19 @@ def smi_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, runs: int) -> list[float]:
-    """Per-run device time of ``fn`` with CUDA events on the current stream."""
+def cuda_ms(fn, runs: int, reps: int = 1) -> list[float]:
+    """Per-call device time of ``fn`` with CUDA events on the current stream:
+    each run times ``reps`` calls back to back, so the host's time to enqueue
+    one call hides behind the device's work on the one before."""
     times = []
     for _ in range(runs):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     return times
 
 
@@ -116,23 +122,57 @@ def compare(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int]:
     return int((diff != 0).sum()), int(diff.max()) if diff.numel() else 0
 
 
+_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def sass_summary(lib: str, kc: int = 10) -> dict:
+    """Opcode counts of gf_matmul_kernel<kc> in the built library, and of its
+    output-row loop (the span of its longest backward branch), with how many
+    of the loop's instructions are predicated on a vector or a uniform
+    predicate."""
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    body = next(b for b in re.split(r"\n\s*Function : ", text)
+                if re.match(rf"\S*gf_matmul_kernelILi{kc}E", b))
+    insns = [(int(a, 16), p.strip().lstrip("@!"), op.split(".")[0], rest)
+             for a, p, op, rest in _SASS_INSN.findall(body)]
+    loop = (0, 0)  # (target, address) of the longest backward branch
+    for addr, _, op, rest in insns:
+        m = re.search(r"0x([0-9a-f]+)", rest)
+        target = int(m.group(1), 16) if op == "BRA" and m else addr
+        if addr - target > loop[1] - loop[0]:
+            loop = (target, addr)
+    in_loop = [i for i in insns if loop[0] <= i[0] <= loop[1]]
+    return {"kernel": f"gf_matmul_kernel<{kc}>", "function_insns": len(insns),
+            "loop_insns": len(in_loop),
+            "loop_ops": dict(collections.Counter(i[2] for i in in_loop).most_common()),
+            "loop_vector_predicated": sum(i[1].startswith("P") for i in in_loop),
+            "loop_uniform_predicated": sum(i[1].startswith("UP") for i in in_loop)}
+
+
 # -- phases ------------------------------------------------------------------
 def phase0(state) -> None:
     t0 = time.perf_counter()
-    lib = gm.build(verbose=True)
+    lib = gm.build(verbose=True)  # prints ptxas's registers and spills
     build_s = time.perf_counter() - t0
     state["smi"] = smi_line()
     print(state["smi"], flush=True)
     emit({"phase": 0, "nvidia_smi": state["smi"], "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
-          "kernel_library": os.path.relpath(lib, HERE), "build_s": build_s})
+          "kernel_library": os.path.relpath(lib, HERE), "build_s": build_s,
+          "sass": sass_summary(lib)})
 
 
 def phase1(state) -> None:
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = mismatches = max_err = 0
-    for R, k in [(4, 10), (1, 10), (2, 10), (3, 10), (3, 6), (4, 12)]:
-        matrix = rand_u8((R, k), gen)
+    # R > 4, k at and past the kernel's 16-row chunk, and k = 1 beside the
+    # shapes of the main path
+    rng = np.random.default_rng(1)
+    for R, k in [(4, 10), (1, 10), (2, 10), (3, 10), (3, 6), (4, 12),
+                 (8, 10), (16, 10), (4, 16), (4, 17), (64, 64), (4, 1)]:
+        matrix = rng.integers(0, 256, (R, k), dtype=np.uint8)
         for n in (1, 15, 16, 17, 65537, 32 * MiB):
             data = rand_u8((k, n), gen)
             layouts = [(data, None)]
@@ -153,16 +193,17 @@ def phase1(state) -> None:
                 if bad:
                     print(f"MISMATCH R={R} k={k} n={n}: {bad} bytes", file=sys.stderr)
             del data
+    torch.cuda.empty_cache()  # free what the (64, 64) plain products left cached: phase 2 needs 48 GB
     # time at the encode shape of the main path: RS(10,4) parity, 32 MiB columns
     from seaweedfs_tpu_torch.ec import gf
 
     R, k, n = 4, 10, 32 * MiB
-    matrix = torch.from_numpy(gf.parity_matrix(k, R)).cuda()
+    matrix = gf.parity_matrix(k, R)
     data = rand_u8((k, n), gen)
     out = torch.empty((R, n), dtype=torch.uint8, device="cuda")
     for _ in range(3):
         gm.gf_matmul(matrix, data, out=out)
-    kern = cuda_ms(lambda: gm.gf_matmul(matrix, data, out=out), 20)
+    kern = cuda_ms(lambda: gm.gf_matmul(matrix, data, out=out), 20, reps=10)
     gm.gf_matmul_plain(matrix, data)
     plain = cuda_ms(lambda: gm.gf_matmul_plain(matrix, data), 3)
     bound_ms, bound_by = gf_bound_ms(R, k, n)
@@ -196,10 +237,9 @@ def phase2(state) -> None:
     per_run = gm.gf_matmul.launches - l0
     runs = cuda_ms(lambda: codec.matmul_device(codec.parity_rows, data, out=parity), 5)
     # check every parity byte against the plain version, 32 MiB at a time
-    coefs = torch.from_numpy(codec.parity_rows.copy()).cuda()
     bad = err = 0
     for pos in range(0, n, 32 * MiB):
-        want = gm.gf_matmul_plain(coefs, data[:, pos:pos + 32 * MiB])
+        want = gm.gf_matmul_plain(codec.parity_rows, data[:, pos:pos + 32 * MiB])
         b, e = compare(parity[:, pos:pos + 32 * MiB], want)
         bad, err = bad + b, max(err, e)
     p50 = statistics.median(runs)
@@ -306,9 +346,8 @@ def phase4(state) -> None:
     want_data = dat.reshape(n_rows, k, block).transpose(1, 0, 2).reshape(k, shard_size)
     shards = np.stack([np.fromfile(base + shard_ext(s), dtype=np.uint8) for s in range(k + m)])
     bad = int(np.count_nonzero(shards[:k] != want_data))
-    coefs = torch.from_numpy(codec.parity_rows.copy()).cuda()
     dev = torch.from_numpy(shards[:k]).cuda()
-    want_par = torch.cat([gm.gf_matmul_plain(coefs, dev[:, p:p + 32 * MiB])
+    want_par = torch.cat([gm.gf_matmul_plain(codec.parity_rows, dev[:, p:p + 32 * MiB])
                           for p in range(0, shard_size, 32 * MiB)], dim=1)
     bad += int((want_par != torch.from_numpy(shards[k:]).cuda()).sum())
     del dev, want_par, dat, want_data, shards

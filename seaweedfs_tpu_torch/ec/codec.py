@@ -142,10 +142,10 @@ def _writable(data: np.ndarray) -> np.ndarray:
 
 
 class _TorchCodec(Codec):
-    """What the card and CPU codecs share: the coefficient cache, the launch
-    width and the host-in, host-out ``matmul`` built on the device API
-    (``device_put``, ``matmul_device``, ``record_ready``, ``host_buffer``,
-    ``to_host``) that each subclass implements."""
+    """What the card and CPU codecs share: the launch width and the host-in,
+    host-out ``matmul`` built on the device API (``device_put``,
+    ``matmul_device``, ``record_ready``, ``host_buffer``, ``to_host``) that
+    each subclass implements."""
 
     def __init__(self, *args, device: "str | torch.device",
                  chunk_bytes: int = 32 * 1024 * 1024, **kwargs):
@@ -154,18 +154,6 @@ class _TorchCodec(Codec):
             raise ValueError("chunk_bytes must be positive")
         self.device = torch.device(device)
         self.chunk_bytes = chunk_bytes
-        self._coef_cache: dict[tuple, torch.Tensor] = {}
-
-    def _coefs(self, matrix: np.ndarray) -> torch.Tensor:
-        """Device-resident coefficient matrix, cached per matrix (the
-        ``TpuCodec._bitmat`` counterpart)."""
-        matrix = np.ascontiguousarray(matrix, dtype=np.uint8)
-        key = (matrix.shape, matrix.tobytes())
-        cached = self._coef_cache.get(key)
-        if cached is None:
-            cached = torch.from_numpy(matrix.copy()).to(self.device)
-            self._coef_cache[key] = cached
-        return cached
 
     def alignment(self) -> int:
         """Column widths fed to matmul_device must be multiples of this: the
@@ -232,8 +220,8 @@ class CudaCodec(_TorchCodec):
         The kernels run on the codec's compute stream, ordered after the
         caller's current stream, and the caller's stream is ordered after
         them: the result is ready for the caller as any PyTorch op's is."""
-        coefs = self._coefs(matrix)
-        R, n = coefs.shape[0], data_dev.shape[1]
+        matrix = np.ascontiguousarray(matrix, dtype=np.uint8)
+        R, n = matrix.shape[0], data_dev.shape[1]
         caller = torch.cuda.current_stream(self.device)
         self._compute.wait_stream(caller)
         with torch.cuda.stream(self._compute):
@@ -241,7 +229,7 @@ class CudaCodec(_TorchCodec):
                 out = torch.empty((R, n), dtype=torch.uint8, device=self.device)
             for pos in range(0, n, self.chunk_bytes):
                 end = min(pos + self.chunk_bytes, n)
-                gf_matmul(coefs, data_dev[:, pos:end], out=out[:, pos:end])
+                gf_matmul(matrix, data_dev[:, pos:end], out=out[:, pos:end])
         # the allocator must not hand either buffer to another stream while
         # these kernels still use it
         data_dev.record_stream(self._compute)
@@ -296,7 +284,7 @@ class CpuCodec(_TorchCodec):
 
     def matmul_device(self, matrix: np.ndarray, data_dev: torch.Tensor,
                       out: "torch.Tensor | None" = None) -> torch.Tensor:
-        return gf_matmul(self._coefs(matrix), data_dev, out=out)
+        return gf_matmul(np.ascontiguousarray(matrix, dtype=np.uint8), data_dev, out=out)
 
     def record_ready(self) -> None:
         return None

@@ -9,6 +9,10 @@ hand-written kernel in ``csrc/gf_matmul.cu`` (see its header for the design
 and the bound) or raises; on a CPU tensor it runs the plain version. There is
 no fallback from one to the other.
 
+The matrix is a host array. The kernel reads it as per-(r, j) bit masks
+(``coef_masks``), built on the host once per matrix and passed by value at
+launch, so no launch copies coefficients to or from the card.
+
 The kernel is compiled with ``nvcc`` at first use into ``csrc/build/`` and
 loaded with ctypes; nothing is built at import, so the module imports where
 there is no CUDA toolkit.
@@ -34,13 +38,14 @@ BUILD_DIR = os.path.join(_CSRC, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 MAX_ROWS = MAX_COLS = 64  # kMaxRows / kMaxCols in the source
+CHUNK = 16  # kChunk in the source: data rows per launch
 
 # The plain version walks columns in tiles so the 8x-expanded bit planes stay
 # bounded (4 MiB columns x 8k planes x 2 or 4 bytes), as TpuCodec._kernel's
 # fori_loop over tile_bytes does.
 PLAIN_TILE = 4 * 1024 * 1024
 
-_lib = None
+_launch = None
 _lib_lock = threading.Lock()
 
 
@@ -57,7 +62,8 @@ def _nvcc() -> str:
 def build(verbose: bool = False) -> str:
     """Compile ``gf_matmul.cu`` into ``csrc/build/`` unless a library built
     from the same source and flags is already there. Returns its path;
-    raises if ``nvcc`` is missing or the build fails."""
+    raises if ``nvcc`` is missing or the build fails. ``verbose`` prints
+    ptxas's registers and spills."""
     with open(SOURCE, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib_path = os.path.join(BUILD_DIR, f"libgf_matmul-{digest}.so")
@@ -77,18 +83,48 @@ def build(verbose: bool = False) -> str:
 
 
 def _load():
-    global _lib
+    global _launch
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            fn = lib.gf_matmul_launch
+        if _launch is None:
+            fn = ctypes.CDLL(build()).gf_matmul_launch
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                            ctypes.c_void_p, ctypes.c_longlong,
                            ctypes.c_void_p, ctypes.c_longlong,
                            ctypes.c_longlong, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+            _launch = fn
+    return _launch
+
+
+def coef_masks(matrix: np.ndarray) -> np.ndarray:
+    """The kernel's view of a GF matrix: uint64[R, 8] with bit d of
+    ``masks[r, j]`` set when bit j of ``matrix[r, d]`` is (k <= 64)."""
+    m = np.asarray(matrix, dtype=np.uint8)
+    if m.ndim != 2 or m.shape[1] > 64:
+        raise ValueError(f"want an R x k matrix with k <= 64, got {m.shape}")
+    bits = (m[:, None, :] >> np.arange(8, dtype=np.uint8)[None, :, None]) & 1  # (R, 8, k)
+    weights = np.uint64(1) << np.arange(m.shape[1], dtype=np.uint64)
+    return np.bitwise_or.reduce(bits.astype(np.uint64) * weights, axis=2,
+                                initial=np.uint64(0)).astype(np.uint64)
+
+
+_mask_cache: dict = {}
+
+
+def _masks(matrix: np.ndarray) -> np.ndarray:
+    """``coef_masks`` of ``matrix``, cached per matrix (the counterpart of
+    ``TpuCodec._bitmat``)."""
+    key = (matrix.shape, matrix.tobytes())
+    cached = _mask_cache.get(key)
+    if cached is None:
+        cached = _mask_cache[key] = coef_masks(matrix)
+    return cached
+
+
+def _check_matrix(matrix: np.ndarray) -> None:
+    if not isinstance(matrix, np.ndarray) or matrix.dtype != np.uint8 or matrix.ndim != 2:
+        raise ValueError("matrix: want a 2-D uint8 np.ndarray on the host, "
+                         f"got {type(matrix).__name__}")
 
 
 def _check_rows(name: str, t: torch.Tensor) -> None:
@@ -102,22 +138,19 @@ def _check_rows(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name}: overlapping rows (stride {t.stride()})")
 
 
-def gf_matmul(matrix: torch.Tensor, data: torch.Tensor,
+def gf_matmul(matrix: np.ndarray, data: torch.Tensor,
               out: "torch.Tensor | None" = None) -> torch.Tensor:
     """(R x k GF matrix) @ (k x n bytes) -> (R x n bytes), on data's device.
 
-    ``matrix`` is a contiguous uint8 tensor on the same device as ``data``.
+    ``matrix`` is a host uint8 np.ndarray, whatever the device of ``data``.
     ``data`` and ``out`` are uint8 with contiguous rows (see _check_rows).
-    A CUDA launch goes on the current stream and adds one to
-    ``gf_matmul.launches``."""
-    if matrix.dtype != torch.uint8 or matrix.dim() != 2 or not matrix.is_contiguous():
-        raise ValueError("matrix: want a contiguous 2-D uint8 tensor")
+    On CUDA the kernels go on the current stream, one per CHUNK data rows,
+    and each adds one to ``gf_matmul.launches``."""
+    _check_matrix(matrix)
     _check_rows("data", data)
     R, k = matrix.shape
     if data.shape[0] != k:
-        raise ValueError(f"shape mismatch: matrix {tuple(matrix.shape)} @ data {tuple(data.shape)}")
-    if matrix.device != data.device:
-        raise ValueError(f"matrix on {matrix.device}, data on {data.device}")
+        raise ValueError(f"shape mismatch: matrix {matrix.shape} @ data {tuple(data.shape)}")
     n = data.shape[1]
     if out is None:
         out = torch.empty((R, n), dtype=torch.uint8, device=data.device)
@@ -134,16 +167,15 @@ def gf_matmul(matrix: torch.Tensor, data: torch.Tensor,
         raise ValueError(f"gf_matmul kernel takes R, k <= {MAX_ROWS}; got {R}x{k}")
     if R == 0 or n == 0:
         return out
-    lib = _load()
+    masks = _masks(matrix)
+    launch = _load()
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
-        err = lib.gf_matmul_launch(
-            matrix.data_ptr(), R, k, data.data_ptr(), data.stride(0),
-            out.data_ptr(), out.stride(0), n, stream,
-        )
+        err = launch(masks.ctypes.data, R, k, data.data_ptr(), data.stride(0),
+                     out.data_ptr(), out.stride(0), n, stream)
     if err != 0:
         raise RuntimeError(f"gf_matmul launch failed: CUDA error {err}")
-    gf_matmul.launches += 1
+    gf_matmul.launches += -(-k // CHUNK)
     return out
 
 
@@ -163,28 +195,29 @@ def _plain_dtype(device: torch.device) -> torch.dtype:
     return torch.float16 if device.type == "cuda" else torch.float32
 
 
-def _bit_matrix(matrix: torch.Tensor) -> torch.Tensor:
-    """GF(2) bit matrix (8R x 8k) on matrix's device, cached."""
-    key = (matrix.cpu().numpy().tobytes(), tuple(matrix.shape), str(matrix.device))
+def _bit_matrix(matrix: np.ndarray, device: torch.device) -> torch.Tensor:
+    """GF(2) bit matrix (8R x 8k) on ``device``, cached."""
+    key = (matrix.shape, matrix.tobytes(), str(device))
     cached = _bitmat_cache.get(key)
     if cached is None:
-        bm = gf.gf_matrix_to_bit_matrix(matrix.cpu().numpy().astype(np.uint8))
-        cached = torch.from_numpy(bm).to(matrix.device, _plain_dtype(matrix.device))
+        bm = gf.gf_matrix_to_bit_matrix(matrix)
+        cached = torch.from_numpy(bm).to(device, _plain_dtype(device))
         _bitmat_cache[key] = cached
     return cached
 
 
-def gf_matmul_plain(matrix: torch.Tensor, data: torch.Tensor,
+def gf_matmul_plain(matrix: np.ndarray, data: torch.Tensor,
                     out: "torch.Tensor | None" = None) -> torch.Tensor:
     """The plain PyTorch version, on any device: TpuCodec._kernel's bit
     matmul (seaweedfs_tpu/ec/codec.py:314-329). Unpack bytes to bits with
     shifts, multiply by the GF(2) bit matrix (exactly, see _plain_dtype),
-    reduce mod 2, repack."""
+    reduce mod 2, repack. ``matrix`` is a host uint8 np.ndarray."""
+    _check_matrix(matrix)
     R, k = matrix.shape
     n = data.shape[1]
     if out is None:
         out = torch.empty((R, n), dtype=torch.uint8, device=data.device)
-    bitmat = _bit_matrix(matrix)
+    bitmat = _bit_matrix(matrix, data.device)
     shifts = torch.arange(8, dtype=torch.uint8, device=data.device)
     weights = (torch.ones(8, dtype=torch.int32, device=data.device) << shifts.int())
     for pos in range(0, n, PLAIN_TILE):

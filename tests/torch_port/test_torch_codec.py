@@ -15,7 +15,7 @@ import torch
 from seaweedfs_tpu.ec.codec import NumpyCodec, TpuCodec
 from seaweedfs_tpu_torch.ec import codec as pcodec
 from seaweedfs_tpu_torch.ec.codec import Codec, CpuCodec, CudaCodec, get_codec
-from seaweedfs_tpu_torch.ec.gf_matmul import gf_matmul, gf_matmul_plain
+from seaweedfs_tpu_torch.ec.gf_matmul import CHUNK, gf_matmul, gf_matmul_plain
 
 WIDTHS = [1, 7, 777, 4096, 5000, 65537]
 GEOMETRIES = [(10, 4), (6, 3), (12, 4)]
@@ -46,7 +46,7 @@ def test_gf_matmul_matches_pallas_kernel(pallas, rows):
     rng = np.random.default_rng(40 + rows)
     matrix = rng.integers(0, 256, (rows, 10), dtype=np.uint8)
     data = rng.integers(0, 256, (10, 5000), dtype=np.uint8)
-    got = gf_matmul(torch.from_numpy(matrix), torch.from_numpy(data))
+    got = gf_matmul(matrix, torch.from_numpy(data))
     assert np.array_equal(got.numpy(), pallas.matmul(matrix, data))
 
 
@@ -151,7 +151,11 @@ def test_device_api_on_cpu(port):
 
 
 def test_wrapper_validates_inputs():
-    m = torch.zeros((4, 10), dtype=torch.uint8)
+    m = np.zeros((4, 10), dtype=np.uint8)
+    with pytest.raises(ValueError):
+        gf_matmul(torch.from_numpy(m), torch.zeros((10, 16), dtype=torch.uint8))  # not host
+    with pytest.raises(ValueError):
+        gf_matmul(m.astype(np.int32), torch.zeros((10, 16), dtype=torch.uint8))  # dtype
     with pytest.raises(ValueError):
         gf_matmul(m, torch.zeros((9, 16), dtype=torch.uint8))  # k mismatch
     with pytest.raises(ValueError):
@@ -164,10 +168,10 @@ def test_wrapper_validates_inputs():
     # a column slice (row stride > width) is taken, and written into a slice
     rng = np.random.default_rng(14)
     wide = torch.from_numpy(rng.integers(0, 256, (10, 100), dtype=np.uint8))
-    coef = torch.from_numpy(rng.integers(0, 256, (4, 10), dtype=np.uint8))
+    coef = rng.integers(0, 256, (4, 10), dtype=np.uint8)
     out = torch.zeros((4, 120), dtype=torch.uint8)
     gf_matmul(coef, wide[:, 5:65], out=out[:, 10:70])
-    want = NumpyCodec().matmul(coef.numpy(), np.ascontiguousarray(wide[:, 5:65].numpy()))
+    want = NumpyCodec().matmul(coef, np.ascontiguousarray(wide[:, 5:65].numpy()))
     assert np.array_equal(out[:, 10:70].numpy(), want)
     assert not out[:, :10].any() and not out[:, 70:].any()
 
@@ -181,18 +185,21 @@ def test_cpu_tensors_never_count_a_launch(port):
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_the_card():
     """The CUDA kernel against its plain version at ragged widths, strided
-    and unaligned layouts (runs only where there is a card)."""
+    and unaligned layouts, for R > 4, k at and past the kernel's 16-row chunk
+    and k = 1 (runs only where there is a card)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for R, k in [(4, 10), (1, 10), (3, 6), (4, 12)]:
-        matrix = torch.empty((R, k), dtype=torch.uint8, device="cuda").random_(generator=gen)
+    rng = np.random.default_rng(0)
+    for R, k in [(4, 10), (1, 10), (3, 6), (4, 12), (8, 10), (16, 10), (4, 16), (4, 17),
+                 (64, 64), (4, 1)]:
+        matrix = rng.integers(0, 256, (R, k), dtype=np.uint8)
         for n in (1, 15, 16, 17, 4099, 65537):
             wide = torch.empty((k, n + 7), dtype=torch.uint8, device="cuda").random_(generator=gen)
             for data in (wide[:, :n].contiguous(), wide[:, 3:3 + n]):
                 before = gf_matmul.launches
                 got = gf_matmul(matrix, data)
-                assert gf_matmul.launches == before + 1
+                assert gf_matmul.launches == before + -(-k // CHUNK)  # one per 16 data rows
                 torch.cuda.synchronize()
                 assert torch.equal(got, gf_matmul_plain(matrix, data)), (R, k, n)
     codec = pcodec.get_codec()
