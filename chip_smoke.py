@@ -26,11 +26,19 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    the plain version and the .vif sha256 sums;
 5. a small-needle volume: degraded reads of every needle with a data shard
    lost (read_ec_shard_needle), then decode_to_volume with three data
-   shards lost, checked byte for byte against what was written.
+   shards lost, checked byte for byte against what was written;
+6. the server path: a port VolumeServer (CUDA backend) beside a stub
+   master takes 1 GiB of needles (1 KiB-1 MiB, log-uniform) over HTTP from
+   8 threads; /admin/ec/generate (shards checked as in phase 4), mount,
+   delete_volume, delete_shards {0, 3, 10, 13}, 64 degraded GETs compared
+   byte for byte, /admin/ec/rebuild (sha256 against the .vif), then
+   /admin/ec/to_volume with data shards 1, 2, 5 lost (.dat identical, .idx
+   identical in key order). Each EC step must launch the kernel, and the
+   needle CRC must be the native build.
 
 Every phase prints one JSON line with its numbers and kernel launches.
-Phases 2-5 are the main path: the launch counts are zeroed before phase 2
-and read after phase 5, and every phase must have launched the kernel. The
+Phases 2-6 are the main path: the launch counts are zeroed before phase 2
+and read after phase 6, and every phase must have launched the kernel. The
 line before last lists each kernel with its launches, error and times; the
 last line is the device record. Any mismatch or error exits non-zero.
 """
@@ -39,14 +47,20 @@ from __future__ import annotations
 
 import collections
 import hashlib
+import http.client
+import http.server
+import io
 import json
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.parse
 
 import numpy as np
 import torch
@@ -54,14 +68,17 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-from seaweedfs_tpu_torch.ec import encoder  # noqa: E402
+from seaweedfs_tpu_torch.ec import decoder, encoder  # noqa: E402
 from seaweedfs_tpu_torch.ec import gf_matmul as gm  # noqa: E402
 from seaweedfs_tpu_torch.ec.codec import get_codec  # noqa: E402
 from seaweedfs_tpu_torch.ec.constants import shard_ext  # noqa: E402
 from seaweedfs_tpu_torch.ec.decoder import decode_to_volume  # noqa: E402
 from seaweedfs_tpu_torch.ec.ec_volume import EcVolume  # noqa: E402
+from seaweedfs_tpu_torch.server.volume_server import VolumeServer  # noqa: E402
+from seaweedfs_tpu_torch.storage import crc  # noqa: E402
 from seaweedfs_tpu_torch.storage import idx as idx_mod  # noqa: E402
-from seaweedfs_tpu_torch.storage.needle import Needle  # noqa: E402
+from seaweedfs_tpu_torch.storage.file_id import FileId  # noqa: E402
+from seaweedfs_tpu_torch.storage.needle import Needle, get_actual_size  # noqa: E402
 from seaweedfs_tpu_torch.storage.store import (  # noqa: E402
     ec_encode_volume,
     read_ec_shard_needle,
@@ -315,6 +332,37 @@ def _sha256(path: str) -> str:
     return h.hexdigest()
 
 
+def check_shards(base: str, codec) -> tuple[int, list[str]]:
+    """(mismatched bytes, .vif sums) of the 14 shard files of ``base``: the
+    data shards must be the striped .dat (1 MiB small-block rows, zero
+    padded; a .dat under 10 GiB has no large rows), the parity the plain
+    version applied to them on the card, and every shard's sha256 the one
+    in the .vif."""
+    k, m = codec.data_shards, codec.parity_shards
+    dat_size = os.path.getsize(base + ".dat")
+    shard_size = os.path.getsize(base + shard_ext(0))
+    block = encoder.SMALL_BLOCK_SIZE
+    n_rows = shard_size // block
+    dat = np.zeros(n_rows * k * block, dtype=np.uint8)
+    with open(base + ".dat", "rb") as f:
+        f.readinto(memoryview(dat)[:dat_size])
+    want_data = dat.reshape(n_rows, k, block).transpose(1, 0, 2).reshape(k, shard_size)
+    shards = np.stack([np.fromfile(base + shard_ext(s), dtype=np.uint8) for s in range(k + m)])
+    bad = int(np.count_nonzero(shards[:k] != want_data))
+    dev = torch.from_numpy(shards[:k]).cuda()
+    want_par = torch.cat([gm.gf_matmul_plain(codec.parity_rows, dev[:, p:p + 32 * MiB])
+                          for p in range(0, shard_size, 32 * MiB)], dim=1)
+    bad += int((want_par != torch.from_numpy(shards[k:]).cuda()).sum())
+    del dev, want_par, dat, want_data, shards
+    with open(base + ".vif") as f:
+        sums = json.load(f)["shard_sums"]
+    bad_sums = [s for s in range(k + m) if _sha256(base + shard_ext(s)) != sums[s]]
+    if bad_sums:
+        print(f"shard sums differ from the .vif: {bad_sums}", file=sys.stderr)
+        bad += len(bad_sums)
+    return bad, sums
+
+
 def phase4(state) -> None:
     """File-level encode + rebuild of a 1 GiB volume."""
     codec = get_codec()
@@ -335,25 +383,8 @@ def phase4(state) -> None:
     ec_encode_volume(base, codec, version=3, pipeline_stats=enc_stats)
     enc_s = time.perf_counter() - t0
 
-    # data shards are the striped .dat (1 MiB small-block rows); parity is
-    # the plain version applied to them
+    bad, sums = check_shards(base, codec)
     shard_size = os.path.getsize(base + shard_ext(0))
-    block = encoder.SMALL_BLOCK_SIZE
-    n_rows = shard_size // block
-    dat = np.zeros(n_rows * k * block, dtype=np.uint8)
-    with open(base + ".dat", "rb") as f:
-        f.readinto(memoryview(dat)[:dat_size])
-    want_data = dat.reshape(n_rows, k, block).transpose(1, 0, 2).reshape(k, shard_size)
-    shards = np.stack([np.fromfile(base + shard_ext(s), dtype=np.uint8) for s in range(k + m)])
-    bad = int(np.count_nonzero(shards[:k] != want_data))
-    dev = torch.from_numpy(shards[:k]).cuda()
-    want_par = torch.cat([gm.gf_matmul_plain(codec.parity_rows, dev[:, p:p + 32 * MiB])
-                          for p in range(0, shard_size, 32 * MiB)], dim=1)
-    bad += int((want_par != torch.from_numpy(shards[k:]).cuda()).sum())
-    del dev, want_par, dat, want_data, shards
-
-    with open(base + ".vif") as f:
-        sums = json.load(f)["shard_sums"]
     for s in LOST:
         os.remove(base + shard_ext(s))
     reb_stats: dict = {}
@@ -442,7 +473,332 @@ def phase5(state) -> None:
         raise SystemExit("phase 5: needle volume round trip failed")
 
 
-MAIN_PATH = (phase2, phase3, phase4, phase5)
+class StubMaster:
+    """The master's side of the volume server protocol, enough for one
+    server: full and delta heartbeats in (volumes and EC shard bits per
+    node), ``/cluster/ping``, ``/dir/lookup`` and ``/dir/lookup_ec`` out."""
+
+    def __init__(self):
+        self.volumes: dict[int, set] = collections.defaultdict(set)  # vid -> {url}
+        self.ec: dict[int, dict] = collections.defaultdict(dict)  # vid -> {url: bits}
+        self.lock = threading.Lock()
+        master = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def _reply(self, obj):
+                body = json.dumps(obj).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                u = urllib.parse.urlparse(self.path)
+                q = dict(urllib.parse.parse_qsl(u.query))
+                with master.lock:
+                    if u.path == "/cluster/ping":
+                        self._reply({"ok": True})
+                    elif u.path == "/dir/lookup":
+                        urls = sorted(master.volumes[int(q["volumeId"])])
+                        self._reply({"locations": [{"url": x, "publicUrl": x} for x in urls]})
+                    elif u.path == "/dir/lookup_ec":
+                        held = master.ec[int(q["volumeId"])]
+                        self._reply({"shard_id_locations": {
+                            str(s): [x for x, bits in held.items() if bits >> s & 1]
+                            for s in range(14)}})
+                    else:
+                        self.send_error(404)
+
+            def do_POST(self):
+                hb = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+                master.heartbeat(hb)
+                self._reply({})
+
+        self.srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"127.0.0.1:{self.srv.server_address[1]}"
+        self.thread = threading.Thread(target=self.srv.serve_forever, daemon=True)
+        self.thread.start()
+
+    def heartbeat(self, hb: dict) -> None:
+        url = hb["public_url"]
+        with self.lock:
+            if "volumes" in hb:  # a full beat: what this node holds, all of it
+                for holders in self.volumes.values():
+                    holders.discard(url)
+                for held in self.ec.values():
+                    held.pop(url, None)
+                for v in hb["volumes"]:
+                    self.volumes[v["id"]].add(url)
+                for e in hb.get("ec_shards", []):
+                    self.ec[e["id"]][url] = e["ec_index_bits"]
+            for v in hb.get("new_volumes", []):
+                self.volumes[v["id"]].add(url)
+            for v in hb.get("deleted_volumes", []):
+                self.volumes[v["id"]].discard(url)
+            for e in hb.get("new_ec_shards", []):
+                held = self.ec[e["id"]]
+                held[url] = held.get(url, 0) | e["ec_index_bits"]
+            for e in hb.get("deleted_ec_shards", []):
+                held = self.ec[e["id"]]
+                held[url] = held.get(url, 0) & ~e["ec_index_bits"]
+
+    def stop(self) -> None:
+        self.srv.shutdown()
+        self.srv.server_close()
+        self.thread.join()
+
+
+def _pct(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def _call(url: str, method: str, path: str, body: bytes = b"") -> tuple[int, bytes, float]:
+    """One request on a fresh connection: (status, body, seconds)."""
+    conn = http.client.HTTPConnection(url, timeout=600)
+    try:
+        t0 = time.perf_counter()
+        conn.request(method, path, body=body)
+        resp = conn.getresponse()
+        data = resp.read()
+        return resp.status, data, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def _admin(url: str, path: str) -> dict:
+    status, data, _ = _call(url, "POST", path)
+    if status != 200:
+        raise SystemExit(f"phase 6: POST {path} answered {status}: {data[:300]!r}")
+    return json.loads(data)
+
+
+class _Timer:
+    """Wraps a callable, adding its calls' seconds to ``seconds`` (summed
+    over the threads that call it)."""
+
+    def __init__(self, fn):
+        self.fn, self.seconds, self.calls = fn, 0.0, 0
+        self.lock = threading.Lock()
+
+    def __call__(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return self.fn(*args, **kwargs)
+        finally:
+            with self.lock:
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+
+
+class _Timed:
+    """Within the block, the named attributes of each object are wrapped in
+    ``_Timer``s (``timers[name]``); on exit the originals are back."""
+
+    def __init__(self, *targets):
+        self.targets = targets  # (object, attribute name)
+        self.timers: dict[str, _Timer] = {}
+
+    def __enter__(self):
+        self.saved = [(obj, name, obj.__dict__.get(name)) for obj, name in self.targets]
+        for obj, name in self.targets:
+            self.timers[name] = _Timer(getattr(obj, name))
+            setattr(obj, name, self.timers[name])
+        return self.timers
+
+    def __exit__(self, *exc):
+        for obj, name, old in self.saved:
+            if old is None:
+                delattr(obj, name)  # an instance attribute over a method
+            else:
+                setattr(obj, name, old)
+
+
+def phase6(state) -> None:
+    """The server path: a port VolumeServer with the CUDA backend, beside a
+    stub master, takes a 1 GiB needle volume over HTTP, encodes it, serves
+    degraded reads with shards {0, 3, 10, 13} lost, rebuilds them, and
+    decodes the volume back, each EC step through its admin endpoint."""
+    vid, k, threads = 6, 10, 8
+    master = StubMaster()
+    srv_dir = os.path.join(WORK, "6srv")
+    base = os.path.join(srv_dir, str(vid))
+    port = _free_port()
+    vs = VolumeServer([srv_dir], host="127.0.0.1", port=port, master_url=master.url,
+                      pulse_seconds=1.0, ec_backend="cuda")
+    url = f"127.0.0.1:{port}"
+    out: dict = {"phase": 6}
+    steps: dict = {}
+
+    def step(name: str, fn):
+        l0 = gm.gf_matmul.launches
+        res = fn()
+        steps[name] = gm.gf_matmul.launches - l0
+        return res
+
+    try:
+        vs.start()
+        _admin(url, f"/admin/assign_volume?volume={vid}&replication=000")
+
+        # needles with sizes log-uniform in 1 KiB..1 MiB until the .dat
+        # holds 1 GiB, fids made here, uploaded from 8 client threads
+        rng = np.random.default_rng(6)
+        blobs, total = [], 8
+        while total < GiB:
+            size = int(np.exp(rng.uniform(np.log(1024), np.log(MiB))))
+            fid = str(FileId(vid, len(blobs) + 1, int(rng.integers(1, 1 << 32))))
+            blobs.append((fid, rng.bytes(size)))
+            total += get_actual_size(size, 3)
+        nxt = iter(range(len(blobs)))
+        lat = [[] for _ in range(threads)]
+        errors: list = []
+
+        def upload(t: int) -> None:
+            conn = http.client.HTTPConnection(url, timeout=120)
+            try:
+                for i in nxt:  # a shared iterator: each index goes to one thread
+                    fid, data = blobs[i]
+                    t0 = time.perf_counter()
+                    conn.request("POST", "/" + fid, body=data)
+                    resp = conn.getresponse()
+                    resp.read()
+                    lat[t].append(time.perf_counter() - t0)
+                    if resp.status != 201:
+                        errors.append((fid, resp.status))
+                        return
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(repr(e))
+            finally:
+                conn.close()
+
+        # server-side busy seconds, summed over request threads: the master
+        # lookup each POST makes (for replicas) and the volume append
+        with _Timed((vs, "_lookup"), (vs.store, "write_volume_needle")) as busy:
+            t0 = time.perf_counter()
+            pool = [threading.Thread(target=upload, args=(t,)) for t in range(threads)]
+            for t in pool:
+                t.start()
+            for t in pool:
+                t.join()
+            write_s = time.perf_counter() - t0
+        if errors:
+            raise SystemExit(f"phase 6: uploads failed: {errors[:5]}")
+        post_ms = [x * 1e3 for xs in lat for x in xs]
+        payload = sum(len(d) for _, d in blobs)
+        out.update(needles=len(blobs), payload_bytes=payload, write_s=write_s,
+                   write_MBps=payload / write_s / 1e6, post_ms_p50=_pct(post_ms, 50),
+                   post_ms_p99=_pct(post_ms, 99), client_threads=threads,
+                   post_lookup_busy_s=busy["_lookup"].seconds,
+                   post_append_busy_s=busy["write_volume_needle"].seconds)
+
+        # encode through the admin surface
+        _admin(url, f"/admin/readonly?volume={vid}")
+        # the seal's fsync and the striping pipeline, apart from the rest
+        # (.ecx, shard sha256 sums, commit)
+        with _Timed((vs.store.find_volume(vid), "sync"), (encoder, "write_ec_files")) as gt:
+            gen = step("generate", lambda: _admin(url, f"/admin/ec/generate?volume={vid}"))
+        dat_sha, dat_bytes = _sha256(base + ".dat"), os.path.getsize(base + ".dat")
+        with open(base + ".idx", "rb") as f:
+            orig_idx = f.read()
+        codec = vs.store.ec_codec
+        bad, sums = check_shards(base, codec)
+        out.update(dat_bytes=dat_bytes, generate_s=gen["seconds"], generate_bytes=gen["bytes"],
+                   generate_GBps=gen["bytes"] / gen["seconds"] / 1e9,
+                   generate_seal_s=gt["sync"].seconds,
+                   generate_stripe_s=gt["write_ec_files"].seconds, shard_mismatches=bad)
+        if bad or gen["shards"] != list(range(14)):
+            raise SystemExit("phase 6: generated shards are wrong")
+        mounted = _admin(url, f"/admin/ec/mount?volume={vid}")["shards"]
+        if not _admin(url, f"/admin/delete_volume?volume={vid}")["deleted"] or len(mounted) != 14:
+            raise SystemExit("phase 6: the EC volume did not take over from the plain one")
+
+        # degraded reads: needles with a block on a lost data shard
+        removed = _admin(url, f"/admin/ec/delete_shards?volume={vid}&shards="
+                              + ",".join(map(str, LOST)))["removed"]
+        if removed != LOST:
+            raise SystemExit(f"phase 6: delete_shards removed {removed}")
+        block = encoder.SMALL_BLOCK_SIZE
+        offsets = {key: (off, size) for key, off, size in
+                   idx_mod.iter_index_file(io.BytesIO(orig_idx))}
+        lost_data = {s for s in LOST if s < k}
+
+        def on_lost(i: int) -> bool:
+            off, size = offsets[i + 1]
+            end = off + get_actual_size(size, 3)
+            return any(b % k in lost_data for b in range(off // block, (end - 1) // block + 1))
+
+        pick = [int(i) for i in np.random.default_rng(66).permutation(len(blobs))
+                if on_lost(int(i))][:64]
+        store = vs.store
+        get_ms, bad_reads = [], 0
+        l0 = gm.gf_matmul.launches
+        with _Timed((store, "_remote_shard_read"), (codec, "reconstruct"),
+                    (codec, "host_buffer")) as rt:
+            for i in pick:
+                fid, want = blobs[i]
+                status, data, sec = _call(url, "GET", "/" + fid)
+                get_ms.append(sec * 1e3)
+                bad_reads += status != 200 or data != want
+        steps["degraded_get"] = gm.gf_matmul.launches - l0
+        out.update(degraded_reads=len(pick), bad_reads=bad_reads,
+                   get_ms_p50=_pct(get_ms, 50), get_ms_p99=_pct(get_ms, 99),
+                   get_s=sum(get_ms) / 1e3, remote_fetch_s=rt["_remote_shard_read"].seconds,
+                   remote_fetch_calls=rt["_remote_shard_read"].calls,
+                   reconstruct_s=rt["reconstruct"].seconds,
+                   reconstruct_calls=rt["reconstruct"].calls,
+                   pinned_alloc_s=rt["host_buffer"].seconds,
+                   retry_policy={"attempts": store.remote_fetch_attempts,
+                                 "backoff_s": store.remote_fetch_backoff_s})
+        if bad_reads or len(pick) < 64:
+            raise SystemExit(f"phase 6: {bad_reads} of {len(pick)} degraded reads wrong")
+
+        # rebuild the lost shards, then decode with data shards 1, 2, 5 lost
+        reb = step("rebuild", lambda: _admin(url, f"/admin/ec/rebuild?volume={vid}"))
+        bad_sums = [s for s in LOST if _sha256(base + shard_ext(s)) != sums[s]]
+        out.update(rebuild_s=reb["seconds"], rebuilt=reb["rebuilt_shards"], bad_shard_sums=bad_sums)
+        if bad_sums or reb["rebuilt_shards"] != LOST:
+            raise SystemExit("phase 6: rebuilt shards differ from the .vif sums")
+        _admin(url, f"/admin/ec/delete_shards?volume={vid}&shards=1,2,5")
+        with _Timed((decoder, "rebuild_ec_files"), (decoder, "write_dat_file")) as dt:
+            dec = step("to_volume", lambda: _admin(url, f"/admin/ec/to_volume?volume={vid}"))
+        with open(base + ".idx", "rb") as f:
+            idx_now = f.read()
+        # the decoded .idx lists the entries in key order (it is made from
+        # the .ecx), the written one in the order the 8 threads appended
+        # (keys are big-endian, so byte order is key order)
+        key_order = b"".join(sorted(orig_idx[i:i + 16] for i in range(0, len(orig_idx), 16)))
+        dat_ok = _sha256(base + ".dat") == dat_sha and dec["dat_size"] == dat_bytes
+        idx_ok = idx_now == key_order
+        out.update(to_volume_s=dec["seconds"], to_volume_rebuild_s=dt["rebuild_ec_files"].seconds,
+                   to_volume_destripe_s=dt["write_dat_file"].seconds, dat_identical=dat_ok,
+                   idx_identical_in_key_order=idx_ok, file_count=dec["file_count"])
+        status, data, _ = _call(url, "GET", "/" + blobs[pick[0]][0])
+        if not (dat_ok and idx_ok) or (status, data) != (200, blobs[pick[0]][1]):
+            raise SystemExit(f"phase 6: the decoded volume differs from the original "
+                             f"(dat {dat_ok}, idx {idx_ok}, GET {status})")
+    finally:
+        vs.stop()
+        master.stop()
+    out.update(crc=crc.implementation(), step_launches=steps,
+               launches=gm.gf_matmul.launches - state["l_phase"], nvidia_smi=state["smi"])
+    emit(out)
+    if out["crc"] != "native":
+        raise SystemExit("phase 6: the needle CRC is not the native build")
+    idle = [name for name, n in steps.items() if not n]
+    if idle:
+        raise SystemExit(f"phase 6: no kernel launch in {idle}")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+MAIN_PATH = (phase2, phase3, phase4, phase5, phase6)
 
 
 def main() -> int:

@@ -47,6 +47,9 @@ PLAIN_TILE = 4 * 1024 * 1024
 
 _launch = None
 _lib_lock = threading.Lock()
+# request threads of the volume server launch concurrently, and ``+=`` on
+# the counter is a read-modify-write
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -145,7 +148,8 @@ def gf_matmul(matrix: np.ndarray, data: torch.Tensor,
     ``matrix`` is a host uint8 np.ndarray, whatever the device of ``data``.
     ``data`` and ``out`` are uint8 with contiguous rows (see _check_rows).
     On CUDA the kernels go on the current stream, one per CHUNK data rows,
-    and each adds one to ``gf_matmul.launches``."""
+    and each adds one to ``gf_matmul.launches`` (under a lock: any thread
+    may launch)."""
     _check_matrix(matrix)
     _check_rows("data", data)
     R, k = matrix.shape
@@ -175,7 +179,8 @@ def gf_matmul(matrix: np.ndarray, data: torch.Tensor,
                      out.data_ptr(), out.stride(0), n, stream)
     if err != 0:
         raise RuntimeError(f"gf_matmul launch failed: CUDA error {err}")
-    gf_matmul.launches += -(-k // CHUNK)
+    with _count_lock:
+        gf_matmul.launches += -(-k // CHUNK)
     return out
 
 

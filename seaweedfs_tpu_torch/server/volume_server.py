@@ -1,0 +1,883 @@
+"""Volume server daemon: needle data plane, admin surface and heartbeats.
+
+Endpoint map (reference -> here), the same wire surface as the JAX
+package's volume server, so its master and shell drive this one:
+
+    GET/HEAD /<vid>,<fid>      volume_server_handlers_read.go:28 (plain and
+                               EC needles, Range, gzip passthrough, chunk
+                               manifests resolved server-side)
+    POST/PUT /<vid>,<fid>      volume_server_handlers_write.go:19 (raw body;
+                               name/mime via X-Sweed-Name/X-Sweed-Mime)
+    DELETE   /<vid>,<fid>      volume_server_handlers_write.go:78
+    replicated writes          topology/store_replicate.go:21: the primary
+                               fans out `?type=replicate` to the replicas
+    BatchDelete rpc            POST /_batch_delete
+    AllocateVolume rpc         POST /admin/assign_volume
+    DeleteVolume rpc           POST /admin/delete_volume
+    VolumeMarkReadonly/Writable POST /admin/readonly, /admin/writable
+    VolumeMount/Unmount        POST /admin/volume_mount, /admin/volume_unmount
+    VolumeEcShardsGenerate     POST /admin/ec/generate  (the CUDA kernel)
+    VolumeEcShardsRebuild      POST /admin/ec/rebuild   (the CUDA kernel)
+    VolumeEcShardsCopy         POST /admin/ec/copy (pull from a source url)
+    VolumeEcShardRead rpc      GET  /admin/ec/shard_read (binary)
+    VolumeEcShardsMount/Unmount POST /admin/ec/mount, /admin/ec/unmount
+    VolumeEcShardsDelete       POST /admin/ec/delete_shards
+    VolumeEcShardsToVolume     POST /admin/ec/to_volume (the CUDA kernel)
+    CopyFile rpc               GET  /admin/file?volume=&ext= (binary)
+    volume.fsck's raw material GET  /admin/needle_ids, /admin/needle_info
+    /status                    GET  /status
+
+EC work runs through the store's codec: the hand-written CUDA kernel unless
+the server was started with ``ec_backend="cpu"``. Without a card the first
+EC request answers 500 naming the missing device and writes nothing.
+
+Nothing here starts at import: ``start()`` binds the port and starts the
+heartbeat thread, ``stop()`` ends both.
+"""
+
+from __future__ import annotations
+
+import gzip
+import json
+import os
+import threading
+import time
+from collections import defaultdict
+from typing import Optional
+
+from ..ec import encoder
+from ..ec.constants import TOTAL_SHARDS, shard_ext
+from ..ec.decoder import decode_to_volume
+from ..ec.ec_volume import rebuild_ecx_file
+from ..security import Guard, gen_jwt, read_auth_query, verify_fid_jwt
+from ..stats.heat import heat_stats
+from ..storage.commit import atomic_write
+from ..storage.disk_location import parse_volume_base_name
+from ..storage.file_id import FileId, parse_path
+from ..storage.needle import (
+    FLAG_HAS_LAST_MODIFIED,
+    FLAG_HAS_MIME,
+    FLAG_HAS_NAME,
+    FLAG_HAS_TTL,
+    FLAG_IS_CHUNK_MANIFEST,
+    FLAG_IS_COMPRESSED,
+    Needle,
+    get_actual_size,
+)
+from ..storage.store import Store
+from ..storage.ttl import read_ttl
+from ..storage.volume import DeletedError, NotFoundError, volume_file_name
+from ..util import faultpoints, glog
+from ..util.parsers import tolerant_uint
+from .http_util import (
+    BadRequest,
+    JsonHandler,
+    http_bytes,
+    http_json,
+    parse_byte_range,
+    range_headers,
+    start_server,
+    unsatisfiable_range_headers,
+)
+
+
+def _q_req_uint(q: dict, key: str) -> int:
+    """Required non-negative query int: a missing or malformed value is the
+    client's error (400)."""
+    raw = q.get(key)
+    val = tolerant_uint(raw, None) if raw is not None else None
+    if val is None:
+        raise BadRequest(f"bad {key}={raw!r}: non-negative integer required")
+    return val
+
+
+def _q_shards(q: dict) -> list[int]:
+    return [int(s) for s in q.get("shards", "").split(",") if s != ""]
+
+
+def _maybe_decompress(data: bytes) -> bytes:
+    """gzip-decode when the bytes carry the gzip magic; anything else passes
+    through (util/compression.py maybe_decompress)."""
+    if data[:2] == b"\x1f\x8b":
+        try:
+            return gzip.decompress(data)
+        except OSError:
+            return data
+    return data
+
+
+def _path_fid(path: str) -> str:
+    """'/3,01637037d6.jpg' or '/3/01637037d6' -> '3,01637037d6'."""
+    p = path.lstrip("/")
+    if "." in p.rsplit("/", 1)[-1]:
+        p = p[: p.rindex(".")]
+    return p.replace("/", ",", 1)
+
+
+class VolumeServer:
+    def __init__(
+        self,
+        directories: list[str],
+        host: str = "127.0.0.1",
+        port: int = 8080,
+        master_url: str = "127.0.0.1:9333",
+        public_url: str = "",
+        data_center: str = "DefaultDataCenter",
+        rack: str = "DefaultRack",
+        max_volume_count: int = 7,
+        pulse_seconds: float = 5.0,
+        ec_backend: Optional[str] = None,
+        needle_map_kind: str = "dense",
+        jwt_signing_key: str = "",
+        jwt_read_key: str = "",
+        whitelist: Optional[list[str]] = None,
+    ):
+        self.jwt_signing_key = jwt_signing_key
+        self.jwt_read_key = jwt_read_key
+        self.guard = Guard(whitelist)
+        self.host, self.port = host, port
+        # comma-separated seed list (weed volume -mserver=a,b,c); the live
+        # target follows the announced leader
+        self.master_seeds = [m.strip() for m in master_url.split(",") if m.strip()]
+        self.master_url = self.master_seeds[0]
+        self.data_center, self.rack = data_center, rack
+        self.max_volume_count = max_volume_count
+        self.pulse_seconds = pulse_seconds
+        # ec_backend None -> "cuda": the hand-written kernel, or an error
+        # naming the missing device; only "cpu" selects the plain version
+        self.store = Store(directories, ip=host, port=port,
+                           public_url=public_url or f"{host}:{port}",
+                           ec_backend=ec_backend, needle_map_kind=needle_map_kind)
+        self.store.remote_shard_reader = self._remote_shard_reader
+        self._srv = None
+        self._stop = threading.Event()
+        self._hb_thread: Optional[threading.Thread] = None
+
+    # -- remote EC shard read through the master's shard lookup -------------
+    def _remote_shard_reader(self, vid, shard_id, offset, size):
+        r = http_json("GET", f"http://{self.master_url}/dir/lookup_ec?volumeId={vid}")
+        locs = r.get("shard_id_locations", {})
+        holders = locs.get(str(shard_id)) or locs.get(shard_id, [])
+        me = f"{self.host}:{self.port}"
+        for holder in holders:
+            if holder == me:
+                continue
+            status, data = http_bytes(
+                "GET", f"http://{holder}/admin/ec/shard_read?volume={vid}"
+                       f"&shard={shard_id}&offset={offset}&size={size}")
+            if status == 200 and len(data) == size:
+                return data
+        return None
+
+    # -- data plane ----------------------------------------------------------
+    @staticmethod
+    def _parse_fid_path(path: str) -> tuple[int, int, int]:
+        """'/3,01637037d6[.ext]' or '/3/01637037d6' -> (vid, needle id,
+        cookie); the ``_<delta>`` suffix of batch assigns is honoured."""
+        p = path.lstrip("/")
+        if "," in p:
+            vid_str, fid = p.split(",", 1)
+        elif "/" in p:
+            vid_str, fid = p.split("/", 1)
+        else:
+            raise ValueError(f"bad fid path {path!r}")
+        if "." in fid:
+            fid = fid[: fid.rindex(".")]
+        nid, cookie = parse_path(fid)
+        return int(vid_str), nid, cookie
+
+    def _auth_ok(self, h, path, q, key: str) -> bool:
+        """The JWT must be valid and scoped to the fid being touched
+        (volume_server_handlers_write.go maybeCheckJwtAuthorization)."""
+        if not key:
+            return True
+        token = q.get("auth", "")
+        ah = h.headers.get("Authorization", "")
+        if not token and ah.startswith("Bearer "):
+            token = ah[len("Bearer "):]
+        return verify_fid_jwt(key, token, _path_fid(path))
+
+    def _h_get(self, h, path, q, body):
+        if not self.guard.allowed(h.client_address[0]):
+            return 403, {"error": "ip not allowed"}
+        if not self._auth_ok(h, path, q, self.jwt_read_key):
+            return 401, {"error": "unauthorized read"}
+        vid, nid, cookie = self._parse_fid_path(path)
+        faultpoints.fire("volume.read.needle")
+        n = Needle(id=nid)
+        try:
+            self.store.read_volume_needle(vid, n)
+        except Exception as e:  # noqa: BLE001 — the reference's 404 mapping
+            if isinstance(e, (NotFoundError, DeletedError)) or "not in ecx" in str(e):
+                return 404, {"error": str(e)}
+            raise
+        if n.cookie != cookie:
+            return 404, {"error": "cookie mismatch"}
+        data = bytes(n.data)
+        if n.is_chunk_manifest and q.get("cm") != "false":
+            # server-side chunked-file resolution
+            # (volume_server_handlers_read.go:181)
+            return self._serve_chunked_manifest(h, data)
+        serving_gzip = False
+        if n.is_compressed:
+            # gzip goes out as stored only to clients that asked for it
+            if "gzip" in h.headers.get("Accept-Encoding", ""):
+                h.extra_headers = {"Content-Encoding": "gzip"}
+                serving_gzip = True
+            else:
+                data = gzip.decompress(data)
+        rng = h.headers.get("Range", "")
+        if rng and not serving_gzip:  # ranges address the plain bytes
+            return self._range_reply(h, data, rng)
+        h.extra_headers = (h.extra_headers or {}) | {"Accept-Ranges": "bytes"}
+        return 200, data
+
+    @staticmethod
+    def _range_reply(h, data: bytes, rng: str):
+        """Single-range Range semantics over needle bytes
+        (volume_server_handlers_read.go processRangeRequest)."""
+        total = len(data)
+        parsed = parse_byte_range(rng, total)
+        if parsed is None:
+            h.extra_headers = {"Accept-Ranges": "bytes"}
+            return 200, data
+        if parsed == "unsatisfiable":
+            h.extra_headers = unsatisfiable_range_headers(total)
+            return 416, b""
+        start, end = parsed
+        h.extra_headers = range_headers(start, end, total)
+        return 206, data[start: end + 1]
+
+    def _serve_chunked_manifest(self, h, manifest_bytes: bytes):
+        """Concatenate a chunked file from its manifest
+        (operation/chunked_file.go; volume_server_handlers_read.go:181-200).
+        A ranged read fetches only the chunks it overlaps."""
+        mf = json.loads(_maybe_decompress(manifest_bytes))
+        headers = {}
+        if mf.get("mime"):
+            headers["Content-Type"] = mf["mime"]
+        total = mf.get("size", 0)
+        if h.command == "HEAD":
+            h.extra_headers = headers | {"Content-Length": str(total),
+                                         "Accept-Ranges": "bytes"}
+            return 200, b""
+        rng = h.headers.get("Range", "")
+        parsed = parse_byte_range(rng, total) if rng else None
+        if parsed == "unsatisfiable":
+            h.extra_headers = unsatisfiable_range_headers(total)
+            return 416, b""
+        start, end = parsed if parsed is not None else (0, total - 1)
+        out = bytearray(end - start + 1)
+        for c in mf.get("chunks", []):
+            c_start, c_end = c["offset"], c["offset"] + c["size"] - 1
+            if c_end < start or c_start > end:
+                continue
+            status, piece = self._fetch_fid(c["fid"])
+            if status != 200:
+                return 500, {"error": f"chunk {c['fid']}: HTTP {status}"}
+            lo, hi = max(start, c_start), min(end, c_end)
+            out[lo - start: hi - start + 1] = piece[lo - c_start: hi - c_start + 1]
+        if parsed is not None:
+            h.extra_headers = headers | range_headers(start, end, total)
+            return 206, bytes(out)
+        h.extra_headers = headers | {"Accept-Ranges": "bytes"}
+        return 200, bytes(out)
+
+    def _lookup(self, vid: int) -> list[str]:
+        r = http_json("GET", f"http://{self.master_url}/dir/lookup?volumeId={vid}")
+        return [loc["url"] for loc in r.get("locations", [])]
+
+    def _fetch_fid(self, fid: str) -> tuple[int, bytes]:
+        """Read a fid wherever it lives: the local store first, then the
+        holders the master names (chunks may sit on other servers)."""
+        try:
+            f = FileId.parse(fid)
+        except ValueError:
+            return 400, b""
+        if self.store.find_volume(f.volume_id) is not None:
+            n = Needle(id=f.key)
+            try:
+                self.store.read_volume_needle(f.volume_id, n)
+            except Exception:  # noqa: BLE001 — any failure reads as absent
+                return 404, b""
+            if n.cookie != f.cookie:
+                return 404, b""
+            data = bytes(n.data)
+            return 200, gzip.decompress(data) if n.is_compressed else data
+        auth = read_auth_query(self.jwt_read_key, fid)
+        try:
+            urls = self._lookup(f.volume_id)
+        except OSError:
+            urls = []
+        for url in urls:
+            status, data = http_bytes("GET", f"http://{url}/{fid}{auth}")
+            if status == 200:
+                return status, data
+        return 404, b""
+
+    def _h_post(self, h, path, q, body):
+        if not self.guard.allowed(h.client_address[0]):
+            return 403, {"error": "ip not allowed"}
+        if not self._auth_ok(h, path, q, self.jwt_signing_key):
+            return 401, {"error": "unauthorized write"}
+        faultpoints.fire("volume.write.needle")
+        vid, nid, cookie = self._parse_fid_path(path)
+        n = Needle(cookie=cookie, id=nid, data=bytes(body))
+        if h.headers.get("Content-Encoding") == "gzip":
+            # pre-compressed by the client (needle_parse_upload.go:75): kept
+            # as is and flagged, so reads know to decompress
+            n.set_flag(FLAG_IS_COMPRESSED)
+        if h.headers.get("X-Sweed-Chunk-Manifest") == "true":
+            n.set_flag(FLAG_IS_CHUNK_MANIFEST)
+        name = h.headers.get("X-Sweed-Name")
+        if name:
+            n.name = name.encode()[:255]
+            n.set_flag(FLAG_HAS_NAME)
+        mime = h.headers.get("X-Sweed-Mime")
+        if mime:
+            n.mime = mime.encode()[:255]
+            n.set_flag(FLAG_HAS_MIME)
+        n.last_modified = int(time.time())
+        n.set_flag(FLAG_HAS_LAST_MODIFIED)
+        if q.get("ttl"):
+            n.ttl = read_ttl(q["ttl"])
+            n.set_flag(FLAG_HAS_TTL)
+        _, _, unchanged = self.store.write_volume_needle(
+            vid, n, fsync=q.get("fsync") == "true")
+        if q.get("type") != "replicate":
+            err = self._replicate(path, q, body, h, "POST")
+            if err:
+                # all replicas or none (store_replicate.go:21)
+                self.store.delete_volume_needle(vid, Needle(cookie=cookie, id=nid))
+                return 500, {"error": f"replication failed: {err}"}
+        return 201, {"size": len(body), "eTag": n.etag(), "unchanged": unchanged}
+
+    def _h_delete(self, h, path, q, body):
+        if not self.guard.allowed(h.client_address[0]):
+            return 403, {"error": "ip not allowed"}
+        if not self._auth_ok(h, path, q, self.jwt_signing_key):
+            return 401, {"error": "unauthorized delete"}
+        vid, nid, cookie = self._parse_fid_path(path)
+        # a manifest's chunk list is read before it is deleted, but its
+        # chunks go only after the manifest's delete (replicas included)
+        # succeeded, and only from the primary
+        # (volume_server_handlers_write.go DeleteHandler)
+        chunk_fids: list[str] = []
+        if q.get("type") != "replicate":
+            probe = Needle(id=nid)
+            try:
+                self.store.read_volume_needle(vid, probe)
+            except Exception:  # noqa: BLE001 — absent, deleted or unreadable
+                probe = None
+            if probe is not None and probe.cookie == cookie and probe.is_chunk_manifest:
+                try:
+                    mf = json.loads(_maybe_decompress(bytes(probe.data)))
+                    chunk_fids = [c["fid"] for c in mf.get("chunks", [])]
+                except (ValueError, KeyError, TypeError) as e:
+                    glog.warning("manifest parse vid %d: %s", vid, e)
+        size = self.store.delete_volume_needle(vid, Needle(cookie=cookie, id=nid))
+        if q.get("type") != "replicate":
+            err = self._replicate(path, q, b"", h, "DELETE")
+            if err:
+                return 500, {"error": f"replicated delete failed: {err}"}
+            if chunk_fids:
+                self._delete_chunks(chunk_fids)
+        return 202, {"size": size}
+
+    def _delete_chunks(self, fids: list[str]) -> None:
+        """A manifest's data chunks, grouped by volume, go to every holder
+        as one /_batch_delete (operation.delete_files, delete_content.go:32).
+        Best effort: a chunk left behind is garbage, not lost data."""
+        by_vid: dict[int, list[str]] = defaultdict(list)
+        for fid in fids:
+            try:
+                by_vid[FileId.parse(fid).volume_id].append(fid)
+            except ValueError:
+                continue
+        for vid, group in by_vid.items():
+            auths = ({fid: gen_jwt(self.jwt_signing_key, fid) for fid in group}
+                     if self.jwt_signing_key else {})
+            try:
+                for url in self._lookup(vid):
+                    http_json("POST", f"http://{url}/_batch_delete",
+                              {"fids": group, "auths": auths})
+            except OSError as e:
+                glog.warning("chunk cascade vid %d: %s", vid, e)
+
+    def _replicate(self, path, q, body, h, method) -> Optional[str]:
+        """Fan a write or delete out to the volume's other replicas
+        (distributedOperation, store_replicate.go:95). Returns the errors,
+        or None when every replica took it."""
+        vid = int(path.lstrip("/").split(",")[0].split("/")[0])
+        me = {self.store.public_url, f"{self.host}:{self.port}"}
+        # replicas carry the same name/mime/compression flags as the primary
+        fwd = {k: v for k, v in h.headers.items()
+               if k.title() in ("X-Sweed-Name", "X-Sweed-Mime", "Content-Encoding",
+                                "X-Sweed-Chunk-Manifest")}
+        extra = "&".join(f"{k}={v}" for k, v in q.items() if k not in ("type", "auth"))
+        if self.jwt_signing_key:
+            tok = gen_jwt(self.jwt_signing_key, _path_fid(path))
+            extra = (extra + "&" if extra else "") + f"auth={tok}"
+        errors = []
+        for url in self._lookup(vid):
+            if url in me:
+                continue
+            full = f"http://{url}{path}?type=replicate" + (f"&{extra}" if extra else "")
+            status, resp = http_bytes(method, full, body if method == "POST" else None,
+                                      headers=fwd)
+            if status >= 300:
+                errors.append(f"{url}: {status} {resp[:100]!r}")
+        return "; ".join(errors) if errors else None
+
+    def _h_batch_delete(self, h, path, q, body):
+        """BatchDelete rpc (delete_content.go:32): delete many local needles
+        in one request, with a result per fid. Local only: the client sends
+        the batch to every replica itself."""
+        if not self.guard.allowed(h.client_address[0]):
+            return 403, {"error": "ip not allowed"}
+        req = json.loads(body)
+        auths = req.get("auths", {})
+        results = []
+        for fid in req.get("fids", []):
+            item = {"fid": fid}
+            results.append(item)
+            try:
+                vid, nid, cookie = self._parse_fid_path("/" + fid)
+            except ValueError as e:
+                item.update(status=400, error=f"bad fid: {e}")
+                continue
+            if self.jwt_signing_key and not verify_fid_jwt(
+                    self.jwt_signing_key, auths.get(fid, ""), fid.replace("/", ",")):
+                item.update(status=401, error="unauthorized delete")
+                continue
+            # a manifest must take the single-fid DELETE, so that its chunks
+            # go with it (the reference's BatchDelete refuses it the same way)
+            probe = Needle(id=nid)
+            try:
+                self.store.read_volume_needle(vid, probe)
+            except Exception:  # noqa: BLE001 — absent, deleted or unreadable
+                probe = None
+            if probe is not None and probe.is_chunk_manifest:
+                item.update(status=409, error="chunk manifest: not allowed in batch delete")
+                continue
+            try:
+                size = self.store.delete_volume_needle(vid, Needle(cookie=cookie, id=nid))
+            except NotFoundError:
+                item.update(status=404, error=f"volume {vid} not found")
+            except Exception as e:  # noqa: BLE001 — one fid's failure stays its own
+                item.update(status=500, error=str(e))
+            else:
+                item.update(status=202, size=size)
+        return 200, {"results": results}
+
+    # -- admin: volumes ------------------------------------------------------
+    def _h_assign_volume(self, h, path, q, body):
+        self.store.add_volume(_q_req_uint(q, "volume"),
+                              collection=q.get("collection", ""),
+                              replica_placement=q.get("replication") or "000",
+                              ttl=q.get("ttl", ""))
+        return 200, {}
+
+    def _h_delete_volume(self, h, path, q, body):
+        vid = _q_req_uint(q, "volume")
+        ok = self.store.delete_volume(vid)
+        if ok:
+            self.store.clear_corrupt(vid)
+        return 200, {"deleted": ok}
+
+    def _h_readonly(self, h, path, q, body):
+        ok = self.store.mark_volume_readonly(_q_req_uint(q, "volume"))
+        return (200, {}) if ok else (404, {"error": "volume not found"})
+
+    def _h_writable(self, h, path, q, body):
+        ok = self.store.mark_volume_writable(_q_req_uint(q, "volume"))
+        return (200, {}) if ok else (404, {"error": "volume not found"})
+
+    def _h_volume_unmount(self, h, path, q, body):
+        """Stop serving a volume, keep its files (VolumeUnmount)."""
+        vid = _q_req_uint(q, "volume")
+        if self.store.unmount_volume(vid):
+            return 200, {"unmounted": vid}
+        return 404, {"error": "volume not found"}
+
+    def _h_volume_mount(self, h, path, q, body):
+        """(Re)load one volume from disk and announce it (VolumeMount)."""
+        vid = _q_req_uint(q, "volume")
+        already = self.store.find_volume(vid) is not None
+        if self.store.mount_volume(vid) is None:
+            return 404, {"error": f"no volume {vid} files on disk"}
+        return 200, {"mounted": vid, "already": already}
+
+    def _h_file(self, h, path, q, body):
+        """A raw volume or shard file (CopyFile rpc)."""
+        vid = _q_req_uint(q, "volume")
+        collection = q.get("collection", "")
+        ext = q.get("ext", "")
+        if ext in (".dat", ".idx"):
+            v = self.store.find_volume(vid)
+            if v is not None:
+                v.sync()  # the copy must hold every acknowledged write
+        for loc in self.store.locations:
+            p = volume_file_name(loc.directory, collection, vid) + ext
+            if os.path.exists(p):
+                with open(p, "rb") as f:
+                    return 200, f.read()
+        return 404, {"error": f"{vid}{ext} not found"}
+
+    def _h_needle_ids(self, h, path, q, body):
+        """Live needle keys of a volume (volume.fsck's raw material,
+        command_volume_fsck.go)."""
+        vid = _q_req_uint(q, "volume")
+        v = self.store.find_volume(vid)
+        if v is None:
+            return 404, {"error": f"volume {vid} not found"}
+        with_cookies = q.get("cookies") == "true"
+        out = []
+
+        def visit(nv):
+            if nv.size < 0 or nv.offset == 0:
+                return
+            rec = {"key": nv.key, "size": nv.size}
+            if with_cookies:
+                rec["cookie"] = int.from_bytes(v.data_backend.read_at(nv.offset, 4), "big")
+            out.append(rec)
+
+        v.nm.ascending_visit(visit)
+        return 200, {"volume": vid, "needles": out}
+
+    def _h_needle_info(self, h, path, q, body):
+        """One needle's index entry and append time (fsck's purge check
+        skips in-flight uploads by it)."""
+        vid = _q_req_uint(q, "volume")
+        key = _q_req_uint(q, "key")
+        v = self.store.find_volume(vid)
+        if v is None:
+            return 404, {"error": f"volume {vid} not found"}
+        nv = v.nm.get(key)
+        if nv is None or nv.offset == 0:
+            return 404, {"error": f"needle {key:x} not found"}
+        append_ns = 0
+        if nv.size >= 0 and v.version >= 3:
+            blob = v.data_backend.read_at(nv.offset, get_actual_size(nv.size, v.version))
+            try:
+                append_ns = Needle.from_bytes(blob, nv.size, v.version,
+                                              verify_crc=False).append_at_ns
+            except Exception:  # noqa: BLE001 — an unreadable record leaves append_ns 0
+                pass
+        return 200, {"key": key, "offset": nv.offset, "size": nv.size,
+                     "append_ns": append_ns}
+
+    def _h_status(self, h, path, q, body):
+        hb = self.store.collect_heartbeat()
+        hb["ec"] = self.store.collect_ec_heartbeat()["ec_shards"]
+        hb["heat"] = heat_stats()
+        return 200, hb
+
+    # -- admin: EC (volume_grpc_erasure_coding.go) ---------------------------
+    def _find_base(self, vid: int) -> Optional[str]:
+        """The volume's base path: a live volume's, else the one whose .ecx
+        is on disk (shards copied in become visible at /admin/ec/mount)."""
+        v = self.store.find_volume(vid)
+        if v is not None:
+            return v.file_name()
+        for loc in self.store.locations:
+            for name in os.listdir(loc.directory):
+                if not name.endswith(".ecx"):
+                    continue
+                try:
+                    _, v_id = parse_volume_base_name(name[:-4])
+                except ValueError:
+                    continue
+                if v_id == vid:
+                    return os.path.join(loc.directory, name[:-4])
+        return None
+
+    def _h_ec_generate(self, h, path, q, body):
+        """VolumeEcShardsGenerate (volume_grpc_erasure_coding.go:39): seal the
+        volume and stripe it into 14 shards + .ecx + .vif under the staged
+        commit (Store.ec_encode_volume)."""
+        vid = _q_req_uint(q, "volume")
+        v = self.store.find_volume(vid)
+        nbytes = v.size() if v is not None else 0
+        t0 = time.monotonic()
+        try:
+            shards = self.store.ec_encode_volume(vid)
+        except NotFoundError:
+            return 404, {"error": "volume not found"}
+        # bytes and seconds give the caller the encode rate without a
+        # second round trip
+        return 200, {"shards": shards, "bytes": nbytes, "seconds": time.monotonic() - t0}
+
+    def _h_ec_rebuild(self, h, path, q, body):
+        vid = _q_req_uint(q, "volume")
+        base = self._find_base(vid)
+        if base is None:
+            return 404, {"error": "ec volume not found"}
+        t0 = time.monotonic()
+        generated = encoder.rebuild_ec_files(base, self.store.ec_codec)
+        rebuild_ecx_file(base)
+        # rebuilt shards are fresh bytes: drop any scrub findings on them
+        self.store.clear_corrupt(vid, shard_ids=generated)
+        return 200, {"rebuilt_shards": generated, "seconds": time.monotonic() - t0}
+
+    def _h_ec_copy(self, h, path, q, body):
+        """Pull shard files (and the .ecx/.vif unless told not to) from a
+        source server (VolumeEcShardsCopy, :104)."""
+        vid = _q_req_uint(q, "volume")
+        source = q.get("source")
+        if not source:
+            raise BadRequest("source= required")
+        shard_ids = _q_shards(q)
+        collection = q.get("collection", "")
+        base = volume_file_name(self.store.locations[0].directory, collection, vid)
+        exts = [shard_ext(s) for s in shard_ids]
+        if q.get("copy_ecx", "true") == "true":
+            exts.append(".ecx")
+        if q.get("copy_vif", "true") == "true":
+            exts.append(".vif")
+        copied = []
+        for ext in exts:
+            status, data = http_bytes(
+                "GET", f"http://{source}/admin/file?volume={vid}"
+                       f"&collection={collection}&ext={ext}")
+            if status != 200:
+                if ext == ".vif":
+                    continue
+                return 500, {"error": f"fetch {ext} from {source}: {status}"}
+            # staged and renamed: a crash mid-fetch leaves a .tmp that the
+            # startup scan collects, never a short shard under its name
+            atomic_write(base + ext, data)
+            copied.append(ext)
+        self.store.clear_corrupt(vid, shard_ids=shard_ids)
+        return 200, {"copied": copied}
+
+    def _h_ec_shard_read(self, h, path, q, body):
+        vid = _q_req_uint(q, "volume")
+        sid = _q_req_uint(q, "shard")
+        offset, size = _q_req_uint(q, "offset"), _q_req_uint(q, "size")
+        ev = self.store.find_ec_volume(vid)
+        shard = ev.shards.get(sid) if ev is not None else None
+        if shard is None:
+            return 404, {"error": f"shard {vid}.{sid} not here"}
+        return 200, shard.read_at(offset, size)
+
+    def _h_ec_to_volume(self, h, path, q, body):
+        """VolumeEcShardsToVolume: decode the local shards back into a plain
+        .dat/.idx volume and serve it."""
+        vid = _q_req_uint(q, "volume")
+        base = self._find_base(vid)
+        if base is None or not os.path.exists(base + ".ecx"):
+            return 404, {"error": f"no local ec volume {vid}"}
+        t0 = time.monotonic()
+        dat_size = decode_to_volume(base, codec=self.store.ec_codec)
+        seconds = time.monotonic() - t0
+        # the EC registration and its files go before the rescan: shard
+        # files left on disk would make the rescan mount the EcVolume again
+        # and the next full heartbeat announce shards the master was told
+        # are gone
+        ev = self.store.find_ec_volume(vid)
+        bits = sum(1 << s for s in ev.shard_ids()) if ev else 0
+        collection = ev.collection if ev else q.get("collection", "")
+        for loc in self.store.locations:
+            loc.unload_ec_volume(vid)
+        for name in [shard_ext(s) for s in range(TOTAL_SHARDS)] + [".ecx", ".ecj"]:
+            try:
+                os.remove(base + name)
+            except FileNotFoundError:
+                pass
+        if bits:
+            self.store.queue_deleted_ec_shards(vid, collection, bits)
+        for loc in self.store.locations:
+            loc.load_existing_volumes()
+        v = self.store.find_volume(vid)
+        if v is None:
+            return 500, {"error": "decoded volume failed to load"}
+        self.store.queue_new_volume(v)
+        return 200, {"dat_size": dat_size, "file_count": v.file_count(),
+                     "seconds": seconds}
+
+    def _h_ec_mount(self, h, path, q, body):
+        vid = _q_req_uint(q, "volume")
+        for loc in self.store.locations:
+            loc.load_existing_volumes()
+        ev = self.store.find_ec_volume(vid)
+        if ev is None:
+            return 404, {"error": f"no local shards for {vid}"}
+        ev.refresh_shards()
+        sids = ev.shard_ids()
+        self.store.queue_new_ec_shards(vid, ev.collection, sum(1 << s for s in sids))
+        return 200, {"shards": sids}
+
+    def _h_ec_unmount(self, h, path, q, body):
+        vid = _q_req_uint(q, "volume")
+        ev = self.store.find_ec_volume(vid)
+        for loc in self.store.locations:
+            loc.unload_ec_volume(vid)
+        if ev is not None and ev.shard_ids():
+            self.store.queue_deleted_ec_shards(vid, ev.collection,
+                                               sum(1 << s for s in ev.shard_ids()))
+        return 200, {}
+
+    def _h_ec_delete_shards(self, h, path, q, body):
+        vid = _q_req_uint(q, "volume")
+        shard_ids = _q_shards(q)
+        base = self._find_base(vid)
+        removed = []
+        if base:
+            for sid in shard_ids:
+                try:
+                    os.remove(base + shard_ext(sid))
+                    removed.append(sid)
+                except FileNotFoundError:
+                    pass
+        collection = ""
+        for loc in self.store.locations:
+            ev = loc.find_ec_volume(vid)
+            if ev:
+                collection = ev.collection
+                for sid in shard_ids:
+                    shard = ev.shards.pop(sid, None)
+                    if shard:
+                        shard.close()
+        if removed:
+            self.store.clear_corrupt(vid, shard_ids=removed)
+            self.store.queue_deleted_ec_shards(vid, collection,
+                                               sum(1 << s for s in removed))
+        if base and not any(os.path.exists(base + shard_ext(s))
+                            for s in range(TOTAL_SHARDS)):
+            # the last shard is gone: the index and the deletion journal go
+            # with it (VolumeEcShardsDelete)
+            for ext in (".ecx", ".ecj"):
+                try:
+                    os.remove(base + ext)
+                except FileNotFoundError:
+                    pass
+        return 200, {"removed": removed}
+
+    # -- heartbeat loop (volume_grpc_client_to_master.go:50) -----------------
+    def _send_beat(self, hb: dict) -> None:
+        hb["data_center"] = self.data_center
+        hb["rack"] = self.rack
+        hb["max_volume_count"] = self.max_volume_count
+        ack = http_json("POST", f"http://{self.master_url}/cluster/heartbeat", hb,
+                        timeout=10)
+        # follow the leader the master announces
+        leader = ack.get("leader")
+        if leader and leader != self.master_url:
+            glog.info("following new master leader %s", leader)
+            self.master_url = leader
+
+    def _heartbeat_once(self) -> None:
+        # drain before collecting: a delta queued during the collection then
+        # stays queued and goes as its own beat; the other order would lose
+        # the delta of a volume created after the snapshot
+        self.store.drain_deltas()
+        hb = self.store.collect_heartbeat()
+        hb["ec_shards"] = self.store.collect_ec_heartbeat()["ec_shards"]
+        # the master scales this node's liveness timeout to the pulse
+        hb["pulse_seconds"] = self.pulse_seconds
+        self._send_beat(hb)
+
+    def _delta_beat_once(self) -> None:
+        """Instant delta beat: only the queued new/deleted volume and EC
+        shard messages (volume_grpc_client_to_master.go:155-197)."""
+        deltas = self.store.drain_deltas()
+        if not deltas:
+            return
+        hb = {"ip": self.host, "port": self.port, "public_url": self.store.public_url}
+        hb.update(deltas)
+        self._send_beat(hb)
+
+    def _hb_loop(self) -> None:
+        next_full = time.monotonic() + self.pulse_seconds
+        while not self._stop.is_set():
+            remaining = max(0.0, next_full - time.monotonic())
+            fired = self.store.delta_event.wait(min(remaining, 2.0))
+            if self._stop.is_set():
+                break
+            try:
+                if fired:
+                    self._delta_beat_once()
+                elif time.monotonic() >= next_full:
+                    self._heartbeat_once()
+                    next_full = time.monotonic() + self.pulse_seconds
+                else:
+                    # idle liveness probe: a long pulse must not hide a
+                    # master failover for up to pulse_seconds
+                    r = http_json("GET", f"http://{self.master_url}/cluster/ping",
+                                  timeout=2.0)
+                    if not r.get("ok"):
+                        raise RuntimeError(f"ping: {r}")
+            except Exception as e:  # noqa: BLE001 — the loop must outlive the master
+                # this master is unreachable: rotate to the next seed and
+                # re-register soon with a full beat
+                glog.V(1).info("heartbeat to %s failed (%s); rotating",
+                               self.master_url, e)
+                self._rotate_master()
+                next_full = time.monotonic() + min(1.0, self.pulse_seconds)
+
+    def _rotate_master(self) -> None:
+        if len(self.master_seeds) <= 1:
+            return
+        try:
+            i = self.master_seeds.index(self.master_url)
+        except ValueError:
+            i = -1
+        self.master_url = self.master_seeds[(i + 1) % len(self.master_seeds)]
+
+    # -- lifecycle -----------------------------------------------------------
+    def start(self) -> "VolumeServer":
+        vs = self
+
+        class Handler(JsonHandler):
+            routes = [
+                ("POST", "/admin/assign_volume", vs._h_assign_volume),
+                ("POST", "/admin/delete_volume", vs._h_delete_volume),
+                ("POST", "/_batch_delete", vs._h_batch_delete),
+                ("POST", "/admin/readonly", vs._h_readonly),
+                ("POST", "/admin/writable", vs._h_writable),
+                ("POST", "/admin/volume_unmount", vs._h_volume_unmount),
+                ("POST", "/admin/volume_mount", vs._h_volume_mount),
+                ("POST", "/admin/ec/generate", vs._h_ec_generate),
+                ("POST", "/admin/ec/rebuild", vs._h_ec_rebuild),
+                ("POST", "/admin/ec/copy", vs._h_ec_copy),
+                ("GET", "/admin/ec/shard_read", vs._h_ec_shard_read),
+                ("POST", "/admin/ec/to_volume", vs._h_ec_to_volume),
+                ("POST", "/admin/ec/mount", vs._h_ec_mount),
+                ("POST", "/admin/ec/unmount", vs._h_ec_unmount),
+                ("POST", "/admin/ec/delete_shards", vs._h_ec_delete_shards),
+                ("GET", "/admin/file", vs._h_file),
+                ("GET", "/admin/needle_ids", vs._h_needle_ids),
+                ("GET", "/admin/needle_info", vs._h_needle_info),
+                ("GET", "/status", vs._h_status),
+                ("GET", "/", vs._h_get),
+                ("HEAD", "/", vs._h_get),
+                ("POST", "/", vs._h_post),
+                ("PUT", "/", vs._h_post),
+                ("DELETE", "/", vs._h_delete),
+            ]
+
+        self._srv = start_server(Handler, self.host, self.port)
+        glog.info("volume server up on %s:%d (%d volumes, ec backend %s) -> master %s",
+                  self.host, self.port,
+                  sum(len(loc.volumes) for loc in self.store.locations),
+                  self.store.ec_backend, self.master_url)
+        try:
+            self._heartbeat_once()
+        except Exception:  # noqa: BLE001 — the beat loop retries
+            glog.warning("initial heartbeat to %s failed", self.master_url)
+        self._hb_thread = threading.Thread(target=self._hb_loop, daemon=True,
+                                           name=f"heartbeat-{self.port}")
+        self._hb_thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        self.store.delta_event.set()  # wake the heartbeat loop so it exits
+        if self._hb_thread is not None:
+            self._hb_thread.join(timeout=5.0)
+        if self._srv is not None:
+            self._srv.shutdown()
+            self._srv.server_close()
+        self.store.close()
+        glog.info("volume server %s:%d stopped", self.host, self.port)

@@ -1,12 +1,67 @@
-"""Volume file naming (`weed/storage/volume.go` FileName).
+"""Volume: one append-only .dat + .idx pair holding many needles.
 
-Only the naming helper that ``ec/ec_volume.py`` needs lives here for now;
-the ``Volume`` class itself is not ported yet.
+Mirrors `weed/storage/volume.go` + `volume_read_write.go` +
+`volume_loading.go` + `volume_checking.go`:
+
+- writes append to .dat and log to .idx (offsets 8-byte aligned, stored /8);
+- deletes append a zero-data needle, then log a tombstone .idx entry;
+- reads look the needle up in the in-memory map, CRC-verify it and honour
+  TTL expiry;
+- on load the last ≤10 .idx entries are verified against the .dat and a torn
+  tail is truncated (CheckAndFixVolumeDataIntegrity).
+
+One lock per volume; writes are synchronous and ``sync()`` is explicit.
+Not ported: the remote S3 tier, the native data-plane attach and vacuum
+(compaction).
 """
 
 from __future__ import annotations
 
 import os
+import struct
+import threading
+import time
+from typing import Iterator, Optional
+
+from ..stats.heat import EwmaHeat
+from . import idx as idx_mod
+from .backend import DiskFile
+from .needle import (
+    CURRENT_VERSION,
+    FLAG_HAS_LAST_MODIFIED,
+    FLAG_HAS_TTL,
+    Needle,
+    get_actual_size,
+    needle_body_length,
+    parse_needle_header,
+)
+from .needle_map import CompactNeedleMap
+from .needle_map_dense import DenseNeedleMap
+from .replica_placement import ReplicaPlacement
+from .super_block import SUPER_BLOCK_SIZE, SuperBlock
+from .ttl import EMPTY_TTL, TTL
+from .types import (
+    NEEDLE_HEADER_SIZE,
+    OFFSET_SIZE,
+    max_possible_volume_size,
+    size_is_valid,
+)
+
+# the needle map kinds `-index` offers; the reference's others are not ported
+NEEDLE_MAP_KINDS = {"dense": DenseNeedleMap, "memory": CompactNeedleMap}
+UNPORTED_NEEDLE_MAP_KINDS = ("sqlite", "sorted", "mmap")
+
+
+class NotFoundError(Exception):
+    pass
+
+
+class DeletedError(Exception):
+    pass
+
+
+class VolumeError(Exception):
+    pass
 
 
 def volume_file_name(directory: str, collection: str, vid: int) -> str:
@@ -14,3 +69,323 @@ def volume_file_name(directory: str, collection: str, vid: int) -> str:
     if collection:
         return os.path.join(directory, f"{collection}_{vid}")
     return os.path.join(directory, str(vid))
+
+
+def check_needle_map_kind(kind: str) -> None:
+    if kind in UNPORTED_NEEDLE_MAP_KINDS:
+        raise ValueError(f"needle map kind {kind!r} is not ported yet "
+                         f"(the port has {', '.join(NEEDLE_MAP_KINDS)})")
+    if kind not in NEEDLE_MAP_KINDS:
+        raise ValueError(f"unknown needle map kind {kind!r}")
+
+
+class Volume:
+    def __init__(
+        self,
+        directory: str,
+        collection: str,
+        vid: int,
+        replica_placement: Optional[ReplicaPlacement] = None,
+        ttl: TTL = EMPTY_TTL,
+        version: int = CURRENT_VERSION,
+        offset_size: int = OFFSET_SIZE,
+        create_if_missing: bool = True,
+        needle_map_kind: str = "dense",
+    ):
+        check_needle_map_kind(needle_map_kind)
+        self.dir = directory
+        self.collection = collection
+        self.id = vid
+        self.offset_size = offset_size
+        self.needle_map_kind = needle_map_kind
+        self.read_only = False
+        self.last_append_at_ns = 0
+        self._lock = threading.RLock()
+        # zipfian-skew signal: decayed op counters marked by the store,
+        # shipped in heartbeats
+        self.read_heat = EwmaHeat()
+        self.write_heat = EwmaHeat()
+
+        base = self.file_name()
+        dat_exists = os.path.exists(base + ".dat")
+        if not dat_exists and not create_if_missing:
+            raise FileNotFoundError(base + ".dat")
+        self.data_backend = DiskFile(base + ".dat", create=True)
+        if dat_exists and self.data_backend.size() >= SUPER_BLOCK_SIZE:
+            head = self.data_backend.read_at(0, SUPER_BLOCK_SIZE)
+            extra_size = struct.unpack(">H", head[6:8])[0]
+            self.super_block = SuperBlock.from_bytes(
+                self.data_backend.read_at(0, SUPER_BLOCK_SIZE + extra_size))
+        else:
+            self.super_block = SuperBlock(
+                version=version,
+                replica_placement=replica_placement or ReplicaPlacement(),
+                ttl=ttl,
+            )
+            self.data_backend.write_at(0, self.super_block.to_bytes())
+
+        idx_path = base + ".idx"
+        if not os.path.exists(idx_path) and dat_exists:
+            self._rebuild_index(idx_path)
+        # unbuffered: .idx appends are visible at once to other readers of
+        # the file (EC encode reads the .idx of a live volume); one 16-byte
+        # write(2) per put, as the reference's os.File.Write
+        idx_file = open(idx_path, "a+b", buffering=0)
+        try:
+            # the needle map owns the file from here (nm.close() closes it)
+            self.nm = self._load_needle_map(idx_file)
+            self.last_append_at_ns = self._check_and_fix_integrity(idx_file)
+        except Exception:
+            idx_file.close()
+            self.data_backend.close()
+            raise
+
+    def _load_needle_map(self, idx_file):
+        return NEEDLE_MAP_KINDS[self.needle_map_kind].load(idx_file, self.offset_size)
+
+    # -- identity and counters -----------------------------------------------
+    def file_name(self) -> str:
+        return volume_file_name(self.dir, self.collection, self.id)
+
+    @property
+    def version(self) -> int:
+        return self.super_block.version
+
+    @property
+    def ttl(self) -> TTL:
+        return self.super_block.ttl
+
+    def content_size(self) -> int:
+        return self.nm.content_size()
+
+    def deleted_size(self) -> int:
+        return self.nm.deleted_size()
+
+    def file_count(self) -> int:
+        return self.nm.file_count()
+
+    def deleted_count(self) -> int:
+        return self.nm.deleted_count()
+
+    def max_file_key(self) -> int:
+        return self.nm.max_file_key
+
+    def size(self) -> int:
+        return self.data_backend.size()
+
+    def is_tiered(self) -> bool:
+        """Always False: the remote tier is not ported."""
+        return False
+
+    # -- load-time integrity (volume_checking.go:16-44) ----------------------
+    def _check_and_fix_integrity(self, idx_file) -> int:
+        entry_size = 8 + self.offset_size + 4
+        idx_size = os.path.getsize(idx_file.name)
+        if idx_size % entry_size:
+            idx_size -= idx_size % entry_size
+            idx_file.truncate(idx_size)
+        if idx_size == 0:
+            return 0
+        healthy = idx_size
+        last_append_at_ns = 0
+        last_good: Optional[tuple[int, int]] = None
+        with open(idx_file.name, "rb") as f:
+            for i in range(1, 11):
+                off = idx_size - i * entry_size
+                if off < 0:
+                    break
+                f.seek(off)
+                key, aoff, size = idx_mod.unpack_entry(f.read(entry_size), self.offset_size)
+                ok, ns = self._verify_entry(key, aoff, size)
+                if ok:
+                    last_append_at_ns = ns
+                    last_good = (aoff, size)
+                    break
+                healthy = off
+        if healthy < idx_size:
+            # reload the map (entries and counters) without the torn tail
+            idx_file.truncate(healthy)
+            self.nm.release()
+            self.nm = self._load_needle_map(idx_file)
+        # cut any .dat tail past the last record, so the next append starts
+        # at an aligned offset (the reference leaves it and its ToOffset
+        # rounds the next offset down)
+        if last_good is not None:
+            aoff, size = last_good
+            record_end = aoff + get_actual_size(max(size, 0), self.version)
+            if self.data_backend.size() > record_end:
+                # the last entry need not be the last record: a decoded
+                # volume's .idx is in key order. Only bytes past every
+                # record the index knows are a torn tail.
+                record_end = max(record_end, self._furthest_record_end(idx_file.name))
+                if self.data_backend.size() > record_end:
+                    self.data_backend.truncate(record_end)
+        return last_append_at_ns
+
+    def _furthest_record_end(self, idx_path: str) -> int:
+        end = 0
+        with open(idx_path, "rb") as f:
+            for _, aoff, size in idx_mod.iter_index_file(f, self.offset_size):
+                if aoff:
+                    end = max(end, aoff + get_actual_size(max(size, 0), self.version))
+        return end
+
+    def _verify_entry(self, key: int, aoff: int, size: int) -> tuple[bool, int]:
+        if aoff == 0 and size == 0:
+            return True, 0
+        # a tombstone entry points at the appended deletion needle
+        # (verifyDeletedNeedleIntegrity): it must exist and match
+        want = 0 if size < 0 else size
+        blob_len = get_actual_size(want, self.version)
+        blob = self.data_backend.read_at(aoff, blob_len)
+        if len(blob) < blob_len:
+            return False, 0
+        try:
+            _, nid, nsize = parse_needle_header(blob[:NEEDLE_HEADER_SIZE])
+            if nid != key or nsize != want:
+                return False, 0
+            n = Needle.from_bytes(blob, want, self.version)
+        except Exception:  # noqa: BLE001 — any parse failure is a torn record
+            return False, 0
+        return True, n.append_at_ns
+
+    def _rebuild_index(self, idx_path: str) -> None:
+        """Scan the .dat and regenerate the .idx (super block → needles)."""
+        with open(idx_path, "wb") as out:
+            for n, offset, _ in self.scan_needles():
+                size = n.size if (n.size > 0 or n.data) else -1
+                out.write(idx_mod.pack_entry(n.id, offset, size, self.offset_size))
+
+    # -- write path (volume_read_write.go:78-128) ----------------------------
+    def write_needle(self, n: Needle, fsync: bool = False,
+                     append_at_ns: Optional[int] = None) -> tuple[int, int, bool]:
+        """Returns (offset, size, is_unchanged)."""
+        if n.ttl == EMPTY_TTL and self.ttl != EMPTY_TTL:
+            n.set_flag(FLAG_HAS_TTL)
+            n.ttl = self.ttl
+        with self._lock:
+            # under the lock: a write must not race past a concurrent seal
+            if self.read_only:
+                raise VolumeError(f"volume {self.id} is read only")
+            actual_size = get_actual_size(len(n.data), self.version)
+            if max_possible_volume_size(self.offset_size) < self.nm.content_size() + actual_size:
+                raise VolumeError(f"volume {self.id} size limit exceeded "
+                                  f"(content {self.nm.content_size()})")
+            if self._is_file_unchanged(n):
+                return 0, len(n.data), True
+            nv = self.nm.get(n.id)
+            if nv is not None and nv.offset != 0:
+                hdr = self.data_backend.read_at(nv.offset, NEEDLE_HEADER_SIZE)
+                try:
+                    cookie, _, _ = parse_needle_header(hdr)
+                except Exception as e:  # noqa: BLE001 — a short header
+                    raise VolumeError(f"reading existing needle: {e}") from e
+                if cookie != n.cookie:
+                    raise VolumeError(f"mismatching cookie {n.cookie:x}")
+            n.append_at_ns = append_at_ns or time.time_ns()
+            offset = self.data_backend.append(n.to_bytes(self.version))
+            if nv is None or nv.offset < offset:
+                self.nm.put(n.id, offset, n.size)
+            self.last_append_at_ns = n.append_at_ns
+            if fsync:
+                self.sync()
+            return offset, n.size, False
+
+    def _is_file_unchanged(self, n: Needle) -> bool:
+        if str(self.ttl):
+            return False
+        nv = self.nm.get(n.id)
+        if nv is None or nv.offset == 0 or not size_is_valid(nv.size):
+            return False
+        try:
+            blob = self.data_backend.read_at(nv.offset, get_actual_size(nv.size, self.version))
+            old = Needle.from_bytes(blob, nv.size, self.version)
+        except Exception:  # noqa: BLE001 — unreadable old copy: not unchanged
+            return False
+        return old.cookie == n.cookie and old.data == n.data
+
+    # -- delete path (volume_read_write.go:194-220) --------------------------
+    def delete_needle(self, n: Needle, append_at_ns: Optional[int] = None) -> int:
+        """Returns the size of the deleted needle (0 if absent)."""
+        with self._lock:
+            if self.read_only:
+                raise VolumeError(f"volume {self.id} is read only")
+            nv = self.nm.get(n.id)
+            if nv is None or not size_is_valid(nv.size):
+                return 0
+            n.data = b""
+            n.append_at_ns = append_at_ns or time.time_ns()
+            offset = self.data_backend.append(n.to_bytes(self.version))
+            self.nm.delete(n.id, offset)
+            self.last_append_at_ns = n.append_at_ns
+            return nv.size
+
+    # -- read path (volume_read_write.go:262-302) ----------------------------
+    def read_needle(self, n: Needle, read_deleted: bool = False) -> int:
+        with self._lock:
+            nv = self.nm.get(n.id)
+            if nv is None or nv.offset == 0:
+                raise NotFoundError(f"needle {n.id:x} not found")
+            read_size = nv.size
+            if read_size < 0:  # deleted (size 0 is a valid empty needle)
+                if read_deleted and read_size != -1:
+                    read_size = -read_size
+                else:
+                    raise DeletedError(f"needle {n.id:x} deleted")
+            if read_size == 0:
+                return 0
+            blob = self.data_backend.read_at(nv.offset, get_actual_size(read_size, self.version))
+        m = Needle.from_bytes(blob, read_size, self.version)
+        n.__dict__.update(m.__dict__)
+        if (not n.has(FLAG_HAS_TTL) or n.ttl.minutes() == 0
+                or not n.has(FLAG_HAS_LAST_MODIFIED)):
+            return len(n.data)
+        if time.time() < n.last_modified + n.ttl.minutes() * 60:
+            return len(n.data)
+        raise NotFoundError(f"needle {n.id:x} expired")
+
+    # -- sequential scan -----------------------------------------------------
+    def scan_needles(self, verify_crc: bool = False) -> Iterator[tuple[Needle, int, int]]:
+        """Yield (needle, offset, total_len) for every record in the .dat, up
+        to its size when the scan starts (the .dat only grows)."""
+        size = self.data_backend.size()
+        offset = self.super_block.block_size()
+        version = self.version
+        while offset + NEEDLE_HEADER_SIZE <= size:
+            hdr = self.data_backend.read_at(offset, NEEDLE_HEADER_SIZE)
+            cookie, nid, nsize = parse_needle_header(hdr)
+            body_len = needle_body_length(max(nsize, 0), version)
+            total = NEEDLE_HEADER_SIZE + body_len
+            if offset + total > size:
+                break
+            n = Needle(cookie=cookie, id=nid, size=nsize)
+            body = self.data_backend.read_at(offset + NEEDLE_HEADER_SIZE, body_len)
+            try:
+                n.read_body_bytes(body, version)
+            except Exception:  # noqa: BLE001 — a corrupt body
+                if verify_crc:
+                    raise
+            yield n, offset, total
+            offset += total
+
+    # -- lifecycle -----------------------------------------------------------
+    def sync(self) -> None:
+        with self._lock:
+            self.data_backend.sync()
+            self.nm.sync()
+
+    def close(self) -> None:
+        with self._lock:
+            self.nm.close()
+            self.data_backend.close()
+
+    def destroy(self) -> None:
+        """Remove every file of this volume (volume_read_write.go:46-72)."""
+        with self._lock:
+            self.close()
+            base = self.file_name()
+            for ext in (".dat", ".idx", ".vif", ".note"):
+                try:
+                    os.remove(base + ext)
+                except FileNotFoundError:
+                    pass

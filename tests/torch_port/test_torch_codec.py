@@ -7,6 +7,8 @@ arithmetic is exact, so every comparison is byte equality (tolerance 0).
 """
 
 import itertools
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -206,3 +208,38 @@ def test_kernel_matches_plain_on_the_card():
     rng = np.random.default_rng(1)
     data = rng.integers(0, 256, (10, 70001), dtype=np.uint8)
     assert np.array_equal(codec.encode(data), NumpyCodec().encode(data))
+
+
+@pytest.mark.cuda
+def test_launch_counter_counts_every_thread():
+    """Request threads of the volume server share one CudaCodec: eight
+    threads each reconstruct through it (host in, host out, as a degraded
+    read does), every result is right and no launch goes uncounted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    codec = pcodec.get_codec()
+    rng = np.random.default_rng(2)
+    data = rng.integers(0, 256, (10, 65537), dtype=np.uint8)
+    want = NumpyCodec().encode(data)
+    per_thread, threads = 50, 8
+    errors = []
+
+    def work():
+        for _ in range(per_thread):
+            if not np.array_equal(codec.encode(data), want):
+                errors.append("parity differs")
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        before = gf_matmul.launches
+        pool = [threading.Thread(target=work) for _ in range(threads)]
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in pool)
+    finally:
+        sys.setswitchinterval(old)
+    assert not errors
+    assert gf_matmul.launches - before == threads * per_thread  # k = 10: one launch each

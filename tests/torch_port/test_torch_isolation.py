@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``seaweedfs_tpu_torch``
-and ``chip_smoke.py`` loads neither jax nor any module of the JAX package.
-Checked in a fresh interpreter, since this test process imports both."""
+and ``chip_smoke.py`` loads neither jax nor any module of the JAX package,
+and starts no thread (the servers start only when asked). Checked in a
+fresh interpreter, since this test process imports both."""
 
 import os
 import subprocess
@@ -11,8 +12,9 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 PROBE = r"""
-import importlib, importlib.util, os, pkgutil, sys
+import importlib, importlib.util, os, pkgutil, sys, threading
 sys.path.insert(0, REPO)
+threads = threading.active_count()
 import seaweedfs_tpu_torch
 names = ["seaweedfs_tpu_torch"] + [
     m.name for m in pkgutil.walk_packages(seaweedfs_tpu_torch.__path__, "seaweedfs_tpu_torch.")]
@@ -25,6 +27,7 @@ bad = sorted(m for m in sys.modules
              or m == "seaweedfs_tpu" or m.startswith("seaweedfs_tpu."))
 print("MODULES", len(names))
 print("BAD", bad)
+print("NEW_THREADS", threading.active_count() - threads)
 """
 
 
@@ -37,6 +40,7 @@ def test_port_imports_nothing_of_jax():
     lines = dict(line.split(" ", 1) for line in r.stdout.splitlines() if " " in line)
     assert int(lines["MODULES"]) >= 20, r.stdout
     assert lines["BAD"] == "[]", r.stdout
+    assert lines["NEW_THREADS"] == "0", r.stdout
 
 
 def test_jax_factory_still_refuses_cuda():
