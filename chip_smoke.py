@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's erasure-coding path on one NVIDIA GPU.
+"""Drive the PyTorch port's erasure-coding and query paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -34,11 +34,25 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    byte for byte, /admin/ec/rebuild (sha256 against the .vif), then
    /admin/ec/to_volume with data shards 1, 2, 5 lost (.dat identical, .idx
    identical in key order). Each EC step must launch the kernel, and the
-   needle CRC must be the native build.
+   needle CRC must be the native build;
+7. the query path: a port VolumeServer (CUDA backend) beside the stub
+   master holds eight 32 MiB CSV needles (``id,region,score,name``, the
+   query probe's schema, from a seed; needle 7 with 1 % 1e3-style scores
+   and 1 % non-ASCII names). Six /_query requests per needle (the probe's
+   ``region = 'east' AND score > 995``, contains, starts_with, a
+   lexicographic ``<``, ``NOT ... OR ...``, ``LIMIT``) run the scan's
+   predicate tree on the card; every reply must equal the cpu backend's
+   rows, and on the first 4 MiB of needle 7 the row-at-a-time engine's.
+   The numeric parse on the card must equal float() on an edge corpus.
+   Latency p50/p99 and MB/s per query, the kernel/exact-lane split, peak
+   device memory, one query's time split into its steps and the kernels per
+   tree evaluation (torch.profiler). Then /admin/ec/generate, mount,
+   delete_volume, and the shard holding needle 3's first block deleted: the
+   probe query on needle 3 must return the same rows, through gf_matmul.
 
 Every phase prints one JSON line with its numbers and kernel launches.
-Phases 2-6 are the main path: the launch counts are zeroed before phase 2
-and read after phase 6, and every phase must have launched the kernel. The
+Phases 2-7 are the main path: the launch counts are zeroed before phase 2
+and read after phase 7, and every phase must have launched the kernel. The
 line before last lists each kernel with its launches, error and times; the
 last line is the device record. Any mismatch or error exits non-zero.
 """
@@ -74,7 +88,11 @@ from seaweedfs_tpu_torch.ec.codec import get_codec  # noqa: E402
 from seaweedfs_tpu_torch.ec.constants import shard_ext  # noqa: E402
 from seaweedfs_tpu_torch.ec.decoder import decode_to_volume  # noqa: E402
 from seaweedfs_tpu_torch.ec.ec_volume import EcVolume  # noqa: E402
+from seaweedfs_tpu_torch.query import execute_request, parse_sql, run_query  # noqa: E402
+from seaweedfs_tpu_torch.query import scan as query_scan  # noqa: E402
+from seaweedfs_tpu_torch.query.scan import TorchKernels, compile_plan  # noqa: E402
 from seaweedfs_tpu_torch.server.volume_server import VolumeServer  # noqa: E402
+from seaweedfs_tpu_torch.stats.metrics import QUERY_COUNTERS  # noqa: E402
 from seaweedfs_tpu_torch.storage import crc  # noqa: E402
 from seaweedfs_tpu_torch.storage import idx as idx_mod  # noqa: E402
 from seaweedfs_tpu_torch.storage.file_id import FileId  # noqa: E402
@@ -476,7 +494,8 @@ def phase5(state) -> None:
 class StubMaster:
     """The master's side of the volume server protocol, enough for one
     server: full and delta heartbeats in (volumes and EC shard bits per
-    node), ``/cluster/ping``, ``/dir/lookup`` and ``/dir/lookup_ec`` out."""
+    node), ``/cluster/ping``, ``/dir/lookup`` (falling back to an EC
+    volume's shard holders, as the master does) and ``/dir/lookup_ec`` out."""
 
     def __init__(self):
         self.volumes: dict[int, set] = collections.defaultdict(set)  # vid -> {url}
@@ -503,7 +522,10 @@ class StubMaster:
                     if u.path == "/cluster/ping":
                         self._reply({"ok": True})
                     elif u.path == "/dir/lookup":
-                        urls = sorted(master.volumes[int(q["volumeId"])])
+                        vid = int(q["volumeId"])
+                        urls = sorted(master.volumes[vid])
+                        if not urls:  # an EC volume: its shard holders
+                            urls = sorted(x for x, bits in master.ec[vid].items() if bits)
                         self._reply({"locations": [{"url": x, "publicUrl": x} for x in urls]})
                     elif u.path == "/dir/lookup_ec":
                         held = master.ec[int(q["volumeId"])]
@@ -572,7 +594,7 @@ def _call(url: str, method: str, path: str, body: bytes = b"") -> tuple[int, byt
 def _admin(url: str, path: str) -> dict:
     status, data, _ = _call(url, "POST", path)
     if status != 200:
-        raise SystemExit(f"phase 6: POST {path} answered {status}: {data[:300]!r}")
+        raise SystemExit(f"POST {path} answered {status}: {data[:300]!r}")
     return json.loads(data)
 
 
@@ -792,13 +814,347 @@ def phase6(state) -> None:
         raise SystemExit(f"phase 6: no kernel launch in {idle}")
 
 
+# -- phase 7: the query engine ------------------------------------------------
+QUERY_NEEDLES, QUERY_NEEDLE_BYTES = 8, 32 * MiB  # the filer's default chunk
+ORACLE_BYTES = 4 * MiB
+# the query probe's requests (bench.py probe_query) and five more, each kind
+# of leaf once; some as where dicts, some as SQL
+QUERIES = [
+    ("probe", {"select": ["id", "name"], "where": {"and": [
+        {"field": "region", "op": "=", "value": "east"},
+        {"field": "score", "op": ">", "value": 995}]}}),
+    ("contains", {"sql": "SELECT * FROM s3object WHERE name LIKE '%r00012%'"}),
+    ("starts_with", {"sql": "SELECT id, name FROM s3object WHERE name LIKE 'r00001%'"}),
+    ("lex_lt", {"select": ["id", "name"],
+                "where": {"field": "name", "op": "<", "value": "r0000100"}}),
+    ("not_or", {"sql": "SELECT id FROM s3object WHERE NOT region = 'west' OR score <= 3.5"}),
+    ("limit", {"sql": "SELECT * FROM s3object LIMIT 10"}),
+]
+
+
+def _digits(v: np.ndarray, width: int, strip: bool) -> tuple[np.ndarray, np.ndarray]:
+    """ASCII digits of ``v`` in ``width`` columns, with a mask that keeps
+    them all or (``strip``) drops the leading zeros."""
+    pw = 10 ** np.arange(width - 1, -1, -1, dtype=np.int64)
+    mat = ((v[:, None] // pw) % 10 + 48).astype(np.uint8)
+    keep = (v[:, None] >= pw) | (pw == 1) if strip else np.ones(mat.shape, dtype=bool)
+    return mat, keep
+
+
+def query_csv(seed: int, size: int) -> bytes:
+    """A CSV object of the query probe's schema ``id,region,score,name``: id
+    the row number, region one of four, score a two-decimal number in
+    [0, 1000), name ``r`` and 7 digits; the rows are drawn from ``seed`` and
+    cut to the whole rows under ``size`` bytes. Built as one byte matrix and
+    a keep mask, so 32 MiB takes well under a second."""
+    rng = np.random.default_rng(seed)
+    n = size // 24
+    reg = rng.integers(0, 4, n)
+    cents = rng.integers(0, 100_000, n)
+    names = rng.integers(0, 10 ** 7, n)
+    tab = np.zeros((4, 5), dtype=np.uint8)
+    for i, r in enumerate((b"east", b"west", b"north", b"south")):
+        tab[i, :len(r)] = np.frombuffer(r, np.uint8)
+    reg_len = np.array([4, 4, 5, 5])
+
+    def const(b: bytes):
+        return (np.broadcast_to(np.frombuffer(b, np.uint8), (n, len(b))),
+                np.ones((n, len(b)), dtype=bool))
+
+    cols = [_digits(np.arange(n), 7, True), const(b","),
+            (tab[reg], np.arange(5)[None, :] < reg_len[reg][:, None]), const(b","),
+            _digits(cents // 100, 3, True), const(b"."), _digits(cents % 100, 2, False),
+            const(b",r"), _digits(names, 7, False), const(b"\n")]
+    mat = np.concatenate([c[0] for c in cols], axis=1)
+    keep = np.concatenate([c[1] for c in cols], axis=1)
+    data = (b"id,region,score,name\n" + mat[keep].tobytes())[:size]
+    return data[: data.rfind(b"\n") + 1]
+
+
+def exact_lane_csv(data: bytes, seed: int, size: int) -> bytes:
+    """``data`` with 1 % of the scores written as ``9.953700e+02`` and 1 % of
+    the names starting with a non-ASCII letter: rows only the exact lane
+    decides. Cut again to the whole rows under ``size`` bytes."""
+    lines = data.split(b"\n")
+    rng = np.random.default_rng(seed)
+    body = np.arange(1, len(lines) - 1)
+    for i in rng.choice(body, len(body) // 100, replace=False):
+        f = lines[i].split(b",")
+        lines[i] = b",".join((f[0], f[1], b"%e" % float(f[2]), f[3]))
+    for i in rng.choice(body, len(body) // 100, replace=False):
+        f = lines[i].split(b",")
+        lines[i] = b",".join((f[0], f[1], f[2], "ř".encode() + f[3][1:]))
+    out = b"\n".join(lines)[:size]
+    return out[: out.rfind(b"\n") + 1]
+
+
+def numeric_edge_check() -> dict:
+    """The scan's numeric parse on the card against ``float()`` at the edge
+    of its domain: 15-digit mantissas with 1-14 fractional digits (both
+    signs, fixed and 2000 drawn from a seed), and ``0.1``, ``-0``, ``5.``,
+    ``.5``, ``99999999999999.9``. A simple-domain value must equal float()
+    bit for bit; ``5.`` and ``.5`` must go to the exact lane."""
+    rng = np.random.default_rng(17)
+    texts = ["0.1", "-0", "5.", ".5", "99999999999999.9", "0.000000000000001", "-0.0"]
+    for f in range(1, 15):
+        for m in ("123456789012345", "-987654321098765", "999999999999999"):
+            texts.append(m[:len(m) - f] + "." + m[len(m) - f:])
+    for _ in range(2000):
+        digits = "".join(map(str, rng.integers(0, 10, 15)))
+        f = int(rng.integers(1, 15))
+        texts.append(("-" if rng.random() < 0.5 else "") + digits[:15 - f] + "." + digits[15 - f:])
+    k = TorchKernels("cuda")
+    w = max(len(t) for t in texts)
+    mat = np.zeros((len(texts), w), dtype=np.uint8)
+    for i, t in enumerate(texts):
+        mat[i, :len(t)] = np.frombuffer(t.encode(), np.uint8)
+    lens = torch.tensor([len(t) for t in texts], dtype=torch.int32, device=k.device)
+    vals, simple, not_float = (x.cpu().numpy() for x in query_scan._numeric(
+        torch.from_numpy(mat).to(k.device), lens, k.ten_pows, k.floatish))
+    bad = [t for t, v, s in zip(texts, vals, simple)
+           if s and np.float64(float(t)).view(np.int64) != np.float64(v).view(np.int64)]
+    bad += [t for t in ("5.", ".5") if simple[texts.index(t)] or not_float[texts.index(t)]]
+    bad += [t for t in ("0.1", "-0", "99999999999999.9") if not simple[texts.index(t)]]
+    return {"cases": len(texts), "simple": int(simple.sum()), "mismatches": bad[:10]}
+
+
+def _query_args(req: dict) -> tuple:
+    """(select, where, limit) of a request, as the port's scan_request reads it."""
+    if "sql" in req:
+        return parse_sql(req["sql"])
+    return req.get("select"), req.get("where"), req.get("limit", 0)
+
+
+def _split_query(vs, fid: str, req: dict) -> dict:
+    """One query's time split apart, outside the latency runs: the needle
+    fetch, the host structural index (segment scan and field vectors), the
+    H2D copies, the tree's evaluation, the masks' D2H copy and the row
+    building, with the reply's JSON encoding. Host seconds exclude nested
+    timed calls; the three device steps are timed by CUDA events around
+    them (``*_device_ms``)."""
+    t0 = time.perf_counter()
+    status, data = vs._fetch_fid(fid)
+    fetch_s = time.perf_counter() - t0
+    if status != 200:
+        raise SystemExit(f"phase 7: fetch {fid} answered {status}")
+    plan = compile_plan(*_query_args(req), input_format="csv", backend="cuda")
+    host: dict = collections.defaultdict(float)
+    events: list = []
+    stack: list = []
+
+    def wrap(obj, name: str, device: bool) -> None:
+        fn = getattr(obj, name)
+
+        def timed(*args, **kwargs):
+            if device:
+                a = torch.cuda.Event(enable_timing=True)
+                a.record()
+            stack.append(0.0)
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                dt = time.perf_counter() - t
+                host[name] += dt - stack.pop()
+                if stack:
+                    stack[-1] += dt
+                if device:
+                    b = torch.cuda.Event(enable_timing=True)
+                    b.record()
+                    events.append((name, a, b))
+
+        setattr(obj, name, timed)  # on this plan only: it is thrown away
+
+    for name in ("_csv_segment", "_field_vectors", "_csv_batch"):
+        wrap(plan, name, False)
+    for name in ("stage", "evaluate", "to_host"):
+        wrap(plan.kernels, name, True)
+    t0 = time.perf_counter()
+    rows = plan.execute(data)
+    total_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    dev: dict = collections.defaultdict(float)
+    for name, a, b in events:
+        dev[name] += a.elapsed_time(b)
+    t0 = time.perf_counter()
+    json.dumps({"rows": rows, "count": len(rows)})
+    encode_s = time.perf_counter() - t0
+    parts = {"index_s": host["_csv_segment"] + host["_field_vectors"],
+             "stage_s": host["stage"], "evaluate_enqueue_s": host["evaluate"],
+             "to_host_s": host["to_host"], "row_build_s": host["_csv_batch"]}
+    return {"fetch_s": fetch_s, **parts, "scan_s": total_s,
+            "scan_other_s": total_s - sum(parts.values()), "json_encode_s": encode_s,
+            "stage_device_ms": dev["stage"], "evaluate_device_ms": dev["evaluate"],
+            "to_host_device_ms": dev["to_host"],
+            "evaluations": sum(1 for e in events if e[0] == "evaluate"), "rows": len(rows)}
+
+
+def _profile_query(data: bytes, req: dict) -> dict:
+    """Kernel launches per tree evaluation and the card's busy time during
+    one scan, from torch.profiler's device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    plan = compile_plan(*_query_args(req), input_format="csv", backend="cuda")
+    e0 = TorchKernels.evaluations["cuda"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        plan.execute(data)
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    evals = TorchKernels.evaluations["cuda"] - e0
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
+    busy_us = sum(e.time_range.elapsed_us() for e in dev)
+    return {"evaluations": evals, "kernels": len(kernels),
+            "kernels_per_evaluation": len(kernels) / max(evals, 1),
+            "kernel_us": sum(e.time_range.elapsed_us() for e in kernels),
+            "copy_us": busy_us - sum(e.time_range.elapsed_us() for e in kernels),
+            "profiled_wall_s": wall_s, "busy_share": busy_us / 1e6 / wall_s}
+
+
+def phase7(state) -> None:
+    """The query path: a port VolumeServer (CUDA backend) beside the stub
+    master holds eight 32 MiB CSV needles; six /_query requests per needle
+    run the scan's predicate tree on the card, each reply held against the
+    cpu backend's rows, and on 4 MiB of needle 7 against the row-at-a-time
+    engine. Then the volume goes EC with the shard holding needle 3 lost, and
+    the probe query on needle 3 reads through gf_matmul."""
+    vid = 7
+    master = StubMaster()
+    srv_dir = os.path.join(WORK, "7srv")
+    port = _free_port()
+    vs = VolumeServer([srv_dir], host="127.0.0.1", port=port, master_url=master.url,
+                      pulse_seconds=1.0, ec_backend="cuda")
+    url = f"127.0.0.1:{port}"
+    out: dict = {"phase": 7, "scan_backend": "cuda", "numeric_edge": numeric_edge_check()}
+    if out["numeric_edge"]["mismatches"]:
+        raise SystemExit(f"phase 7: numeric parse differs from float(): {out['numeric_edge']}")
+    cnt = QUERY_COUNTERS
+    try:
+        vs.start()
+        _admin(url, f"/admin/assign_volume?volume={vid}&replication=000")
+        t0 = time.perf_counter()
+        needles = [query_csv(70 + i, QUERY_NEEDLE_BYTES) for i in range(QUERY_NEEDLES)]
+        needles[7] = exact_lane_csv(needles[7], 77, QUERY_NEEDLE_BYTES)
+        fids = [str(FileId(vid, i + 1, 0x7000 + i)) for i in range(QUERY_NEEDLES)]
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for fid, data in zip(fids, needles):
+            status, body, _ = _call(url, "POST", "/" + fid, data)
+            if status != 201:
+                raise SystemExit(f"phase 7: upload {fid} answered {status}: {body[:200]!r}")
+        out.update(needles=len(needles), needle_bytes=[len(d) for d in needles],
+                   data_gen_s=gen_s, upload_s=time.perf_counter() - t0)
+
+        def ask(fid: str, req: dict) -> tuple[dict, float]:
+            status, body, sec = _call(url, "POST", "/_query",
+                                      json.dumps(dict(req, fid=fid, input="csv")).encode())
+            if status != 200:
+                raise SystemExit(f"phase 7: /_query {fid} answered {status}: {body[:300]!r}")
+            return json.loads(body), sec
+
+        t0 = time.perf_counter()
+        for _, req in QUERIES:  # first use of each op on the card, untimed
+            ask(fids[0], req)
+        out["warmup_s"] = time.perf_counter() - t0
+
+        torch.cuda.reset_peak_memory_stats()
+        e0, s0 = TorchKernels.evaluations["cuda"], cnt["scans"].value(backend="cuda")
+        per_query, mismatches, probe3 = {}, [], None
+        for name, req in QUERIES:
+            lat, rows, kern, fall = [], 0, 0, 0
+            for i, (fid, data) in enumerate(zip(fids, needles)):
+                k0, f0 = cnt["kernel"].total(), cnt["fallback"].total()
+                got, sec = ask(fid, req)
+                kern += cnt["kernel"].total() - k0
+                fall += cnt["fallback"].total() - f0
+                lat.append(sec)
+                rows += got["count"]
+                want = execute_request(data, dict(req, input="csv"), backend="cpu")[1]
+                if got != want:
+                    mismatches.append((name, i))
+                if name == "probe" and i == 3:
+                    probe3 = got
+            mb = [len(d) / s / 1e6 for d, s in zip(needles, lat)]
+            per_query[name] = {"ms_p50": _pct(lat, 50) * 1e3, "ms_p99": _pct(lat, 99) * 1e3,
+                               "ms_runs": [s * 1e3 for s in lat], "MBps_p50": _pct(mb, 50),
+                               "rows": rows, "rows_kernel": kern, "rows_fallback": fall}
+        out.update(queries=per_query, evaluations=TorchKernels.evaluations["cuda"] - e0,
+                   scans_cuda=cnt["scans"].value(backend="cuda") - s0,
+                   peak_mem_GB=torch.cuda.max_memory_allocated() / 1e9,
+                   mismatches_vs_cpu=mismatches)
+        if mismatches:
+            raise SystemExit(f"phase 7: cuda replies differ from the cpu backend's: {mismatches}")
+        if not sum(q["rows_kernel"] for q in per_query.values()):
+            raise SystemExit("phase 7: no row was decided on the card")
+
+        # the row-at-a-time oracle on the first 4 MiB of needle 7
+        piece = needles[7][:ORACLE_BYTES]
+        piece = piece[: piece.rfind(b"\n") + 1]
+        bad_oracle = []
+        t0 = time.perf_counter()
+        for name, req in QUERIES:
+            select, where, limit = _query_args(req)
+            want = run_query(piece, "csv", select=select, where=where, limit=limit)
+            if execute_request(piece, dict(req, input="csv"), backend="cuda")[1]["rows"] != want:
+                bad_oracle.append(name)
+        out.update(oracle_bytes=len(piece), oracle_s=time.perf_counter() - t0,
+                   oracle_mismatches=bad_oracle)
+        if bad_oracle:
+            raise SystemExit(f"phase 7: the scan differs from the engine on {bad_oracle}")
+
+        # the split of one 32 MiB query into its steps, and launches per batch
+        out["split"] = {name: _split_query(vs, fids[0], req) for name, req in QUERIES}
+        _profile_query(needles[0], QUERIES[0][1])  # the profiler's first start is slow
+        out["profile"] = {name: _profile_query(needles[0], req) for name, req in QUERIES}
+
+        # EC: the needles' volume encoded, the shard with needle 3's first
+        # block lost; the probe query on needle 3 reads through gf_matmul
+        base = os.path.join(srv_dir, str(vid))
+        with open(base + ".idx", "rb") as f:
+            offsets = {key: off for key, off, _ in idx_mod.iter_index_file(io.BytesIO(f.read()))}
+        _admin(url, f"/admin/readonly?volume={vid}")
+        l0 = gm.gf_matmul.launches
+        gen = _admin(url, f"/admin/ec/generate?volume={vid}")
+        gen_launches = gm.gf_matmul.launches - l0
+        _admin(url, f"/admin/ec/mount?volume={vid}")
+        if not _admin(url, f"/admin/delete_volume?volume={vid}")["deleted"]:
+            raise SystemExit("phase 7: the plain volume was not deleted")
+        lost = (offsets[FileId.parse(fids[3]).key] // encoder.SMALL_BLOCK_SIZE) % 10
+        if _admin(url, f"/admin/ec/delete_shards?volume={vid}&shards={lost}")["removed"] != [lost]:
+            raise SystemExit(f"phase 7: shard {lost} was not deleted")
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:  # the delta beats reach the master
+            with master.lock:
+                if not master.volumes[vid] and master.ec[vid].get(url):
+                    break
+            time.sleep(0.1)
+        l0, s0 = gm.gf_matmul.launches, cnt["scans"].value(backend="cuda")
+        got, sec = ask(fids[3], QUERIES[0][1])
+        out.update(ec={"generate_s": gen["seconds"], "generate_launches": gen_launches,
+                       "lost_shard": lost, "query_ms": sec * 1e3,
+                       "query_launches": gm.gf_matmul.launches - l0,
+                       "scans_cuda": cnt["scans"].value(backend="cuda") - s0,
+                       "rows": got["count"], "rows_equal_plain": got == probe3})
+        if got != probe3 or not out["ec"]["query_launches"] or not gen_launches \
+                or out["ec"]["scans_cuda"] != 1:
+            raise SystemExit(f"phase 7: the EC-needle query failed: {out['ec']}")
+    finally:
+        vs.stop()
+        master.stop()
+    out.update(launches=gm.gf_matmul.launches - state["l_phase"], nvidia_smi=state["smi"])
+    emit(out)
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
 
 
-MAIN_PATH = (phase2, phase3, phase4, phase5, phase6)
+MAIN_PATH = (phase2, phase3, phase4, phase5, phase6, phase7)
 
 
 def main() -> int:

@@ -25,11 +25,16 @@ package's volume server, so its master and shell drive this one:
     VolumeEcShardsToVolume     POST /admin/ec/to_volume (the CUDA kernel)
     CopyFile rpc               GET  /admin/file?volume=&ext= (binary)
     volume.fsck's raw material GET  /admin/needle_ids, /admin/needle_info
+    Query rpc                  POST /_query  volume_grpc_query.go:12 (an
+                               S3-Select scan of one local needle; the
+                               predicate tree runs on the store's device)
     /status                    GET  /status
 
 EC work runs through the store's codec: the hand-written CUDA kernel unless
 the server was started with ``ec_backend="cpu"``. Without a card the first
 EC request answers 500 naming the missing device and writes nothing.
+``/_query`` runs its scan plan on the same device, and without a card
+answers 500 naming it too.
 
 Nothing here starts at import: ``start()`` binds the port and starts the
 heartbeat thread, ``stop()`` ends both.
@@ -49,6 +54,7 @@ from ..ec import encoder
 from ..ec.constants import TOTAL_SHARDS, shard_ext
 from ..ec.decoder import decode_to_volume
 from ..ec.ec_volume import rebuild_ecx_file
+from ..query import execute_request
 from ..security import Guard, gen_jwt, read_auth_query, verify_fid_jwt
 from ..stats.heat import heat_stats
 from ..storage.commit import atomic_write
@@ -314,6 +320,34 @@ class VolumeServer:
             if status == 200:
                 return status, data
         return 404, b""
+
+    def _h_query(self, h, path, q, body):
+        """Data-local query: run an S3-Select-ish request against a needle
+        this server holds, without shipping the bytes anywhere
+        (volume_grpc_query.go:12; the filer delegates single-chunk queries
+        here). A query returns needle content, so it passes the same IP
+        guard and fid-scoped read JWT as a GET."""
+        if not self.guard.allowed(h.client_address[0]):
+            return 403, {"error": "ip not allowed"}
+        req = json.loads(body)
+        fid = req.get("fid", "")
+        if self.jwt_read_key:
+            token = req.get("auth", "") or q.get("auth", "")
+            ah = h.headers.get("Authorization", "")
+            if not token and ah.startswith("Bearer "):
+                token = ah[len("Bearer "):]
+            if not verify_fid_jwt(self.jwt_read_key, token, fid):
+                return 401, {"error": "unauthorized read"}
+        try:
+            vid = int(fid.split(",")[0])
+        except (ValueError, IndexError):
+            return 400, {"error": f"bad fid {fid!r}"}
+        if self.store.find_volume(vid) is None and self.store.find_ec_volume(vid) is None:
+            return 404, {"error": f"volume {vid} not local"}
+        status, data = self._fetch_fid(fid)
+        if status != 200:
+            return status, {"error": f"needle {fid}: HTTP {status}"}
+        return execute_request(data, req, backend=self.store.ec_backend)
 
     def _h_post(self, h, path, q, body):
         if not self.guard.allowed(h.client_address[0]):
@@ -834,6 +868,7 @@ class VolumeServer:
                 ("POST", "/admin/assign_volume", vs._h_assign_volume),
                 ("POST", "/admin/delete_volume", vs._h_delete_volume),
                 ("POST", "/_batch_delete", vs._h_batch_delete),
+                ("POST", "/_query", vs._h_query),
                 ("POST", "/admin/readonly", vs._h_readonly),
                 ("POST", "/admin/writable", vs._h_writable),
                 ("POST", "/admin/volume_unmount", vs._h_volume_unmount),
