@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's erasure-coding and query paths on one NVIDIA GPU.
+"""Drive the PyTorch port's erasure-coding, query and cluster paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -27,15 +28,15 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
 5. a small-needle volume: degraded reads of every needle with a data shard
    lost (read_ec_shard_needle), then decode_to_volume with three data
    shards lost, checked byte for byte against what was written;
-6. the server path: a port VolumeServer (CUDA backend) beside a stub
-   master takes 1 GiB of needles (1 KiB-1 MiB, log-uniform) over HTTP from
-   8 threads; /admin/ec/generate (shards checked as in phase 4), mount,
+6. the server path: a port VolumeServer (CUDA backend) beside the port's
+   MasterServer takes 1 GiB of needles (1 KiB-1 MiB, log-uniform) over HTTP
+   from 8 threads; /admin/ec/generate (shards checked as in phase 4), mount,
    delete_volume, delete_shards {0, 3, 10, 13}, 64 degraded GETs compared
    byte for byte, /admin/ec/rebuild (sha256 against the .vif), then
    /admin/ec/to_volume with data shards 1, 2, 5 lost (.dat identical, .idx
    identical in key order). Each EC step must launch the kernel, and the
    needle CRC must be the native build;
-7. the query path: a port VolumeServer (CUDA backend) beside the stub
+7. the query path: a port VolumeServer (CUDA backend) beside the port's
    master holds eight 32 MiB CSV needles (``id,region,score,name``, the
    query probe's schema, from a seed; needle 7 with 1 % 1e3-style scores
    and 1 % non-ASCII names). Six /_query requests per needle (the probe's
@@ -46,13 +47,29 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    The numeric parse on the card must equal float() on an edge corpus.
    Latency p50/p99 and MB/s per query, the kernel/exact-lane split, peak
    device memory, one query's time split into its steps and the kernels per
-   tree evaluation (torch.profiler). Then /admin/ec/generate, mount,
-   delete_volume, and the shard holding needle 3's first block deleted: the
-   probe query on needle 3 must return the same rows, through gf_matmul.
+   tree evaluation (torch.profiler). Then the port shell's ``ec.encode
+   -fleet`` encodes the volume through the master's fleet scheduler, the
+   shard holding needle 3's first block is deleted, and the probe query on
+   needle 3 must return the same rows, through gf_matmul;
+8. the cluster path: the port's master, four port volume servers (CUDA
+   backend) and the port shell. A volume grown in a collection of its own
+   is filled to 1 GiB from 8 threads, every fid from /dir/assign;
+   ``ec.encode`` generates on the card and spreads the shards 4/4/3/3; the
+   server with shards 1, 5, 9, 13 stops and the master's reaper drops it;
+   64 degraded GETs and 64 healthy remote GETs go through /dir/lookup;
+   ``ec.rebuild`` copies survivors in and rebuilds the 4 lost shards on the
+   card; the server with shards 3, 7, 11 stops too and ``ec.decode``
+   rebuilds data shards 3 and 7 in to_volume; every needle reads back equal
+   and the decoded .dat hashes as the original. Each EC step (encode,
+   degraded GETs, rebuild, decode) must launch the kernel.
+
+Phase 1 also runs four CudaCodecs from four threads at once (the volume
+servers of phase 8 share the card so, and the fleet scheduler runs up to
+four generate jobs together); each result must equal the plain version's.
 
 Every phase prints one JSON line with its numbers and kernel launches.
-Phases 2-7 are the main path: the launch counts are zeroed before phase 2
-and read after phase 7, and every phase must have launched the kernel. The
+Phases 2-8 are the main path: the launch counts are zeroed before phase 2
+and read after phase 8, and every phase must have launched the kernel. The
 line before last lists each kernel with its launches, error and times; the
 last line is the device record. Any mismatch or error exits non-zero.
 """
@@ -60,9 +77,9 @@ last line is the device record. Any mismatch or error exits non-zero.
 from __future__ import annotations
 
 import collections
+import contextlib
 import hashlib
 import http.client
-import http.server
 import io
 import json
 import os
@@ -91,7 +108,11 @@ from seaweedfs_tpu_torch.ec.ec_volume import EcVolume  # noqa: E402
 from seaweedfs_tpu_torch.query import execute_request, parse_sql, run_query  # noqa: E402
 from seaweedfs_tpu_torch.query import scan as query_scan  # noqa: E402
 from seaweedfs_tpu_torch.query.scan import TorchKernels, compile_plan  # noqa: E402
+from seaweedfs_tpu_torch.server.master_server import MasterServer  # noqa: E402
 from seaweedfs_tpu_torch.server.volume_server import VolumeServer  # noqa: E402
+from seaweedfs_tpu_torch.shell import commands as shell_commands  # noqa: E402
+from seaweedfs_tpu_torch.shell.commands import CommandEnv  # noqa: E402
+from seaweedfs_tpu_torch.shell.shell import run_command  # noqa: E402
 from seaweedfs_tpu_torch.stats.metrics import QUERY_COUNTERS  # noqa: E402
 from seaweedfs_tpu_torch.storage import crc  # noqa: E402
 from seaweedfs_tpu_torch.storage import idx as idx_mod  # noqa: E402
@@ -102,12 +123,14 @@ from seaweedfs_tpu_torch.storage.store import (  # noqa: E402
     read_ec_shard_needle,
 )
 from seaweedfs_tpu_torch.storage.super_block import SuperBlock  # noqa: E402
+from seaweedfs_tpu_torch.storage.volume import volume_file_name  # noqa: E402
 
 MiB, GiB = 1 << 20, 1 << 30
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 INT8_OPS_PER_S = 1.979e15  # H100 SXM dense int8 tensor-core rate
 LOST = [0, 3, 10, 13]  # two data + two parity shards
 WORK = os.path.join(HERE, "chip_smoke_work")
+EC_BACKEND = "cuda"  # the volume servers' codec in phases 6-8
 
 
 def emit(obj) -> None:
@@ -250,10 +273,59 @@ def phase1(state) -> None:
           "shape": [R, k, n], "kernel_ms": ms, "kernel_ms_runs": kern,
           "kernel_input_GBps": k * n / ms / 1e6, "plain_ms": statistics.median(plain),
           "bound_ms": bound_ms, "bound_by": bound_by, "nvidia_smi": state["smi"]})
+    conc = concurrent_codecs()
+    emit({"phase": 1, "concurrent_codecs": conc})
     emit({"kernels": [{"name": "gf_matmul", "launches": gm.gf_matmul.launches,
                        "mismatches": mismatches}]})
-    if mismatches:
+    if mismatches or conc["mismatches"]:
         raise SystemExit("phase 1: kernel disagrees with its plain version")
+
+
+def concurrent_codecs(n_codecs: int = 4, width: int = 32 * MiB) -> dict:
+    """Several volume servers in one process each own a CudaCodec (their own
+    streams and pinned buffers), and the fleet scheduler runs up to 4
+    generate jobs at once. Four codecs encode four host stripes of
+    uint8[10, width] from four threads at once; each result must equal the
+    plain version's, and the wall time is set beside four calls in a row on
+    one codec, with the seconds spent allocating pinned memory."""
+    from seaweedfs_tpu_torch.ec import gf
+
+    rng = np.random.default_rng(11)
+    matrix = gf.parity_matrix(10, 4)
+    stripes = [rng.integers(0, 256, (10, width), dtype=np.uint8) for _ in range(n_codecs)]
+    want = [gm.gf_matmul_plain(matrix, torch.from_numpy(d).cuda()).cpu().numpy()
+            for d in stripes]
+    codecs = [get_codec(device="cuda") for _ in range(n_codecs)]
+    for c in codecs:  # first use of each codec's streams, untimed
+        c.matmul(matrix, stripes[0][:, :MiB])
+    t0 = time.perf_counter()
+    serial = [codecs[0].matmul(matrix, d).copy() for d in stripes]
+    serial_s = time.perf_counter() - t0
+    got: list = [None] * n_codecs
+    # pinned host memory: device_put pins its input, host_buffer allocates
+    # the result's landing buffer
+    timers = [(_Timer(c.device_put), _Timer(c.host_buffer)) for c in codecs]
+    for c, (put, buf) in zip(codecs, timers):
+        c.device_put, c.host_buffer = put, buf
+
+    def run(i: int) -> None:
+        got[i] = codecs[i].matmul(matrix, stripes[i]).copy()
+
+    pool = [threading.Thread(target=run, args=(i,)) for i in range(n_codecs)]
+    t0 = time.perf_counter()
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join()
+    concurrent_s = time.perf_counter() - t0
+    bad = sum(int((g != w).sum()) for g, w in zip(got, want))
+    bad += sum(int((g != w).sum()) for g, w in zip(serial, want))
+    del codecs
+    torch.cuda.empty_cache()
+    return {"codecs": n_codecs, "shape": [10, width], "mismatches": bad,
+            "serial_s": serial_s, "concurrent_s": concurrent_s,
+            "device_put_s": [put.seconds for put, _ in timers],
+            "host_buffer_s": [buf.seconds for _, buf in timers]}
 
 
 def phase2(state) -> None:
@@ -491,89 +563,6 @@ def phase5(state) -> None:
         raise SystemExit("phase 5: needle volume round trip failed")
 
 
-class StubMaster:
-    """The master's side of the volume server protocol, enough for one
-    server: full and delta heartbeats in (volumes and EC shard bits per
-    node), ``/cluster/ping``, ``/dir/lookup`` (falling back to an EC
-    volume's shard holders, as the master does) and ``/dir/lookup_ec`` out."""
-
-    def __init__(self):
-        self.volumes: dict[int, set] = collections.defaultdict(set)  # vid -> {url}
-        self.ec: dict[int, dict] = collections.defaultdict(dict)  # vid -> {url: bits}
-        self.lock = threading.Lock()
-        master = self
-
-        class Handler(http.server.BaseHTTPRequestHandler):
-            def log_message(self, *args):
-                pass
-
-            def _reply(self, obj):
-                body = json.dumps(obj).encode()
-                self.send_response(200)
-                self.send_header("Content-Type", "application/json")
-                self.send_header("Content-Length", str(len(body)))
-                self.end_headers()
-                self.wfile.write(body)
-
-            def do_GET(self):
-                u = urllib.parse.urlparse(self.path)
-                q = dict(urllib.parse.parse_qsl(u.query))
-                with master.lock:
-                    if u.path == "/cluster/ping":
-                        self._reply({"ok": True})
-                    elif u.path == "/dir/lookup":
-                        vid = int(q["volumeId"])
-                        urls = sorted(master.volumes[vid])
-                        if not urls:  # an EC volume: its shard holders
-                            urls = sorted(x for x, bits in master.ec[vid].items() if bits)
-                        self._reply({"locations": [{"url": x, "publicUrl": x} for x in urls]})
-                    elif u.path == "/dir/lookup_ec":
-                        held = master.ec[int(q["volumeId"])]
-                        self._reply({"shard_id_locations": {
-                            str(s): [x for x, bits in held.items() if bits >> s & 1]
-                            for s in range(14)}})
-                    else:
-                        self.send_error(404)
-
-            def do_POST(self):
-                hb = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
-                master.heartbeat(hb)
-                self._reply({})
-
-        self.srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
-        self.url = f"127.0.0.1:{self.srv.server_address[1]}"
-        self.thread = threading.Thread(target=self.srv.serve_forever, daemon=True)
-        self.thread.start()
-
-    def heartbeat(self, hb: dict) -> None:
-        url = hb["public_url"]
-        with self.lock:
-            if "volumes" in hb:  # a full beat: what this node holds, all of it
-                for holders in self.volumes.values():
-                    holders.discard(url)
-                for held in self.ec.values():
-                    held.pop(url, None)
-                for v in hb["volumes"]:
-                    self.volumes[v["id"]].add(url)
-                for e in hb.get("ec_shards", []):
-                    self.ec[e["id"]][url] = e["ec_index_bits"]
-            for v in hb.get("new_volumes", []):
-                self.volumes[v["id"]].add(url)
-            for v in hb.get("deleted_volumes", []):
-                self.volumes[v["id"]].discard(url)
-            for e in hb.get("new_ec_shards", []):
-                held = self.ec[e["id"]]
-                held[url] = held.get(url, 0) | e["ec_index_bits"]
-            for e in hb.get("deleted_ec_shards", []):
-                held = self.ec[e["id"]]
-                held[url] = held.get(url, 0) & ~e["ec_index_bits"]
-
-    def stop(self) -> None:
-        self.srv.shutdown()
-        self.srv.server_close()
-        self.thread.join()
-
-
 def _pct(xs, q: float) -> float:
     return float(np.percentile(np.asarray(xs), q))
 
@@ -589,6 +578,16 @@ def _call(url: str, method: str, path: str, body: bytes = b"") -> tuple[int, byt
         return resp.status, data, time.perf_counter() - t0
     finally:
         conn.close()
+
+
+def _until(cond, timeout: float = 30.0) -> bool:
+    """Poll ``cond`` until it holds or ``timeout`` seconds pass."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if cond():
+            return True
+        time.sleep(0.1)
+    return bool(cond())
 
 
 def _admin(url: str, path: str) -> dict:
@@ -640,17 +639,17 @@ class _Timed:
 
 
 def phase6(state) -> None:
-    """The server path: a port VolumeServer with the CUDA backend, beside a
-    stub master, takes a 1 GiB needle volume over HTTP, encodes it, serves
+    """The server path: a port VolumeServer with the CUDA backend, beside the
+    port's master, takes a 1 GiB needle volume over HTTP, encodes it, serves
     degraded reads with shards {0, 3, 10, 13} lost, rebuilds them, and
     decodes the volume back, each EC step through its admin endpoint."""
     vid, k, threads = 6, 10, 8
-    master = StubMaster()
+    master = MasterServer(host="127.0.0.1", port=_free_port()).start()
     srv_dir = os.path.join(WORK, "6srv")
     base = os.path.join(srv_dir, str(vid))
     port = _free_port()
     vs = VolumeServer([srv_dir], host="127.0.0.1", port=port, master_url=master.url,
-                      pulse_seconds=1.0, ec_backend="cuda")
+                      pulse_seconds=1.0, ec_backend=EC_BACKEND)
     url = f"127.0.0.1:{port}"
     out: dict = {"phase": 6}
     steps: dict = {}
@@ -1015,18 +1014,19 @@ def _profile_query(data: bytes, req: dict) -> dict:
 
 
 def phase7(state) -> None:
-    """The query path: a port VolumeServer (CUDA backend) beside the stub
+    """The query path: a port VolumeServer (CUDA backend) beside the port's
     master holds eight 32 MiB CSV needles; six /_query requests per needle
     run the scan's predicate tree on the card, each reply held against the
     cpu backend's rows, and on 4 MiB of needle 7 against the row-at-a-time
-    engine. Then the volume goes EC with the shard holding needle 3 lost, and
-    the probe query on needle 3 reads through gf_matmul."""
+    engine. Then the port shell's ``ec.encode -fleet`` encodes the volume
+    through the master's fleet scheduler, the shard holding needle 3 is
+    lost, and the probe query on needle 3 reads through gf_matmul."""
     vid = 7
-    master = StubMaster()
+    master = MasterServer(host="127.0.0.1", port=_free_port()).start()
     srv_dir = os.path.join(WORK, "7srv")
     port = _free_port()
     vs = VolumeServer([srv_dir], host="127.0.0.1", port=port, master_url=master.url,
-                      pulse_seconds=1.0, ec_backend="cuda")
+                      pulse_seconds=1.0, ec_backend=EC_BACKEND)
     url = f"127.0.0.1:{port}"
     out: dict = {"phase": 7, "scan_backend": "cuda", "numeric_edge": numeric_edge_check()}
     if out["numeric_edge"]["mismatches"]:
@@ -1115,25 +1115,30 @@ def phase7(state) -> None:
         base = os.path.join(srv_dir, str(vid))
         with open(base + ".idx", "rb") as f:
             offsets = {key: off for key, off, _ in idx_mod.iter_index_file(io.BytesIO(f.read()))}
-        _admin(url, f"/admin/readonly?volume={vid}")
+        if not _until(lambda: master.master.lookup_volume(vid)):
+            raise SystemExit(f"phase 7: the master never learnt of volume {vid}")
         l0 = gm.gf_matmul.launches
-        gen = _admin(url, f"/admin/ec/generate?volume={vid}")
+        res = run_command(CommandEnv(master.url), f"ec.encode -volumeId={vid} -fleet")
         gen_launches = gm.gf_matmul.launches - l0
-        _admin(url, f"/admin/ec/mount?volume={vid}")
-        if not _admin(url, f"/admin/delete_volume?volume={vid}")["deleted"]:
-            raise SystemExit("phase 7: the plain volume was not deleted")
+        (job,) = res["jobs"]
+        status = json.loads(_call(url, "GET", "/status")[1])
+        if job["state"] != "done" or job["server"] != url or status["volumes"] \
+                or res["volumes"][0]["spread"] != {url: list(range(14))}:
+            raise SystemExit(f"phase 7: ec.encode -fleet did not take over: {res}")
+        gen = {"seconds": job["seconds"]}
         lost = (offsets[FileId.parse(fids[3]).key] // encoder.SMALL_BLOCK_SIZE) % 10
         if _admin(url, f"/admin/ec/delete_shards?volume={vid}&shards={lost}")["removed"] != [lost]:
             raise SystemExit(f"phase 7: shard {lost} was not deleted")
-        deadline = time.monotonic() + 30
-        while time.monotonic() < deadline:  # the delta beats reach the master
-            with master.lock:
-                if not master.volumes[vid] and master.ec[vid].get(url):
-                    break
-            time.sleep(0.1)
+
+        def ec_only() -> bool:  # the delta beats reach the master
+            held = master.master.lookup_ec_volume(vid)["shard_id_locations"]
+            return not master.master.topo.lookup("", vid) and url in held.get(0, []) \
+                and lost not in held
+        _until(ec_only)
         l0, s0 = gm.gf_matmul.launches, cnt["scans"].value(backend="cuda")
         got, sec = ask(fids[3], QUERIES[0][1])
-        out.update(ec={"generate_s": gen["seconds"], "generate_launches": gen_launches,
+        out.update(ec={"encode": "ec.encode -fleet", "generate_s": gen["seconds"],
+                       "generate_launches": gen_launches,
                        "lost_shard": lost, "query_ms": sec * 1e3,
                        "query_launches": gm.gf_matmul.launches - l0,
                        "scans_cuda": cnt["scans"].value(backend="cuda") - s0,
@@ -1148,13 +1153,345 @@ def phase7(state) -> None:
     emit(out)
 
 
+# -- phase 8: the cluster path -------------------------------------------------
+class _ShellCalls:
+    """Within the block, every HTTP call the shell's commands make is timed
+    by its path (``/admin/ec/copy``, ...): ``seconds[path]``, ``calls[path]``."""
+
+    def __enter__(self):
+        self.seconds: dict = collections.defaultdict(float)
+        self.calls: dict = collections.defaultdict(int)
+        self.saved = shell_commands.http_json
+
+        def timed(method, url, *args, **kwargs):
+            path = urllib.parse.urlsplit(url).path
+            t0 = time.perf_counter()
+            try:
+                return self.saved(method, url, *args, **kwargs)
+            finally:
+                self.seconds[path] += time.perf_counter() - t0
+                self.calls[path] += 1
+
+        shell_commands.http_json = timed
+        return self
+
+    def __exit__(self, *exc):
+        shell_commands.http_json = self.saved
+
+
+def _shards_of(offsets: dict, key: int, k: int = 10) -> set:
+    """The data shards that hold the small blocks of needle ``key``."""
+    block = encoder.SMALL_BLOCK_SIZE
+    off, size = offsets[key]
+    end = off + get_actual_size(size, 3)
+    return {b % k for b in range(off // block, (end - 1) // block + 1)}
+
+
+def phase8(state) -> None:
+    """The cluster path: the port's master, four port volume servers (CUDA
+    backend, ``weed volume`` defaults) and the port shell. A volume of its
+    own collection is grown through the master and filled to 1 GiB from 8
+    client threads, every fid from ``/dir/assign``. ``ec.encode`` seals it,
+    generates on the card and spreads the shards 4/4/3/3. The server with
+    shards 1, 5, 9, 13 stops; 64 degraded GETs (a block on a lost data
+    shard) and 64 healthy remote GETs go through ``/dir/lookup`` as a
+    client's do. ``ec.rebuild`` copies survivors in over HTTP and rebuilds
+    the 4 lost shards on the card. Then the server with shards 3, 7, 11
+    stops too, and ``ec.decode`` collects the 11 live shards and rebuilds
+    data shards 3 and 7 on the card in ``to_volume``. Every needle is read
+    back through the master, and the decoded .dat must hash as the
+    original did."""
+    col, k, threads, n_servers = "cluster8", 10, 8, 4
+    out: dict = {"phase": 8, "servers": n_servers, "collection": col}
+    steps: dict = {}
+    master = MasterServer(host="127.0.0.1", port=_free_port(), node_timeout=3.0).start()
+    servers, dirs, stopped = [], {}, set()
+    for i in range(n_servers):
+        d = os.path.join(WORK, f"8srv{i}")
+        vs = VolumeServer([d], host="127.0.0.1", port=_free_port(), master_url=master.url,
+                          pulse_seconds=0.5, ec_backend=EC_BACKEND)
+        servers.append(vs)
+        dirs[f"127.0.0.1:{vs.port}"] = d
+    by_url = {f"127.0.0.1:{vs.port}": vs for vs in servers}
+    env = CommandEnv(master.url)
+
+    def step(name: str, fn):
+        l0, t0 = gm.gf_matmul.launches, time.perf_counter()
+        res = fn()
+        steps[name] = {"s": time.perf_counter() - t0, "launches": gm.gf_matmul.launches - l0}
+        return res
+
+    def stop_server(url: str) -> None:
+        by_url[url].stop()
+        stopped.add(url)
+
+        def dropped() -> bool:
+            held = master.master.lookup_ec_volume(vid)["shard_id_locations"]
+            return not any(url in urls for urls in held.values())
+        t0 = time.perf_counter()
+        if not _until(dropped, timeout=60):
+            raise SystemExit(f"phase 8: the master still names {url} as a shard holder")
+        out.setdefault("reaped_after_s", []).append(time.perf_counter() - t0)
+
+    def get(fid: str) -> tuple[int, bytes, float, str]:
+        """A client's read: the master's lookup, then the first location.
+        Returns (status, body, seconds, the location asked)."""
+        t0 = time.perf_counter()
+        status, body, _ = _call(master.url, "GET", f"/dir/lookup?volumeId={fid.split(',')[0]}")
+        if status != 200:
+            return status, body, time.perf_counter() - t0, ""
+        loc = json.loads(body)["locations"][0]["url"]
+        status, data, _ = _call(loc, "GET", "/" + fid)
+        return status, data, time.perf_counter() - t0, loc
+
+    try:
+        for vs in servers:
+            vs.start()
+        if not _until(lambda: len(master.master.topo.data_nodes()) == n_servers):
+            raise SystemExit("phase 8: the volume servers did not register")
+        grown = _admin(master.url, f"/vol/grow?collection={col}&count=1&replication=000")
+        if grown != {"count": 1}:
+            raise SystemExit(f"phase 8: /vol/grow answered {grown}")
+
+        # needles of log-uniform sizes in 1 KiB..1 MiB until the .dat holds
+        # 1 GiB; each upload asks the master for its fid, as weed upload does
+        rng = np.random.default_rng(8)
+        blobs, total = [], 8
+        while total < GiB:
+            size = int(np.exp(rng.uniform(np.log(1024), np.log(MiB))))
+            blobs.append(rng.bytes(size))
+            total += get_actual_size(size, 3)
+        fids: list = [None] * len(blobs)
+        nxt = iter(range(len(blobs)))
+        assign_ms = [[] for _ in range(threads)]
+        post_ms = [[] for _ in range(threads)]
+        errors: list = []
+
+        def upload(t: int) -> None:
+            mconn = http.client.HTTPConnection(master.url, timeout=120)
+            vconns: dict = {}
+            try:
+                for i in nxt:  # a shared iterator: each index goes to one thread
+                    t0 = time.perf_counter()
+                    mconn.request("GET", f"/dir/assign?collection={col}")
+                    resp = mconn.getresponse()
+                    a = json.loads(resp.read())
+                    t1 = time.perf_counter()
+                    if resp.status != 200:
+                        errors.append(("assign", resp.status, a))
+                        return
+                    conn = vconns.setdefault(
+                        a["url"], http.client.HTTPConnection(a["url"], timeout=120))
+                    conn.request("POST", "/" + a["fid"], body=blobs[i])
+                    resp = conn.getresponse()
+                    resp.read()
+                    assign_ms[t].append((t1 - t0) * 1e3)
+                    post_ms[t].append((time.perf_counter() - t1) * 1e3)
+                    if resp.status != 201:
+                        errors.append((a["fid"], resp.status))
+                        return
+                    fids[i] = a["fid"]
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(repr(e))
+            finally:
+                mconn.close()
+                for c in vconns.values():
+                    c.close()
+
+        t0 = time.perf_counter()
+        pool = [threading.Thread(target=upload, args=(t,)) for t in range(threads)]
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join()
+        write_s = time.perf_counter() - t0
+        if errors:
+            raise SystemExit(f"phase 8: uploads failed: {errors[:5]}")
+        vids = {FileId.parse(f).volume_id for f in fids}
+        if len(vids) != 1:
+            raise SystemExit(f"phase 8: the assigns spread over volumes {sorted(vids)}")
+        vid = vids.pop()
+        source = env.volume_locations(vid)[0]
+        base = volume_file_name(dirs[source], col, vid)
+        a_ms = [x for xs in assign_ms for x in xs]
+        p_ms = [x for xs in post_ms for x in xs]
+        payload = sum(len(b) for b in blobs)
+        out.update(needles=len(blobs), payload_bytes=payload, write_s=write_s,
+                   write_MBps=payload / write_s / 1e6, client_threads=threads,
+                   assign_ms_p50=_pct(a_ms, 50), assign_ms_p99=_pct(a_ms, 99),
+                   master_assign=master.assign_hist.summary(op="assign"),
+                   post_ms_p50=_pct(p_ms, 50), post_ms_p99=_pct(p_ms, 99))
+        dat_sha, dat_bytes = _sha256(base + ".dat"), os.path.getsize(base + ".dat")
+        with open(base + ".idx", "rb") as f:
+            offsets = {key: (off, size) for key, off, size in
+                       idx_mod.iter_index_file(io.BytesIO(f.read()))}
+        out.update(dat_bytes=dat_bytes)
+
+        # ec.encode: readonly, generate on the source's card, copy the
+        # shards to the other three, mount, drop the plain volume
+        with _ShellCalls() as sc:
+            enc = step("ec_encode", lambda: run_command(
+                env, f"ec.encode -volumeId={vid} -collection={col}"))
+        spread = enc["spread"]
+        copied = sum(os.path.getsize(volume_file_name(dirs[t], col, vid) + shard_ext(sid))
+                     for t, sids in spread.items() if t != source for sid in sids)
+        out["encode"] = {"source": source, "spread": spread,
+                         "generate_s": sc.seconds["/admin/ec/generate"],
+                         "copy_s": sc.seconds["/admin/ec/copy"], "copied_bytes": copied,
+                         "copy_MBps": copied / max(sc.seconds["/admin/ec/copy"], 1e-9) / 1e6,
+                         "calls": dict(sc.calls)}
+        shape = sorted(len(s) for s in spread.values())
+        if shape != [3, 3, 4, 4] or spread[source] != [0, 4, 8, 12]:
+            raise SystemExit(f"phase 8: the shards spread as {spread}")
+        if not _until(lambda: len(env.ec_shard_locations(vid)) == 14
+                      and not master.master.topo.lookup("", vid)):
+            raise SystemExit("phase 8: the master never saw all 14 shards")
+        bad, sums = check_shards_spread(dirs, spread, col, vid)
+        out["encode"]["shard_mismatches"] = bad
+        if bad:
+            raise SystemExit("phase 8: the spread shards differ from the .vif sums")
+
+        # a server is lost: the one with shards 1, 5, 9, 13 (k=10 survive)
+        victim = next(t for t, sids in spread.items() if sids == [1, 5, 9, 13])
+        stop_server(victim)
+        order = [int(i) for i in np.random.default_rng(88).permutation(len(fids))]
+        held = [_shards_of(offsets, FileId.parse(fids[i]).key) for i in range(len(fids))]
+        # the server a client's lookup names first answers every read
+        answerer = json.loads(_call(master.url, "GET", f"/dir/lookup?volumeId={vid}")[1])[
+            "locations"][0]["url"]
+        # degraded: a block on a lost data shard; healthy remote: every block
+        # on a live shard of another server than the one that answers
+        picks = [i for i in order if held[i] & {1, 5, 9}][:64]
+        far = {s for t, sids in spread.items() if t not in (answerer, victim) for s in sids}
+        healthy = [i for i in order if held[i] <= far][:64]
+        out["answerer"] = answerer
+        live = [vs.store for url, vs in by_url.items() if url not in stopped]
+        for name, picked in (("degraded_get", picks), ("healthy_remote_get", healthy)):
+            ms, bad_reads, answered = [], 0, collections.Counter()
+            l0 = gm.gf_matmul.launches
+            with contextlib.ExitStack() as stack:  # every live server's read path
+                rts = [stack.enter_context(_Timed(
+                    (st, "_remote_shard_read"), (st, "remote_shard_reader"),
+                    (st.ec_codec, "reconstruct"))) for st in live]
+                for i in picked:
+                    status, data, sec, loc = get(fids[i])
+                    ms.append(sec * 1e3)
+                    answered[loc] += 1
+                    bad_reads += status != 200 or data != blobs[i]
+
+            def total(attr: str, what: str = "seconds") -> float:
+                return sum(getattr(rt[attr], what) for rt in rts)
+            fetch_s, attempt_s = total("_remote_shard_read"), total("remote_shard_reader")
+            steps[name] = {"s": sum(ms) / 1e3, "launches": gm.gf_matmul.launches - l0}
+            out[name] = {"reads": len(picked), "bad_reads": bad_reads,
+                         "answered_by": dict(answered),
+                         "ms_p50": _pct(ms, 50), "ms_p99": _pct(ms, 99),
+                         "remote_fetch_s": fetch_s,
+                         "remote_fetch_calls": total("_remote_shard_read", "calls"),
+                         "remote_attempt_s": attempt_s,
+                         "remote_attempts": total("remote_shard_reader", "calls"),
+                         "retry_backoff_s": fetch_s - attempt_s,
+                         "reconstruct_s": total("reconstruct"),
+                         "reconstruct_calls": total("reconstruct", "calls")}
+            if bad_reads or len(picked) < 64:
+                raise SystemExit(f"phase 8: {bad_reads} of {len(picked)} {name} reads wrong")
+        if steps["healthy_remote_get"]["launches"]:
+            raise SystemExit("phase 8: a healthy remote read ran the kernel")
+
+        # ec.rebuild: the rebuilder copies survivors in, rebuilds the 4 lost
+        with _ShellCalls() as sc:
+            reb = step("ec_rebuild", lambda: run_command(
+                env, f"ec.rebuild -volumeId={vid} -collection={col}"))
+        rebuilder = reb["rebuilder"]
+        rbase = volume_file_name(dirs[rebuilder], col, vid)
+        bad_sums = [s for s in reb["rebuilt"] if _sha256(rbase + shard_ext(s)) != sums[s]]
+        out["rebuild"] = {"rebuilder": rebuilder, "rebuilt": reb["rebuilt"],
+                          "copy_in_s": sc.seconds["/admin/ec/copy"],
+                          "copy_in_shards": sc.calls["/admin/ec/copy"],
+                          "kernel_step_s": sc.seconds["/admin/ec/rebuild"],
+                          "bad_shard_sums": bad_sums}
+        if reb["rebuilt"] != [1, 5, 9, 13] or bad_sums:
+            raise SystemExit(f"phase 8: rebuild gave {reb}, bad sums {bad_sums}")
+        if not _until(lambda: len(env.ec_shard_locations(vid)) == 14):
+            raise SystemExit("phase 8: the rebuilt shards never registered")
+
+        # a second server is lost: ec.decode collects the 11 live shards and
+        # rebuilds the missing data shards in to_volume
+        second = next(t for t, sids in spread.items() if sids == [3, 7, 11])
+        stop_server(second)
+        with _ShellCalls() as sc:
+            dec = step("ec_decode", lambda: run_command(
+                env, f"ec.decode -volumeId={vid} -collection={col}"))
+        target = dec["decoded_on"]
+        tbase = volume_file_name(dirs[target], col, vid)
+        dat_ok = _sha256(tbase + ".dat") == dat_sha and dec["dat_size"] == dat_bytes
+        out["decode"] = {"target": target, "collected": dec["collected_shards"],
+                         "collect_s": sc.seconds["/admin/ec/copy"],
+                         "to_volume_s": sc.seconds["/admin/ec/to_volume"],
+                         "dat_identical": dat_ok, "file_count": dec["file_count"],
+                         "retire_errors": dec.get("retire_errors", [])}
+        if not dat_ok or dec["file_count"] != len(blobs):
+            raise SystemExit(f"phase 8: the decoded volume differs: {out['decode']}")
+        if not _until(lambda: master.master.lookup_volume(vid)
+                      and not env.ec_shard_locations(vid)):
+            raise SystemExit("phase 8: the decoded volume never replaced the EC one")
+
+        # every needle back through the master, 8 client threads
+        nxt = iter(range(len(blobs)))
+        bad_back: list = []
+
+        def read_back() -> None:
+            for i in nxt:
+                status, data, _, _ = get(fids[i])
+                if status != 200 or data != blobs[i]:
+                    bad_back.append(fids[i])
+
+        t0 = time.perf_counter()
+        pool = [threading.Thread(target=read_back) for _ in range(threads)]
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join()
+        out.update(read_back_s=time.perf_counter() - t0, read_back_bad=len(bad_back))
+        if bad_back:
+            raise SystemExit(f"phase 8: {len(bad_back)} needles read back wrong: {bad_back[:5]}")
+    finally:
+        for url, vs in by_url.items():
+            if url not in stopped:
+                vs.stop()
+        master.stop()
+    out.update(steps=steps, launches=gm.gf_matmul.launches - state["l_phase"],
+               nvidia_smi=state["smi"])
+    emit(out)
+    idle = [name for name in ("ec_encode", "degraded_get", "ec_rebuild", "ec_decode")
+            if not steps[name]["launches"]]
+    if idle:
+        raise SystemExit(f"phase 8: no kernel launch in {idle}")
+
+
+def check_shards_spread(dirs: dict, spread: dict, col: str, vid: int) -> tuple[int, list]:
+    """Each spread shard's sha256 on its holder against the sums the .vif
+    records at generate: (bad count, the sums by shard id). The parity's
+    bytes are held to the data end to end: the degraded reads, the rebuild
+    and the decode all reconstruct data shards from it. (The source drops
+    its .vif with the plain volume, as the reference's does; the copies
+    carry it.)"""
+    vif = next(p for p in (volume_file_name(d, col, vid) + ".vif" for d in dirs.values())
+               if os.path.exists(p))
+    with open(vif) as f:
+        sums = json.load(f)["shard_sums"]
+    bad = sum(_sha256(volume_file_name(dirs[t], col, vid) + shard_ext(s)) != sums[s]
+              for t, sids in spread.items() for s in sids)
+    return bad, sums
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
 
 
-MAIN_PATH = (phase2, phase3, phase4, phase5, phase6, phase7)
+MAIN_PATH = (phase2, phase3, phase4, phase5, phase6, phase7, phase8)
 
 
 def main() -> int:
@@ -1168,15 +1505,19 @@ def main() -> int:
         phase0(state)
         phase1(state)
         gm.gf_matmul.launches = 0  # the main path starts here
+        phase_s = {}
         for i, phase in enumerate(MAIN_PATH, start=2):
             state["l_phase"] = gm.gf_matmul.launches
+            t0 = time.perf_counter()
             phase(state)
+            phase_s[i] = time.perf_counter() - t0
             if gm.gf_matmul.launches == state["l_phase"]:
                 raise SystemExit(f"phase {i}: the kernel was never launched")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     main_launches = gm.gf_matmul.launches
     kern = state["kernel"]
+    emit({"phase_s": phase_s})
     print(smi_line(), flush=True)
     emit({"kernels": [{
         "name": "gf_matmul", "route": "cuda",

@@ -8,14 +8,19 @@ volumes keep their read heat in the store (``Store.ec_read_heat``).
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 import weakref
 
+from ..util.parsers import tolerant_ufloat
 
-# one half-life of inactivity halves a volume's heat (the reference's
-# default; its SWEED_HEAT_HALFLIFE override is not ported)
-HEAT_HALFLIFE_SECONDS = 60.0
+# one half-life of inactivity halves a volume's heat. SWEED_HEAT_HALFLIFE
+# (seconds, read at import) overrides it; garbage, negative, non-finite and
+# zero values keep the 60 s default.
+HEAT_HALFLIFE_SECONDS = tolerant_ufloat(
+    os.environ.get("SWEED_HEAT_HALFLIFE", ""), 60.0
+) or 60.0
 
 
 class EwmaHeat:

@@ -7,6 +7,7 @@ query integers through these instead.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 
@@ -26,3 +27,16 @@ def tolerant_uint(raw, default: Optional[int]) -> Optional[int]:
         return parse_ascii_uint(raw)
     except ValueError:
         return default
+
+
+def tolerant_ufloat(raw, default: float) -> float:
+    """Tolerant non-negative float: garbage, negatives and non-finite values
+    fall back to ``default`` (a NaN deadline busy-loops ``Condition.wait``;
+    an inf timeout never expires)."""
+    try:
+        val = float(raw)
+    except (TypeError, ValueError):
+        return default
+    if not math.isfinite(val) or val < 0:
+        return default
+    return val

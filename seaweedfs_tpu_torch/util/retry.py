@@ -2,14 +2,16 @@
 
 ``retry_call(fn, policy=..., classify=...)`` runs ``fn`` until it returns, a
 classifier calls the error permanent (``POISON``), the attempts run out or
-the deadline passes; then it raises :class:`RetryError`. The degraded EC
-read's remote shard fetch (storage/store.py) is its caller here.
+the deadline passes; then it raises :class:`RetryError`. Its callers here:
+the degraded EC read's remote shard fetch (storage/store.py) and the shell's
+re-run of a read-only command after a master failover (shell/shell.py).
 """
 
 from __future__ import annotations
 
 import random
 import time
+import urllib.error
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -37,6 +39,10 @@ class RetryPolicy:
         return d
 
 
+#: interactive/read paths (the shell's read-only commands)
+READ_POLICY = RetryPolicy(attempts=3, base_s=0.05, cap_s=0.5, deadline_s=10.0)
+
+
 class RetryError(Exception):
     """Attempts or deadline exhausted (``permanent`` is False), or the
     classifier called the error poison (True). ``last`` is the final error."""
@@ -51,11 +57,28 @@ class RetryError(Exception):
         self.permanent = permanent
 
 
+def classify_error(exc: BaseException) -> str:
+    """Default classifier: 429 and 5xx statuses and the connection-level
+    OSError family are transient; other 4xx statuses and everything else
+    are poison."""
+    status = getattr(exc, "status", None)
+    if status is None and isinstance(exc, urllib.error.HTTPError):
+        status = exc.code
+    if status is not None:
+        if status == 429 or status >= 500:
+            return TRANSIENT
+        if 400 <= status < 500:
+            return POISON
+    if isinstance(exc, (urllib.error.URLError, OSError)):
+        return TRANSIENT
+    return POISON
+
+
 def retry_call(
     fn: Callable,
     *args,
     policy: RetryPolicy,
-    classify: Callable[[BaseException], str],
+    classify: Callable[[BaseException], str] = classify_error,
     on_retry: Optional[Callable[[BaseException, int, float], None]] = None,
     **kwargs,
 ):

@@ -1,12 +1,18 @@
-"""``python -m seaweedfs_tpu_torch volume`` in a subprocess, registered with
-the JAX package's master.
+"""``python -m seaweedfs_tpu_torch volume|master|shell`` in subprocesses.
 
-With ``-ec.backend=cpu`` the server answers ``/status`` and heartbeats to
-the master. With the default backend (``cuda``) on a machine without a card,
+The volume server, registered with the JAX package's master: with
+``-ec.backend=cpu`` it answers ``/status`` and heartbeats to the master.
+With the default backend (``cuda``) on a machine without a card,
 ``/admin/ec/generate`` answers 500 with an error that names the missing
 device, and leaves no shard, index or staging file behind.
+
+The port-only cluster: a ``master`` and a ``volume`` process, then ``shell
+-c`` lists the volume and the topology. ``master -peers``/``-mdir`` are
+refused, and a shell command the port lacks fails with exit 1, naming it as
+not ported yet.
 """
 
+import json
 import os
 import signal
 import socket
@@ -106,3 +112,75 @@ def test_default_backend_refuses_ec_without_a_card(tmp_path, master):
         assert http_bytes("POST", f"http://{url}/4,0200000001", b"y")[0] == 201
     finally:
         _stop(proc)
+
+
+def _start_master(port):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "seaweedfs_tpu_torch", "master", "-ip", "127.0.0.1",
+         "-port", str(port), "-volumeSizeLimitMB", "64"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    url = f"127.0.0.1:{port}"
+    deadline = time.time() + 60
+    while time.time() < deadline:
+        if proc.poll() is not None:
+            raise AssertionError(f"master exited {proc.returncode}:\n{proc.stdout.read()}")
+        try:
+            if http_bytes("GET", f"http://{url}/cluster/status", timeout=2)[0] == 200:
+                return proc, url
+        except OSError:
+            time.sleep(0.2)
+    _stop(proc)
+    raise AssertionError("master never answered /cluster/status")
+
+
+def _shell(master_url, command):
+    return subprocess.run(
+        [sys.executable, "-m", "seaweedfs_tpu_torch", "shell", "-master", master_url,
+         "-c", command],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+        text=True, timeout=120)
+
+
+def test_port_only_cluster_master_volume_shell(tmp_path):
+    mproc, murl = _start_master(free_port())
+    try:
+        vproc, vurl = _start(tmp_path, murl, "-ec.backend=cpu")
+        try:
+            status = http_json("GET", f"http://{murl}/dir/status")
+            assert status["is_leader"] and status["leader"] == murl
+            grown = http_json("POST", f"http://{murl}/vol/grow?collection=c1&count=1")
+            assert grown == {"count": 1}
+            r = _shell(murl, "volume.list")
+            assert r.returncode == 0, r.stdout + r.stderr
+            vols = json.loads(r.stdout)
+            assert [(v["collection"], v["server"]) for v in vols] == [("c1", vurl)]
+            r = _shell(murl, "cluster.status; collection.list")
+            assert r.returncode == 0, r.stdout + r.stderr
+            assert vurl in r.stdout and '"c1"' in r.stdout
+        finally:
+            _stop(vproc)
+    finally:
+        _stop(mproc)
+
+
+@pytest.mark.parametrize("flag", ["-peers=127.0.0.1:9334", "-mdir=/nonexistent"])
+def test_master_refuses_unported_flags(flag):
+    r = subprocess.run(
+        [sys.executable, "-m", "seaweedfs_tpu_torch", "master", "-port",
+         str(free_port()), flag],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+        text=True, timeout=60)
+    assert r.returncode == 1
+    assert "not ported yet" in r.stderr and flag.split("=")[0] in r.stderr
+
+
+@pytest.mark.parametrize("command", ["volume.vacuum", "fs.ls /", "volume.balance -force"])
+def test_shell_unported_command_fails(command):
+    mproc, murl = _start_master(free_port())
+    try:
+        r = _shell(murl, command)
+        assert r.returncode == 1, r.stdout
+        assert "not ported yet" in r.stdout and command.split()[0] in r.stdout
+    finally:
+        _stop(mproc)

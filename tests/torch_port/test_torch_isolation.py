@@ -26,6 +26,7 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
              or m == "seaweedfs_tpu" or m.startswith("seaweedfs_tpu."))
 print("MODULES", len(names))
+print("NAMES", ",".join(names))
 print("BAD", bad)
 print("NEW_THREADS", threading.active_count() - threads)
 """
@@ -39,6 +40,12 @@ def test_port_imports_nothing_of_jax():
     assert r.returncode == 0, r.stderr
     lines = dict(line.split(" ", 1) for line in r.stdout.splitlines() if " " in line)
     assert int(lines["MODULES"]) >= 20, r.stdout
+    walked = set(lines["NAMES"].split(","))
+    for name in ("cluster.sequence", "cluster.topology", "cluster.volume_layout",
+                 "cluster.volume_growth", "cluster.master", "cluster.fleet",
+                 "stats.histogram", "wdclient", "server.master_server",
+                 "shell.commands", "shell.shell"):
+        assert "seaweedfs_tpu_torch." + name in walked, name
     assert lines["BAD"] == "[]", r.stdout
     assert lines["NEW_THREADS"] == "0", r.stdout
 
