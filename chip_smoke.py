@@ -61,15 +61,32 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    card; the server with shards 3, 7, 11 stops too and ``ec.decode``
    rebuilds data shards 3 and 7 in to_volume; every needle reads back equal
    and the decoded .dat hashes as the original. Each EC step (encode,
-   degraded GETs, rebuild, decode) must launch the kernel.
+   degraded GETs, rebuild, decode) must launch the kernel;
+9. an operator's maintenance cycle: the port's master, four port volume
+   servers (CUDA backend) with the background scrub on (``SWEED_SCRUB=1``,
+   ``SWEED_SCRUB_RATE`` raised to 1024) and the port shell. A 1 GiB volume
+   (phase 8's needles) loses ~30 % of its needles; ``volume.vacuum``
+   compacts it while a writer and a deleter keep at it (every write and
+   delete must survive, the compaction revision must reach the master);
+   ``volume.configure.replication`` and ``volume.fix.replication`` copy it
+   to a second server; a byte flipped in that copy reaches the master as a
+   corrupt needle through the scrub, the copy is dropped and fixed again;
+   ``volume.move`` and ``volume.balance`` move replicas; ``backup`` copies
+   it (full, then incremental, byte for byte); ``ec.encode`` seals it on the
+   card (shards checked against the plain version); a byte flipped in a
+   shard reaches the master as a corrupt shard, the shard is dropped and
+   ``ec.rebuild`` makes it again on the card (sha256 equal to the .vif's);
+   ``volumeServer.evacuate`` and ``volumeServer.leave`` retire a server, which
+   the master drops at once; every live needle reads back through the
+   master. ``ec.encode`` and ``ec.rebuild`` must launch the kernel.
 
 Phase 1 also runs four CudaCodecs from four threads at once (the volume
 servers of phase 8 share the card so, and the fleet scheduler runs up to
 four generate jobs together); each result must equal the plain version's.
 
 Every phase prints one JSON line with its numbers and kernel launches.
-Phases 2-8 are the main path: the launch counts are zeroed before phase 2
-and read after phase 8, and every phase must have launched the kernel. The
+Phases 2-9 are the main path: the launch counts are zeroed before phase 2
+and read after phase 9, and every phase must have launched the kernel. The
 line before last lists each kernel with its launches, error and times; the
 last line is the device record. Any mismatch or error exits non-zero.
 """
@@ -113,11 +130,12 @@ from seaweedfs_tpu_torch.server.volume_server import VolumeServer  # noqa: E402
 from seaweedfs_tpu_torch.shell import commands as shell_commands  # noqa: E402
 from seaweedfs_tpu_torch.shell.commands import CommandEnv  # noqa: E402
 from seaweedfs_tpu_torch.shell.shell import run_command  # noqa: E402
-from seaweedfs_tpu_torch.stats.metrics import QUERY_COUNTERS  # noqa: E402
+from seaweedfs_tpu_torch.stats.metrics import QUERY_COUNTERS, SCRUB_COUNTERS  # noqa: E402
 from seaweedfs_tpu_torch.storage import crc  # noqa: E402
 from seaweedfs_tpu_torch.storage import idx as idx_mod  # noqa: E402
 from seaweedfs_tpu_torch.storage.file_id import FileId  # noqa: E402
 from seaweedfs_tpu_torch.storage.needle import Needle, get_actual_size  # noqa: E402
+from seaweedfs_tpu_torch.storage.needle_map import IdxLogMixin  # noqa: E402
 from seaweedfs_tpu_torch.storage.store import (  # noqa: E402
     ec_encode_volume,
     read_ec_shard_needle,
@@ -130,7 +148,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 INT8_OPS_PER_S = 1.979e15  # H100 SXM dense int8 tensor-core rate
 LOST = [0, 3, 10, 13]  # two data + two parity shards
 WORK = os.path.join(HERE, "chip_smoke_work")
-EC_BACKEND = "cuda"  # the volume servers' codec in phases 6-8
+EC_BACKEND = "cuda"  # the volume servers' codec in phases 6-9
 
 
 def emit(obj) -> None:
@@ -1154,6 +1172,97 @@ def phase7(state) -> None:
 
 
 # -- phase 8: the cluster path -------------------------------------------------
+def _needle_blobs(seed: int) -> list:
+    """Needles of log-uniform sizes in 1 KiB..1 MiB until their records fill
+    1 GiB of .dat."""
+    rng = np.random.default_rng(seed)
+    blobs, total = [], 8
+    while total < GiB:
+        size = int(np.exp(rng.uniform(np.log(1024), np.log(MiB))))
+        blobs.append(rng.bytes(size))
+        total += get_actual_size(size, 3)
+    return blobs
+
+
+def _upload_via_master(master_url: str, col: str, blobs: list, threads: int):
+    """Upload ``blobs`` from ``threads`` client threads, each fid from
+    ``/dir/assign``: (fids, assign ms per thread, POST ms per thread,
+    seconds, errors)."""
+    fids: list = [None] * len(blobs)
+    nxt = iter(range(len(blobs)))
+    assign_ms = [[] for _ in range(threads)]
+    post_ms = [[] for _ in range(threads)]
+    errors: list = []
+
+    def upload(t: int) -> None:
+        mconn = http.client.HTTPConnection(master_url, timeout=120)
+        vconns: dict = {}
+        try:
+            for i in nxt:  # a shared iterator: each index goes to one thread
+                t0 = time.perf_counter()
+                mconn.request("GET", f"/dir/assign?collection={col}")
+                resp = mconn.getresponse()
+                a = json.loads(resp.read())
+                t1 = time.perf_counter()
+                if resp.status != 200:
+                    errors.append(("assign", resp.status, a))
+                    return
+                conn = vconns.setdefault(
+                    a["url"], http.client.HTTPConnection(a["url"], timeout=120))
+                conn.request("POST", "/" + a["fid"], body=blobs[i])
+                resp = conn.getresponse()
+                resp.read()
+                assign_ms[t].append((t1 - t0) * 1e3)
+                post_ms[t].append((time.perf_counter() - t1) * 1e3)
+                if resp.status != 201:
+                    errors.append((a["fid"], resp.status))
+                    return
+                fids[i] = a["fid"]
+        except Exception as e:  # noqa: BLE001 — reported by the caller
+            errors.append(repr(e))
+        finally:
+            mconn.close()
+            for c in vconns.values():
+                c.close()
+
+    t0 = time.perf_counter()
+    pool = [threading.Thread(target=upload, args=(t,)) for t in range(threads)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join()
+    return fids, assign_ms, post_ms, time.perf_counter() - t0, errors
+
+
+def _client_get(master_url: str, fid: str) -> tuple[int, bytes, float, str]:
+    """A client's read: the master's lookup, then the first location.
+    Returns (status, body, seconds, the location asked)."""
+    t0 = time.perf_counter()
+    status, body, _ = _call(master_url, "GET", f"/dir/lookup?volumeId={fid.split(',')[0]}")
+    if status != 200:
+        return status, body, time.perf_counter() - t0, ""
+    loc = json.loads(body)["locations"][0]["url"]
+    status, data, _ = _call(loc, "GET", "/" + fid)
+    return status, data, time.perf_counter() - t0, loc
+
+
+def _parallel(fn, items: list, threads: int) -> float:
+    """Run ``fn(item)`` over ``items`` from ``threads`` threads; seconds."""
+    nxt = iter(items)
+
+    def work() -> None:
+        for item in nxt:  # a shared iterator: each item goes to one thread
+            fn(item)
+
+    t0 = time.perf_counter()
+    pool = [threading.Thread(target=work) for _ in range(threads)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join()
+    return time.perf_counter() - t0
+
+
 class _ShellCalls:
     """Within the block, every HTTP call the shell's commands make is timed
     by its path (``/admin/ec/copy``, ...): ``seconds[path]``, ``calls[path]``."""
@@ -1234,15 +1343,7 @@ def phase8(state) -> None:
         out.setdefault("reaped_after_s", []).append(time.perf_counter() - t0)
 
     def get(fid: str) -> tuple[int, bytes, float, str]:
-        """A client's read: the master's lookup, then the first location.
-        Returns (status, body, seconds, the location asked)."""
-        t0 = time.perf_counter()
-        status, body, _ = _call(master.url, "GET", f"/dir/lookup?volumeId={fid.split(',')[0]}")
-        if status != 200:
-            return status, body, time.perf_counter() - t0, ""
-        loc = json.loads(body)["locations"][0]["url"]
-        status, data, _ = _call(loc, "GET", "/" + fid)
-        return status, data, time.perf_counter() - t0, loc
+        return _client_get(master.url, fid)
 
     try:
         for vs in servers:
@@ -1255,56 +1356,9 @@ def phase8(state) -> None:
 
         # needles of log-uniform sizes in 1 KiB..1 MiB until the .dat holds
         # 1 GiB; each upload asks the master for its fid, as weed upload does
-        rng = np.random.default_rng(8)
-        blobs, total = [], 8
-        while total < GiB:
-            size = int(np.exp(rng.uniform(np.log(1024), np.log(MiB))))
-            blobs.append(rng.bytes(size))
-            total += get_actual_size(size, 3)
-        fids: list = [None] * len(blobs)
-        nxt = iter(range(len(blobs)))
-        assign_ms = [[] for _ in range(threads)]
-        post_ms = [[] for _ in range(threads)]
-        errors: list = []
-
-        def upload(t: int) -> None:
-            mconn = http.client.HTTPConnection(master.url, timeout=120)
-            vconns: dict = {}
-            try:
-                for i in nxt:  # a shared iterator: each index goes to one thread
-                    t0 = time.perf_counter()
-                    mconn.request("GET", f"/dir/assign?collection={col}")
-                    resp = mconn.getresponse()
-                    a = json.loads(resp.read())
-                    t1 = time.perf_counter()
-                    if resp.status != 200:
-                        errors.append(("assign", resp.status, a))
-                        return
-                    conn = vconns.setdefault(
-                        a["url"], http.client.HTTPConnection(a["url"], timeout=120))
-                    conn.request("POST", "/" + a["fid"], body=blobs[i])
-                    resp = conn.getresponse()
-                    resp.read()
-                    assign_ms[t].append((t1 - t0) * 1e3)
-                    post_ms[t].append((time.perf_counter() - t1) * 1e3)
-                    if resp.status != 201:
-                        errors.append((a["fid"], resp.status))
-                        return
-                    fids[i] = a["fid"]
-            except Exception as e:  # noqa: BLE001 — reported below
-                errors.append(repr(e))
-            finally:
-                mconn.close()
-                for c in vconns.values():
-                    c.close()
-
-        t0 = time.perf_counter()
-        pool = [threading.Thread(target=upload, args=(t,)) for t in range(threads)]
-        for t in pool:
-            t.start()
-        for t in pool:
-            t.join()
-        write_s = time.perf_counter() - t0
+        blobs = _needle_blobs(8)
+        fids, assign_ms, post_ms, write_s, errors = _upload_via_master(
+            master.url, col, blobs, threads)
         if errors:
             raise SystemExit(f"phase 8: uploads failed: {errors[:5]}")
         vids = {FileId.parse(f).volume_id for f in fids}
@@ -1437,22 +1491,15 @@ def phase8(state) -> None:
             raise SystemExit("phase 8: the decoded volume never replaced the EC one")
 
         # every needle back through the master, 8 client threads
-        nxt = iter(range(len(blobs)))
         bad_back: list = []
 
-        def read_back() -> None:
-            for i in nxt:
-                status, data, _, _ = get(fids[i])
-                if status != 200 or data != blobs[i]:
-                    bad_back.append(fids[i])
+        def read_back(i: int) -> None:
+            status, data, _, _ = get(fids[i])
+            if status != 200 or data != blobs[i]:
+                bad_back.append(fids[i])
 
-        t0 = time.perf_counter()
-        pool = [threading.Thread(target=read_back) for _ in range(threads)]
-        for t in pool:
-            t.start()
-        for t in pool:
-            t.join()
-        out.update(read_back_s=time.perf_counter() - t0, read_back_bad=len(bad_back))
+        out.update(read_back_s=_parallel(read_back, list(range(len(blobs))), threads),
+                   read_back_bad=len(bad_back))
         if bad_back:
             raise SystemExit(f"phase 8: {len(bad_back)} needles read back wrong: {bad_back[:5]}")
     finally:
@@ -1485,13 +1532,433 @@ def check_shards_spread(dirs: dict, spread: dict, col: str, vid: int) -> tuple[i
     return bad, sums
 
 
+# -- phase 9: an operator's maintenance cycle ------------------------------------
+SCRUB_RATE = 1024  # needles a second a volume (the reference's default is 32)
+
+
+class _IdxSizes:
+    """Within the block, every ``index_file_size`` a needle map answers is
+    recorded: a compaction asks once at its snapshot and once before it
+    replays what landed meanwhile under the lock."""
+
+    def __enter__(self):
+        self.sizes: list = []
+        self.saved = IdxLogMixin.index_file_size
+
+        def record(nm, saved=self.saved):
+            size = saved(nm)
+            self.sizes.append(size)
+            return size
+
+        IdxLogMixin.index_file_size = record
+        return self
+
+    def __exit__(self, *exc):
+        IdxLogMixin.index_file_size = self.saved
+
+
+def _flip(path: str, offset: int) -> None:
+    """Flip one byte of ``path`` on disk, as a decaying disk would."""
+    with open(path, "r+b") as f:
+        f.seek(offset)
+        b = f.read(1)
+        f.seek(offset)
+        f.write(bytes([b[0] ^ 0x5A]))
+
+
+def phase9(state) -> None:
+    """An operator's maintenance cycle on the port's cluster: the master,
+    four volume servers (CUDA backend, ``weed volume`` defaults, the scrub on
+    with ``SWEED_SCRUB=1``) and the shell, in one process. A volume filled to
+    1 GiB as in phase 8 loses ~30 % of its needles, then ``volume.vacuum``
+    compacts it while a writer and a deleter keep at it; ``volume.configure
+    .replication`` and ``volume.fix.replication`` add a replica; a byte
+    flipped in that replica's .dat reaches the master through the scrub, the
+    replica is dropped and fixed again; ``volume.move`` and ``volume.balance``
+    move replicas; ``backup`` copies the volume, fully and then
+    incrementally; ``ec.encode`` seals it on the card; a byte flipped in a
+    shard reaches the master through the scrub, the shard is dropped and
+    ``ec.rebuild`` makes it again on the card; ``volumeServer.evacuate`` and
+    ``volumeServer.leave`` retire a server; every live needle reads back
+    through the master."""
+    col, threads, n_servers = "maint9", 8, 4
+    out: dict = {"phase": 9, "servers": n_servers, "collection": col,
+                 "scrub_rate": SCRUB_RATE}
+    steps: dict = {}
+    saved_env = {k: os.environ.get(k) for k in ("SWEED_SCRUB", "SWEED_SCRUB_RATE")}
+    os.environ.update(SWEED_SCRUB="1", SWEED_SCRUB_RATE=str(SCRUB_RATE))
+    master = MasterServer(host="127.0.0.1", port=_free_port(), node_timeout=3.0).start()
+    servers, dirs = [], {}
+    for i in range(n_servers):
+        d = os.path.join(WORK, f"9srv{i}")
+        vs = VolumeServer([d], host="127.0.0.1", port=_free_port(), master_url=master.url,
+                          pulse_seconds=0.5, ec_backend=EC_BACKEND)
+        servers.append(vs)
+        dirs[f"127.0.0.1:{vs.port}"] = d
+    by_url = {f"127.0.0.1:{vs.port}": vs for vs in servers}
+    env = CommandEnv(master.url)
+    scrub0 = {k: c.total() for k, c in SCRUB_COUNTERS.items()}
+    t_start = time.perf_counter()
+
+    def node(url: str):
+        return next((dn for dn in master.master.topo.data_nodes() if dn.url() == url), None)
+
+    def shell(name: str, line: str):
+        l0, t0 = gm.gf_matmul.launches, time.perf_counter()
+        res = run_command(env, line)
+        steps[name] = {"s": time.perf_counter() - t0, "launches": gm.gf_matmul.launches - l0}
+        return res
+
+    def wait(cond, what: str, timeout: float = 120.0) -> float:
+        def holds() -> bool:
+            try:
+                return bool(cond())
+            except (KeyError, AttributeError):  # a node or volume not there yet
+                return False
+
+        t0 = time.perf_counter()
+        if not _until(holds, timeout=timeout):
+            raise SystemExit(f"phase 9: {what}")
+        return time.perf_counter() - t0
+
+    def holders() -> list:
+        return env.volume_locations(vid)
+
+    def vol_bytes(url: str) -> int:
+        base = volume_file_name(dirs[url], col, vid)
+        return os.path.getsize(base + ".dat") + os.path.getsize(base + ".idx")
+
+    live: dict = {}
+    dead: set = set()
+    lock = threading.Lock()
+
+    def read_back(fetch, what: str) -> float:
+        """Every live needle equal and every deleted one 404, from 8 threads."""
+        bad: list = []
+
+        def one(item) -> None:
+            fid, want = item
+            status, data = fetch(fid)
+            ok = status == 404 if want is None else (status, data) == (200, want)
+            if not ok:
+                bad.append((fid, status))
+
+        s = _parallel(one, list(live.items()) + [(f, None) for f in dead], threads)
+        if bad:
+            raise SystemExit(f"phase 9: {len(bad)} needles wrong {what}: {bad[:5]}")
+        return s
+
+    try:
+        for vs in servers:
+            vs.start()
+        wait(lambda: len(master.master.topo.data_nodes()) == n_servers,
+             "the volume servers did not register", 30)
+        grown = _admin(master.url, f"/vol/grow?collection={col}&count=1&replication=000")
+        if grown != {"count": 1}:
+            raise SystemExit(f"phase 9: /vol/grow answered {grown}")
+
+        # 1. fill volume A to 1 GiB, then delete a seeded ~30 % of it
+        blobs = _needle_blobs(9)
+        fids, assign_ms, post_ms, write_s, errors = _upload_via_master(
+            master.url, col, blobs, threads)
+        if errors:
+            raise SystemExit(f"phase 9: uploads failed: {errors[:5]}")
+        vids = {FileId.parse(f).volume_id for f in fids}
+        if len(vids) != 1:
+            raise SystemExit(f"phase 9: the assigns spread over volumes {sorted(vids)}")
+        vid = vids.pop()
+        source = holders()[0]
+        live.update(zip(fids, blobs))
+        payload = sum(len(b) for b in blobs)
+        out["upload"] = {"needles": len(blobs), "payload_bytes": payload, "write_s": write_s,
+                         "write_MBps": payload / write_s / 1e6}
+        # keys for the writes during the vacuum and for the backup's needles
+        a = json.loads(_call(master.url, "GET", f"/dir/assign?collection={col}&count=400")[1])
+        new = FileId.parse(a["fid"])
+        if new.volume_id != vid:
+            raise SystemExit(f"phase 9: the batch assign went to volume {new.volume_id}")
+        new_fids = [str(FileId(vid, new.key + i, 0x9000 + i)) for i in range(400)]
+        rng = np.random.default_rng(90)
+        order = [fids[i] for i in rng.permutation(len(fids))]
+        doomed, later = order[:len(fids) * 3 // 10], order[len(fids) * 3 // 10:]
+        failed: list = []
+
+        def delete(fid: str) -> None:
+            status, _, _ = _call(source, "DELETE", "/" + fid)
+            if status != 202:
+                failed.append((fid, status))
+
+        out["delete_s"] = _parallel(delete, doomed, threads)
+        if failed:
+            raise SystemExit(f"phase 9: deletes failed: {failed[:5]}")
+        for fid in doomed:
+            live.pop(fid)
+            dead.add(fid)
+
+        # 2. volume.vacuum while a writer and a deleter keep at A
+        base = volume_file_name(dirs[source], col, vid)
+        ratio = json.loads(_call(source, "GET", f"/admin/vacuum_check?volume={vid}")[1])
+        rev0 = json.loads(_call(source, "GET", f"/admin/volume_status?volume={vid}")[1])[
+            "compaction_revision"]
+        dat_before = os.path.getsize(base + ".dat")
+        v = by_url[source].store.find_volume(vid)
+        done = threading.Event()
+        during = collections.Counter()
+
+        def writer() -> None:
+            wrng = np.random.default_rng(91)
+            for i in range(300):
+                if done.is_set() and i >= 200:
+                    return
+                data = wrng.bytes(int(wrng.integers(1024, 16 * 1024)))
+                status, _, _ = _call(source, "POST", "/" + new_fids[i], data)
+                if status != 201:
+                    failed.append((new_fids[i], status))
+                    return
+                with lock:
+                    live[new_fids[i]] = data
+                during["writes"] += 1
+                during["writes_compacting"] += v._is_compacting
+
+        def deleter() -> None:
+            for i, fid in enumerate(later[:150]):
+                if done.is_set() and i >= 50:
+                    return
+                status, _, _ = _call(source, "DELETE", "/" + fid)
+                if status != 202:
+                    failed.append((fid, status))
+                    return
+                with lock:
+                    live.pop(fid)
+                    dead.add(fid)
+                during["deletes"] += 1
+                during["deletes_compacting"] += v._is_compacting
+
+        workers = [threading.Thread(target=writer), threading.Thread(target=deleter)]
+        with _IdxSizes() as idx, _Timed((v, "compact")) as ct:
+            for t in workers:
+                t.start()
+            try:
+                compacted = shell("vacuum", "volume.vacuum -garbageThreshold=0.25")
+            finally:
+                done.set()
+                for t in workers:
+                    t.join()
+        if failed:
+            raise SystemExit(f"phase 9: writes or deletes beside the vacuum failed: {failed[:5]}")
+        dat_after = os.path.getsize(base + ".dat")
+        rev1 = json.loads(_call(source, "GET", f"/admin/volume_status?volume={vid}")[1])[
+            "compaction_revision"]
+        entry = 16  # .idx entry bytes (8 key + 4 offset + 4 size)
+        out["vacuum"] = {
+            "garbage_ratio_before": ratio["garbage_ratio"], "dat_bytes_before": dat_before,
+            "dat_bytes_after": dat_after, "compact_s": ct["compact"].seconds,
+            "live_MBps": dat_after / ct["compact"].seconds / 1e6,
+            "entries_replayed": (idx.sizes[1] - idx.sizes[0]) // entry if len(idx.sizes) >= 2
+            else None, "compacted": compacted, "revision": [rev0, rev1], **during}
+        if compacted != [vid] or dat_after >= dat_before or rev1 != (rev0 + 1) & 0xFFFF:
+            raise SystemExit(f"phase 9: the vacuum did not compact A: {out['vacuum']}")
+        if during["writes"] < 200 or during["deletes"] < 50 or not (
+                during["writes_compacting"] + during["deletes_compacting"]):
+            raise SystemExit(f"phase 9: too few writes or deletes beside the vacuum: {during}")
+        wait(lambda: node(source).volumes[vid].compact_revision == rev1,
+             "the master never saw the new compaction revision")
+        out["vacuum"]["read_back_s"] = read_back(
+            lambda fid: _call(source, "GET", "/" + fid)[:2], "after the vacuum")
+
+        # 3. a second replica: configure the placement, then fix it
+        shell("configure", f"volume.configure.replication -volumeId={vid} -replication=001")
+        wait(lambda: node(source).volumes[vid].replica_placement.to_byte() == 1,
+             "the master never saw the new placement")
+        with _ShellCalls() as sc:
+            fix = shell("fix_replication", "volume.fix.replication")
+        if len(fix["fixed"]) != 1:
+            raise SystemExit(f"phase 9: volume.fix.replication answered {fix}")
+        copy = fix["fixed"][0]["to"]
+        out["fix_replication"] = {"to": copy, "s": sc.seconds["/admin/volume_copy"],
+                                  "bytes": vol_bytes(copy),
+                                  "MBps": vol_bytes(copy) / sc.seconds["/admin/volume_copy"] / 1e6}
+        wait(lambda: sorted(holders()) == sorted([source, copy]),
+             "the master never named the new replica")
+
+        # 4. a byte of a needle decays in the replica: the scrub tells the
+        # master; the operator drops the replica and fixes the placement again
+        cv = by_url[copy].store.find_volume(vid)
+        first = min((nv for nv in cv.nm.items() if nv.size > 0), key=lambda nv: nv.offset)
+        _flip(volume_file_name(dirs[copy], col, vid) + ".dat", first.offset + 16 + 4 + 3)
+        scrub_needle_s = wait(lambda: node(copy).volumes[vid].corrupt_needles >= 1,
+                              "the scrub never reported the flipped needle", 300)
+        _admin(copy, f"/admin/delete_volume?volume={vid}")
+        wait(lambda: holders() == [source], "the master still names the dropped replica")
+        with _ShellCalls() as sc:
+            fix2 = shell("fix_replication_again", "volume.fix.replication")
+        if len(fix2["fixed"]) != 1:
+            raise SystemExit(f"phase 9: the second volume.fix.replication answered {fix2}")
+        copy = fix2["fixed"][0]["to"]
+        out["fix_replication_again"] = {
+            "to": copy, "s": sc.seconds["/admin/volume_copy"], "bytes": vol_bytes(copy),
+            "MBps": vol_bytes(copy) / sc.seconds["/admin/volume_copy"] / 1e6}
+        wait(lambda: sorted(holders()) == sorted([source, copy]) and all(
+            node(u).volumes[vid].corrupt_needles == 0 for u in holders()),
+            "the corrupt needle count never returned to 0")
+
+        # 5. move the replica, then balance (four empty volumes give it work)
+        target = next(u for u in sorted(by_url) if u not in (source, copy))
+        with _ShellCalls() as sc:
+            shell("move", f"volume.move -volumeId={vid} -source={copy} -target={target}")
+        out["move"] = {"from": copy, "to": target, "s": sc.seconds["/admin/volume_copy"],
+                       "bytes": vol_bytes(target),
+                       "MBps": vol_bytes(target) / sc.seconds["/admin/volume_copy"] / 1e6}
+        wait(lambda: sorted(holders()) == sorted([source, target]), "the move never registered")
+        if _admin(master.url, f"/vol/grow?collection={col}b&count=4") != {"count": 4}:
+            raise SystemExit("phase 9: the empty volumes did not grow")
+        wait(lambda: len(shell_commands.volume_list(env)) == 6, "the empty volumes never showed")
+        bal = shell("balance", "volume.balance -force=true")
+        out["balance"] = {"plan": bal["plan"], "moved": len(bal["moved"]),
+                          "skipped": bal["skipped"], "s": steps["balance"]["s"]}
+        wait(lambda: len(holders()) == 2, "the balance left A without its two replicas")
+
+        # 6. backup: a full pass, 100 more needles, an incremental pass
+        bdir = os.path.join(WORK, "9backup")
+
+        def backup() -> tuple[str, float]:
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "seaweedfs_tpu_torch", "backup", "-master", master.url,
+                 "-volume", str(vid), "-dir", bdir, "-collection", col],
+                cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE), capture_output=True,
+                text=True, timeout=600)
+            if r.returncode != 0:
+                raise SystemExit(f"phase 9: backup failed: {r.stdout} {r.stderr[-2000:]}")
+            return r.stdout.strip(), time.perf_counter() - t0
+
+        full, full_s = backup()
+        full_bytes = os.path.getsize(volume_file_name(bdir, col, vid) + ".dat")
+        primary = holders()[0]
+        brng = np.random.default_rng(92)
+        for fid in new_fids[300:]:
+            data = brng.bytes(int(brng.integers(1024, 64 * 1024)))
+            status, _, _ = _call(primary, "POST", "/" + fid, data)
+            if status != 201:
+                raise SystemExit(f"phase 9: the backup's extra needle {fid} answered {status}")
+            live[fid] = data
+        incr, incr_s = backup()
+        local = volume_file_name(bdir, col, vid) + ".dat"
+        same = _sha256(local) == _sha256(volume_file_name(dirs[holders()[0]], col, vid) + ".dat")
+        incr_bytes = os.path.getsize(local) - full_bytes
+        out["backup"] = {"full": full, "full_s": full_s, "full_MBps": full_bytes / full_s / 1e6,
+                         "incremental": incr, "incremental_s": incr_s,
+                         "incremental_MBps": incr_bytes / incr_s / 1e6, "identical": same}
+        if not same or "+100 writes" not in incr:
+            raise SystemExit(f"phase 9: the backup differs from the server's: {out['backup']}")
+
+        # 7. seal A: ec.encode generates on the card and spreads 4/4/3/3
+        source = holders()[0]
+        check = os.path.join(WORK, "9check")
+        os.makedirs(check)
+        cbase = volume_file_name(check, col, vid)
+        os.link(volume_file_name(dirs[source], col, vid) + ".dat", cbase + ".dat")
+        with _ShellCalls() as sc:
+            enc = shell("ec_encode", f"ec.encode -volumeId={vid} -collection={col}")
+        spread = enc["spread"]
+        out["ec_encode"] = {"source": source, "spread": spread,
+                            "generate_s": sc.seconds["/admin/ec/generate"],
+                            "spread_s": sc.seconds["/admin/ec/copy"],
+                            "launches": steps["ec_encode"]["launches"]}
+        if sorted(len(s) for s in spread.values()) != [3, 3, 4, 4]:
+            raise SystemExit(f"phase 9: the shards spread as {spread}")
+        wait(lambda: len(env.ec_shard_locations(vid)) == 14
+             and not master.master.topo.lookup("", vid),
+             "the master never saw all 14 shards in place of the plain volume", 60)
+        for t, sids in spread.items():
+            for sid in sids:
+                os.link(volume_file_name(dirs[t], col, vid) + shard_ext(sid),
+                        cbase + shard_ext(sid))
+        # the .vif came with each spread copy, but a server that held a plain
+        # replica lost it when ec.encode deleted that replica (as the source
+        # does, ROADMAP Queue C)
+        copier = next((t for t in sorted(spread) if os.path.exists(
+            volume_file_name(dirs[t], col, vid) + ".vif")), None)
+        if copier is None:
+            raise SystemExit("phase 9: no server kept the .vif")
+        shutil.copy(volume_file_name(dirs[copier], col, vid) + ".vif", cbase + ".vif")
+        bad, sums = check_shards(cbase, by_url[source].store.ec_codec)
+        out["ec_encode"]["shard_mismatches"] = bad
+        if bad:
+            raise SystemExit("phase 9: the shards differ from the plain codec's")
+
+        # 8. a byte of a shard decays on a server that holds the .vif: the
+        # scrub tells the master; the shard is dropped and rebuilt
+        sid = spread[copier][0]
+        _flip(volume_file_name(dirs[copier], col, vid) + shard_ext(sid), 4321)
+        scrub_shard_s = wait(lambda: sid in node(copier).ec_corrupt.get(vid, []),
+                             "the scrub never reported the flipped shard", 300)
+        _admin(copier, f"/admin/ec/delete_shards?volume={vid}&shards={sid}")
+        wait(lambda: sid not in env.ec_shard_locations(vid), "the dropped shard stayed")
+        with _ShellCalls() as sc:
+            reb = shell("ec_rebuild", f"ec.rebuild -volumeId={vid} -collection={col}")
+        rebuilt_sha = _sha256(volume_file_name(dirs[reb["rebuilder"]], col, vid)
+                              + shard_ext(sid))
+        out["ec_rebuild"] = {"shard": sid, "rebuilder": reb["rebuilder"],
+                             "rebuilt": reb["rebuilt"], "s": steps["ec_rebuild"]["s"],
+                             "kernel_step_s": sc.seconds["/admin/ec/rebuild"],
+                             "launches": steps["ec_rebuild"]["launches"],
+                             "sum_equal": rebuilt_sha == sums[sid]}
+        if reb["rebuilt"] != [sid] or rebuilt_sha != sums[sid]:
+            raise SystemExit(f"phase 9: the rebuild gave {out['ec_rebuild']}")
+        wait(lambda: len(env.ec_shard_locations(vid)) == 14 and not any(
+            dn.ec_corrupt.get(vid) for dn in master.master.topo.data_nodes()),
+            "the master's corrupt shard never cleared")
+        out["scrub"] = {"needle_to_master_s": scrub_needle_s,
+                        "shard_to_master_s": scrub_shard_s}
+
+        # 9. retire a server: evacuate its shards and volumes, then leave
+        evacuee = next(u for u in sorted(by_url, reverse=True) if u != source)
+        ev = shell("evacuate", f"volumeServer.evacuate -node={evacuee}")
+        wait(lambda: len(env.ec_shard_locations(vid)) == 14 and not any(
+            evacuee in us for us in env.ec_shard_locations(vid).values()),
+            "the evacuated shards never registered elsewhere")
+        t0 = time.perf_counter()
+        shell("leave", f"volumeServer.leave -node={evacuee}")
+        wait(lambda: node(evacuee) is None, "the master kept the server that left", 30)
+        leave_s = time.perf_counter() - t0
+        out["retire"] = {"evacuee": evacuee, "evacuate": ev, "evacuate_s": steps["evacuate"]["s"],
+                         "leave_s": leave_s}
+        if leave_s >= master.node_timeout:
+            raise SystemExit(f"phase 9: the master took {leave_s:.2f} s to drop the server")
+
+        # 10. every live needle of A back through the master
+        out["read_back"] = {"needles": len(live), "deleted": len(dead),
+                            "s": read_back(lambda fid: _client_get(master.url, fid)[:2],
+                                           "through the master"), "wrong": 0}
+    finally:
+        for vs in servers:
+            vs.stop()
+        master.stop()
+        for k, val in saved_env.items():
+            if val is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = val
+    wall = time.perf_counter() - t_start
+    scrubbed = SCRUB_COUNTERS["bytes"].total() - scrub0["bytes"]
+    out["scrub"].update(bytes=scrubbed, MBps=scrubbed / wall / 1e6,
+                        crc_errors=SCRUB_COUNTERS["errors"].total() - scrub0["errors"])
+    out.update(steps=steps, launches=gm.gf_matmul.launches - state["l_phase"],
+               nvidia_smi=state["smi"])
+    emit(out)
+    idle = [name for name in ("ec_encode", "ec_rebuild") if not steps[name]["launches"]]
+    if idle:
+        raise SystemExit(f"phase 9: no kernel launch in {idle}")
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
 
 
-MAIN_PATH = (phase2, phase3, phase4, phase5, phase6, phase7, phase8)
+MAIN_PATH = (phase2, phase3, phase4, phase5, phase6, phase7, phase8, phase9)
 
 
 def main() -> int:

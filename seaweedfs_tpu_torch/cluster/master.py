@@ -120,10 +120,10 @@ class Master:
             self.topo.incremental_sync(
                 dn, hb.get("new_volumes", []), hb.get("deleted_volumes", [])
             )
-            for m in hb.get("new_volumes", []):
-                self._notify(m["id"], dn, deleted=False)
             for m in hb.get("deleted_volumes", []):
                 self._notify(m["id"], dn, deleted=True)
+            for m in hb.get("new_volumes", []):
+                self._notify(m["id"], dn, deleted=False)
         if "ec_shards" in hb:
             self.topo.sync_data_node_ec_shards(dn, hb["ec_shards"])
         # instant EC-shard deltas (master_grpc_server.go:83-98 incremental

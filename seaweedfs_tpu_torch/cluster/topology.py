@@ -298,16 +298,19 @@ class Topology(Node):
     def incremental_sync(
         self, dn: DataNode, new_volumes: list[dict], deleted_volumes: list[dict]
     ) -> None:
+        # deletions first (DeltaUpdateVolumes, topology.go): a volume
+        # withdrawn and announced again in one beat, as a placement change
+        # does, stays registered
         with self._lock:
+            for m in deleted_volumes:
+                vi = VolumeInfo.from_heartbeat(m)
+                dn.volumes.pop(vi.id, None)
+                self._unregister_volume(vi, dn)
             for m in new_volumes:
                 vi = VolumeInfo.from_heartbeat(m)
                 dn.volumes[vi.id] = vi
                 self.max_volume_id = max(self.max_volume_id, vi.id)
                 self._register_volume(vi, dn)
-            for m in deleted_volumes:
-                vi = VolumeInfo.from_heartbeat(m)
-                dn.volumes.pop(vi.id, None)
-                self._unregister_volume(vi, dn)
 
     def _register_volume(self, vi: VolumeInfo, dn: DataNode) -> None:
         layout = self.get_volume_layout(vi.collection, vi.replica_placement, vi.ttl)

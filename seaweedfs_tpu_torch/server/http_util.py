@@ -180,20 +180,30 @@ def start_server(handler_cls, host: str, port: int) -> _Server:
     return srv
 
 
-def http_bytes(method: str, url: str, body: Optional[bytes] = None,
-               timeout: float = 30.0,
-               headers: Optional[dict] = None) -> tuple[int, bytes]:
-    """One request on a fresh connection -> (status, body). An unreachable
-    peer raises OSError; HTTP error statuses come back as statuses."""
+def http_bytes_headers(method: str, url: str, body: Optional[bytes] = None,
+                       timeout: float = 30.0,
+                       headers: Optional[dict] = None) -> tuple[int, bytes, dict]:
+    """One request on a fresh connection -> (status, body, reply headers).
+    An unreachable peer raises OSError; HTTP error statuses come back as
+    statuses. Some admin replies carry metadata in headers
+    (X-Compaction-Revision, X-Last-Append-Ns)."""
     u = urllib.parse.urlsplit(url)
     conn = http.client.HTTPConnection(u.hostname, u.port, timeout=timeout)
     try:
         conn.request(method, u.path + (f"?{u.query}" if u.query else ""),
                      body=body, headers=headers or {})
         resp = conn.getresponse()
-        return resp.status, resp.read()
+        return resp.status, resp.read(), dict(resp.getheaders())
     finally:
         conn.close()
+
+
+def http_bytes(method: str, url: str, body: Optional[bytes] = None,
+               timeout: float = 30.0,
+               headers: Optional[dict] = None) -> tuple[int, bytes]:
+    """One request on a fresh connection -> (status, body)."""
+    status, data, _ = http_bytes_headers(method, url, body, timeout, headers)
+    return status, data
 
 
 def http_json(method: str, url: str, body: "dict | bytes | None" = None,

@@ -16,6 +16,13 @@ package's volume server, so its master and shell drive this one:
     DeleteVolume rpc           POST /admin/delete_volume
     VolumeMarkReadonly/Writable POST /admin/readonly, /admin/writable
     VolumeMount/Unmount        POST /admin/volume_mount, /admin/volume_unmount
+    vacuum (volume_vacuum.go)  GET  /admin/vacuum_check, POST /admin/vacuum
+    VolumeCopy rpc             POST /admin/volume_copy (pull .dat/.idx)
+    VolumeTailSender           GET  /admin/tail (framed needles, paged)
+    backup's status            GET  /admin/volume_status
+    VolumeIncrementalCopy      GET  /admin/incremental_copy (raw .dat bytes)
+    VolumeConfigure            POST /admin/volume_configure_replication
+    VolumeServerLeave          POST /admin/server_leave
     VolumeEcShardsGenerate     POST /admin/ec/generate  (the CUDA kernel)
     VolumeEcShardsRebuild      POST /admin/ec/rebuild   (the CUDA kernel)
     VolumeEcShardsCopy         POST /admin/ec/copy (pull from a source url)
@@ -30,6 +37,11 @@ package's volume server, so its master and shell drive this one:
                                predicate tree runs on the store's device)
     /status                    GET  /status
 
+With ``SWEED_SCRUB=1`` (read at ``start()``) a background thread re-reads
+needles and verifies their CRCs, at most ``SWEED_SCRUB_RATE`` needles a
+second a volume, and hashes EC shards against the .vif sums; what it finds
+rides the heartbeat to the master.
+
 EC work runs through the store's codec: the hand-written CUDA kernel unless
 the server was started with ``ec_backend="cpu"``. Without a card the first
 EC request answers 500 naming the missing device and writes nothing.
@@ -37,12 +49,13 @@ EC request answers 500 naming the missing device and writes nothing.
 answers 500 naming it too.
 
 Nothing here starts at import: ``start()`` binds the port and starts the
-heartbeat thread, ``stop()`` ends both.
+heartbeat (and scrub) thread, ``stop()`` ends them.
 """
 
 from __future__ import annotations
 
 import gzip
+import hashlib
 import json
 import os
 import threading
@@ -57,6 +70,7 @@ from ..ec.ec_volume import rebuild_ecx_file
 from ..query import execute_request
 from ..security import Guard, gen_jwt, read_auth_query, verify_fid_jwt
 from ..stats.heat import heat_stats
+from ..stats.metrics import SCRUB_COUNTERS, scrub_stats
 from ..storage.commit import atomic_write
 from ..storage.disk_location import parse_volume_base_name
 from ..storage.file_id import FileId, parse_path
@@ -67,11 +81,16 @@ from ..storage.needle import (
     FLAG_HAS_TTL,
     FLAG_IS_CHUNK_MANIFEST,
     FLAG_IS_COMPRESSED,
+    CrcError,
     Needle,
     get_actual_size,
+    needle_body_length,
+    parse_needle_header,
 )
+from ..storage.replica_placement import ReplicaPlacement
 from ..storage.store import Store
 from ..storage.ttl import read_ttl
+from ..storage.types import NEEDLE_HEADER_SIZE
 from ..storage.volume import DeletedError, NotFoundError, volume_file_name
 from ..util import faultpoints, glog
 from ..util.parsers import tolerant_uint
@@ -95,6 +114,12 @@ def _q_req_uint(q: dict, key: str) -> int:
     if val is None:
         raise BadRequest(f"bad {key}={raw!r}: non-negative integer required")
     return val
+
+
+def _q_uint(q: dict, key: str, default: int) -> int:
+    """Optional non-negative query int: a missing, malformed or negative
+    value falls back to the default, as the reference's handlers do."""
+    return tolerant_uint(q.get(key, default), default)
 
 
 def _q_shards(q: dict) -> list[int]:
@@ -158,6 +183,7 @@ class VolumeServer:
         self._srv = None
         self._stop = threading.Event()
         self._hb_thread: Optional[threading.Thread] = None
+        self._scrub_thread: Optional[threading.Thread] = None
 
     # -- remote EC shard read through the master's shard lookup -------------
     def _remote_shard_reader(self, vid, shard_id, offset, size):
@@ -542,6 +568,156 @@ class VolumeServer:
             return 404, {"error": f"no volume {vid} files on disk"}
         return 200, {"mounted": vid, "already": already}
 
+    def _h_vacuum_check(self, h, path, q, body):
+        v = self.store.find_volume(_q_req_uint(q, "volume"))
+        if v is None:
+            return 404, {"error": "volume not found"}
+        return 200, {"garbage_ratio": v.garbage_level()}
+
+    def _h_vacuum(self, h, path, q, body):
+        v = self.store.find_volume(_q_req_uint(q, "volume"))
+        if v is None:
+            return 404, {"error": "volume not found"}
+        v.compact(bytes_per_second=_q_uint(q, "compactionBytePerSecond", 0))
+        return 200, {"size": v.size()}
+
+    def _h_volume_copy(self, h, path, q, body):
+        """Pull a whole volume (.dat/.idx) from a source server and load it
+        (VolumeCopy rpc, volume_grpc_copy.go). Each file is held in memory
+        whole, as the reference's does."""
+        vid = _q_req_uint(q, "volume")
+        source = q.get("source")
+        if not source:
+            raise BadRequest("source= required")
+        collection = q.get("collection", "")
+        if self.store.find_volume(vid) is not None:
+            return 409, {"error": f"volume {vid} already here"}
+        loc = self.store.locations[0]
+        base = volume_file_name(loc.directory, collection, vid)
+        for ext in (".dat", ".idx"):
+            status, data = http_bytes(
+                "GET", f"http://{source}/admin/file?volume={vid}"
+                       f"&collection={collection}&ext={ext}")
+            if status != 200:
+                return 500, {"error": f"fetch {ext}: {status}"}
+            with open(base + ext, "wb") as f:
+                f.write(data)
+        loc.load_existing_volumes()
+        v = self.store.find_volume(vid)
+        if v is None:
+            return 500, {"error": "volume copied but failed to load"}
+        # a fresh replica supersedes any scrub findings on the old bytes
+        self.store.clear_corrupt(vid)
+        # an instant delta beat announces the new replica
+        self.store.queue_new_volume(v)
+        return 200, {}
+
+    def _h_tail(self, h, path, q, body):
+        """Records appended after since_ns as frames of [4-byte length]
+        [record] (VolumeTailSender), at most max_bytes of frames a reply;
+        callers loop until an empty body."""
+        v = self.store.find_volume(_q_req_uint(q, "volume"))
+        if v is None:
+            return 404, {"error": "volume not found"}
+        since = _q_uint(q, "since_ns", 0)
+        max_bytes = _q_uint(q, "max_bytes", 8 * 1024 * 1024)
+        out = bytearray()
+        last_ns = since
+        full = False
+        for n in v.tail_needles(since):
+            if full and n.append_at_ns != last_ns:
+                break
+            blob = n.to_bytes(v.version)
+            out += len(blob).to_bytes(4, "big") + blob
+            last_ns = n.append_at_ns
+            # over the page budget, the current group of equal time stamps
+            # still ends here: the next page resumes at append_at_ns > since,
+            # so a split group would lose its tail
+            if len(out) >= max_bytes:
+                full = True
+        h.extra_headers = {"X-Volume-Version": str(v.version),
+                           "X-Last-Append-Ns": str(last_ns)}
+        return 200, bytes(out)
+
+    def _h_volume_status(self, h, path, q, body):
+        """A volume's size, version and compaction revision, for backup and
+        copy clients."""
+        v = self.store.find_volume(_q_req_uint(q, "volume"))
+        if v is None:
+            return 404, {"error": "volume not found"}
+        return 200, {
+            "volume": v.id,
+            "size": v.size(),
+            "version": v.version,
+            "compaction_revision": v.super_block.compaction_revision,
+            "last_append_at_ns": v.last_append_at_ns,
+            "file_count": v.file_count(),
+            "read_only": v.read_only,
+        }
+
+    def _h_incremental_copy(self, h, path, q, body):
+        """Raw .dat bytes from ``offset``, at most ``max_bytes`` (64 MiB at
+        most) a reply (VolumeIncrementalCopy rpc)."""
+        v = self.store.find_volume(_q_req_uint(q, "volume"))
+        if v is None:
+            return 404, {"error": "volume not found"}
+        offset = _q_uint(q, "offset", 0)
+        max_bytes = min(_q_uint(q, "max_bytes", 8 * 1024 * 1024), 64 * 1024 * 1024)
+        size = v.size()
+        n = max(0, min(size - offset, max_bytes))
+        data = v.data_backend.read_at(offset, n) if n else b""
+        h.extra_headers = {
+            "X-Volume-Version": str(v.version),
+            "X-Dat-Size": str(size),
+            "X-Compaction-Revision": str(v.super_block.compaction_revision),
+        }
+        return 200, data
+
+    def _h_volume_configure_replication(self, h, path, q, body):
+        """Rewrite the super block's replica-placement byte (VolumeConfigure,
+        command_volume_configure_replication.go): on disk or not at all."""
+        vid = _q_req_uint(q, "volume")
+        v = self.store.find_volume(vid)
+        if v is None:
+            return 404, {"error": "volume not found"}
+        rp = ReplicaPlacement.from_string(q.get("replication", "000"))
+        old_msg = self.store._volume_message(v)
+        with v._lock:
+            old = v.super_block.replica_placement
+            v.super_block.replica_placement = rp
+            try:
+                v.data_backend.write_at(0, v.super_block.to_bytes())
+                v.data_backend.sync()
+            except Exception:
+                # memory must not advertise a placement the disk never got
+                v.super_block.replica_placement = old
+                raise
+        # the master files a volume by its placement: withdraw it from the
+        # old one and announce it under the new, as the reference's
+        # unmount, configure, mount does (volume_grpc_admin.go
+        # VolumeConfigure); the re-announce alone left the master's lookup
+        # on the old layout's holders
+        self.store.queue_deleted_volume(old_msg)
+        self.store.queue_new_volume(v)
+        return 200, {"volume": vid, "replication": str(rp)}
+
+    def _h_server_leave(self, h, path, q, body):
+        """Stop heartbeating and scrubbing, and deregister from the master
+        now (VolumeServerLeave)."""
+        self._stop.set()
+        self.store.delta_event.set()  # wake the beat loop so it exits
+        # a beat landing after the master processed the leave would
+        # register this server again: wait the loop out first
+        if self._hb_thread is not None:
+            self._hb_thread.join(timeout=12)
+        self._join_scrub()
+        try:
+            http_json("POST", f"http://{self.master_url}/cluster/leave"
+                              f"?url={self.host}:{self.port}")
+        except OSError as e:  # the master may be down
+            glog.warning("leave notify failed: %s", e)
+        return 200, {"left": f"{self.host}:{self.port}"}
+
     def _h_file(self, h, path, q, body):
         """A raw volume or shard file (CopyFile rpc)."""
         vid = _q_req_uint(q, "volume")
@@ -605,6 +781,7 @@ class VolumeServer:
         hb = self.store.collect_heartbeat()
         hb["ec"] = self.store.collect_ec_heartbeat()["ec_shards"]
         hb["heat"] = heat_stats()
+        hb["scrub"] = scrub_stats()
         return 200, hb
 
     # -- admin: EC (volume_grpc_erasure_coding.go) ---------------------------
@@ -788,6 +965,110 @@ class VolumeServer:
                     pass
         return 200, {"removed": removed}
 
+    # -- background CRC scrub (SWEED_SCRUB=1) --------------------------------
+    def _scrub_loop(self) -> None:
+        """Re-read needle records and verify their CRCs, at most
+        SWEED_SCRUB_RATE needles a second a volume (default 32), and hash
+        one EC shard a volume a round against the .vif sums. Findings go to
+        the store's corrupt registry, which rides the heartbeat."""
+        rate = max(1, tolerant_uint(os.environ.get("SWEED_SCRUB_RATE"), 32))
+        cursors: dict[int, int] = {}  # vid -> next .dat offset to verify
+        ec_cursors: dict[int, int] = {}  # vid -> next shard slot to hash
+        while not self._stop.is_set():
+            vols = [v for loc in self.store.locations for v in list(loc.volumes.values())]
+            for v in vols:
+                if self._stop.is_set():
+                    return
+                try:
+                    cursors[v.id] = self._scrub_volume_step(
+                        v, cursors.get(v.id, 0), rate,
+                        report=self.store.report_corrupt_needle)
+                except Exception as e:  # noqa: BLE001 — the loop outlives one volume
+                    # a compaction or unmount moved the ground under the
+                    # cursor: restart this volume from the front
+                    glog.warning("scrub vid %d reset: %s", v.id, e)
+                    cursors[v.id] = 0
+            ecs = [ev for loc in self.store.locations for ev in list(loc.ec_volumes.values())]
+            for ev in ecs:
+                if self._stop.is_set():
+                    return
+                try:
+                    ec_cursors[ev.id] = self._scrub_ec_step(
+                        ev, ec_cursors.get(ev.id, 0),
+                        report=self.store.report_corrupt_shard)
+                except Exception as e:  # noqa: BLE001 — the loop outlives one volume
+                    glog.warning("scrub ec vid %d reset: %s", ev.id, e)
+                    ec_cursors[ev.id] = 0
+            self._stop.wait(1.0)
+
+    @staticmethod
+    def _scrub_ec_step(ev, cursor: int, report=None) -> int:
+        """Hash at most one local shard of an EC volume against the sha256
+        sums the encoder wrote into the .vif, and report a mismatch. Returns
+        the next shard slot to try (0: wrapped)."""
+        sums = encoder.load_volume_info(ev.base_file_name + ".vif").get("shard_sums")
+        if not sums:
+            return 0  # nothing to verify against
+        sids = ev.shard_ids()
+        for slot, sid in enumerate(sids):
+            if slot < cursor or sid >= len(sums):
+                continue
+            digest = hashlib.sha256()
+            total = 0
+            with open(ev.base_file_name + shard_ext(sid), "rb") as f:
+                for chunk in iter(lambda: f.read(1 << 20), b""):
+                    digest.update(chunk)
+                    total += len(chunk)
+            SCRUB_COUNTERS["checked"].inc()
+            SCRUB_COUNTERS["bytes"].inc(total)
+            if digest.hexdigest() != sums[sid]:
+                SCRUB_COUNTERS["errors"].inc()
+                glog.warning("scrub: shard hash mismatch vid %d shard %d", ev.id, sid)
+                if report is not None:
+                    report(ev.id, sid)
+            return slot + 1 if slot + 1 < len(sids) else 0
+        return 0
+
+    @staticmethod
+    def _scrub_volume_step(v, offset: int, budget: int, report=None) -> int:
+        """Verify up to ``budget`` needles of a volume from ``offset``;
+        returns the cursor of the next step (0: wrapped)."""
+        size = v.data_backend.size()
+        offset = max(offset, v.super_block.block_size())
+        checked = 0
+        while checked < budget and offset + NEEDLE_HEADER_SIZE <= size:
+            hdr = v.data_backend.read_at(offset, NEEDLE_HEADER_SIZE)
+            if len(hdr) < NEEDLE_HEADER_SIZE:
+                break
+            _, nid, nsize = parse_needle_header(hdr)
+            total = NEEDLE_HEADER_SIZE + needle_body_length(max(nsize, 0), v.version)
+            if offset + total > size:
+                break
+            if nsize > 0:  # tombstones carry no payload to verify
+                blob = v.data_backend.read_at(offset, total)
+                try:
+                    Needle.from_bytes(blob, nsize, v.version, verify_crc=True)
+                except CrcError:
+                    SCRUB_COUNTERS["errors"].inc()
+                    glog.warning("scrub: CRC mismatch vid %d needle %d @%d",
+                                 v.id, nid, offset)
+                    if report is not None:
+                        report(v.id, nid)
+                SCRUB_COUNTERS["checked"].inc()
+                SCRUB_COUNTERS["bytes"].inc(total)
+                checked += 1
+            offset += total
+        if offset + NEEDLE_HEADER_SIZE > size:
+            if size > v.super_block.block_size():  # an empty volume is no round
+                SCRUB_COUNTERS["rounds"].inc()
+            return 0
+        return offset
+
+    def _join_scrub(self) -> None:
+        if self._scrub_thread is not None:
+            self._scrub_thread.join(timeout=5.0)
+            self._scrub_thread = None
+
     # -- heartbeat loop (volume_grpc_client_to_master.go:50) -----------------
     def _send_beat(self, hb: dict) -> None:
         hb["data_center"] = self.data_center
@@ -873,6 +1154,15 @@ class VolumeServer:
                 ("POST", "/admin/writable", vs._h_writable),
                 ("POST", "/admin/volume_unmount", vs._h_volume_unmount),
                 ("POST", "/admin/volume_mount", vs._h_volume_mount),
+                ("GET", "/admin/vacuum_check", vs._h_vacuum_check),
+                ("POST", "/admin/vacuum", vs._h_vacuum),
+                ("POST", "/admin/volume_copy", vs._h_volume_copy),
+                ("GET", "/admin/tail", vs._h_tail),
+                ("GET", "/admin/volume_status", vs._h_volume_status),
+                ("GET", "/admin/incremental_copy", vs._h_incremental_copy),
+                ("POST", "/admin/volume_configure_replication",
+                 vs._h_volume_configure_replication),
+                ("POST", "/admin/server_leave", vs._h_server_leave),
                 ("POST", "/admin/ec/generate", vs._h_ec_generate),
                 ("POST", "/admin/ec/rebuild", vs._h_ec_rebuild),
                 ("POST", "/admin/ec/copy", vs._h_ec_copy),
@@ -904,6 +1194,10 @@ class VolumeServer:
         self._hb_thread = threading.Thread(target=self._hb_loop, daemon=True,
                                            name=f"heartbeat-{self.port}")
         self._hb_thread.start()
+        if os.environ.get("SWEED_SCRUB") == "1":
+            self._scrub_thread = threading.Thread(target=self._scrub_loop, daemon=True,
+                                                  name=f"scrub-{self.port}")
+            self._scrub_thread.start()
         return self
 
     def stop(self) -> None:
@@ -911,6 +1205,7 @@ class VolumeServer:
         self.store.delta_event.set()  # wake the heartbeat loop so it exits
         if self._hb_thread is not None:
             self._hb_thread.join(timeout=5.0)
+        self._join_scrub()
         if self._srv is not None:
             self._srv.shutdown()
             self._srv.server_close()

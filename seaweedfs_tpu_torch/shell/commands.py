@@ -1,7 +1,12 @@
 """Admin shell commands over the master/volume HTTP surfaces.
 
-The EC subset of `weed/shell/`, ported from the JAX package's shell:
+The EC and volume-maintenance subset of `weed/shell/`, ported from the JAX
+package's shell:
     volume.list, volume.delete, volume.mark (readonly|writable)
+    volume.vacuum (the master's /vol/vacuum), volume.copy, volume.move,
+    volume.mount / volume.unmount, volume.configure.replication,
+    volume.fix.replication, volume.balance (by count or by heat),
+    volumeServer.evacuate (volumes and EC shards), volumeServer.leave
     ec.encode   (command_ec_encode.go:55 — readonly → generate → spread;
                  -fleet hands the generate step to the master's scheduler)
     ec.rebuild  (command_ec_rebuild.go:57 — copy ≥k shards → rebuild → mount)
@@ -21,6 +26,7 @@ from typing import Optional
 
 from ..ec.constants import TOTAL_SHARDS
 from ..server.http_util import http_json
+from ..storage.replica_placement import ReplicaPlacement
 from ..wdclient import find_reachable_master
 
 
@@ -120,6 +126,16 @@ def collection_delete(env: CommandEnv, name: str) -> dict:
 
 
 # -- volume commands ----------------------------------------------------------
+def volume_vacuum(env: CommandEnv, garbage_threshold: float = 0.3) -> list[int]:
+    """volume.vacuum (command_volume_vacuum.go): the master checks every
+    replica's garbage ratio and compacts the volumes above the threshold."""
+    r = http_json(
+        "POST",
+        f"http://{env.master}/vol/vacuum?garbageThreshold={garbage_threshold}",
+    )
+    return r.get("compacted", [])
+
+
 def volume_delete(env: CommandEnv, vid: int) -> None:
     for url in env.volume_locations(vid):
         http_json("POST", f"http://{url}/admin/delete_volume?volume={vid}")
@@ -449,3 +465,291 @@ def ec_balance(env: CommandEnv, collection: str = "") -> dict:
             counts[dest] += 1
             moves.append({"vid": vid, "shard": sid, "from": holder, "to": dest})
     return {"moves": moves}
+
+
+# -- replication and moves (command_volume_fix_replication.go,
+#    command_volume_copy.go, command_volume_move.go, ...) -------------------
+def volume_fix_replication(env: CommandEnv) -> dict:
+    """command_volume_fix_replication.go: re-replicate under-replicated
+    volumes by copying the .dat/.idx to a fresh server."""
+    fixed = []
+    seen: dict[int, dict] = {}
+    for v in volume_list(env):
+        seen.setdefault(v["id"], {"replicas": [], "rp": v["replica_placement"],
+                                  "collection": v.get("collection", "")})
+        seen[v["id"]]["replicas"].append(v["server"])
+    nodes = [n["url"] for n in env.data_nodes()]
+    for vid, info in seen.items():
+        want = ReplicaPlacement.from_byte(info["rp"]).copy_count()
+        have = len(info["replicas"])
+        if have >= want:
+            continue
+        candidates = [n for n in nodes if n not in info["replicas"]]
+        for target in candidates[: want - have]:
+            src = info["replicas"][0]
+            if _copy_volume(env, vid, src, target, info["collection"]):
+                fixed.append({"vid": vid, "to": target})
+    return {"fixed": fixed}
+
+
+def _copy_volume(env: CommandEnv, vid: int, source: str, target: str,
+                 collection: str = "") -> bool:
+    """VolumeCopy: the target pulls .dat/.idx from the source and loads."""
+    r = http_json(
+        "POST",
+        f"http://{target}/admin/volume_copy?volume={vid}&source={source}"
+        f"&collection={collection}",
+    )
+    return not r.get("error")
+
+
+def volume_copy(env: CommandEnv, vid: int, target: str, source: str = "") -> dict:
+    """Add a replica: copy a volume to target without deleting the source
+    (command_volume_copy.go)."""
+    locs = env.volume_locations(vid)
+    if not locs:
+        raise RuntimeError(f"volume {vid} has no locations")
+    if source and source not in locs:
+        raise RuntimeError(f"{source} does not hold volume {vid}")
+    source = source or locs[0]
+    if target in locs:
+        raise RuntimeError(f"{target} already holds volume {vid}")
+    collection = _volume_collection(env, vid)
+    if not _copy_volume(env, vid, source, target, collection):
+        raise RuntimeError(f"copy {vid} {source}→{target} failed")
+    return {"volume": vid, "copied_from": source, "to": target}
+
+
+def volume_unmount(env: CommandEnv, vid: int, node: str) -> dict:
+    """Stop serving a volume, keep its files (command_volume_unmount.go)."""
+    r = http_json("POST", f"http://{node}/admin/volume_unmount?volume={vid}")
+    if r.get("error"):
+        raise RuntimeError(r["error"])
+    return r
+
+
+def volume_mount(env: CommandEnv, vid: int, node: str) -> dict:
+    """(Re)load a volume from the node's disk (command_volume_mount.go)."""
+    r = http_json("POST", f"http://{node}/admin/volume_mount?volume={vid}")
+    if r.get("error"):
+        raise RuntimeError(r["error"])
+    return r
+
+
+def volume_configure_replication(env: CommandEnv, vid: int, replication: str) -> dict:
+    """Rewrite a volume's replica placement on every replica
+    (command_volume_configure_replication.go)."""
+    locs = env.volume_locations(vid)
+    if not locs:
+        raise RuntimeError(f"volume {vid} has no locations")
+    results = []
+    for loc in locs:
+        r = http_json("POST", f"http://{loc}/admin/volume_configure_replication"
+                              f"?volume={vid}&replication={replication}")
+        if r.get("error"):
+            raise RuntimeError(f"{loc}: {r['error']}")
+        results.append({"server": loc} | r)
+    return {"configured": results}
+
+
+def volume_server_leave(env: CommandEnv, node: str) -> dict:
+    """Deregister a volume server now (command_volume_server_leave.go)."""
+    r = http_json("POST", f"http://{node}/admin/server_leave")
+    if r.get("error"):
+        raise RuntimeError(r["error"])
+    return r
+
+
+def volume_move(env: CommandEnv, vid: int, target: str, source: str = "") -> dict:
+    """Move one replica: copy to target, then delete at the source
+    (command_volume_move.go); the instant delta beats keep the master's
+    lookups right throughout."""
+    locs = env.volume_locations(vid)
+    if not locs:
+        raise RuntimeError(f"volume {vid} has no locations")
+    source = source or locs[0]
+    if source not in locs:
+        raise RuntimeError(f"{source} does not hold volume {vid}")
+    if target in locs:
+        raise RuntimeError(f"{target} already holds volume {vid}")
+    collection = _volume_collection(env, vid)
+    if not _copy_volume(env, vid, source, target, collection):
+        raise RuntimeError(f"copy {vid} {source}→{target} failed")
+    r = http_json("POST", f"http://{source}/admin/delete_volume?volume={vid}")
+    if r.get("error"):
+        raise RuntimeError(f"delete {vid} on {source}: {r['error']}")
+    return {"vid": vid, "from": source, "to": target}
+
+
+# -- balance and evacuate (command_volume_balance.go,
+#    command_volume_server_evacuate.go) ---------------------------------------
+def _balance_plan(volumes: list[dict], nodes: list[dict],
+                  collection: Optional[str]) -> list[dict]:
+    """Greedy move plan toward count/capacity parity, the reference's
+    balanceVolumeServers score ``count / maxCount``
+    (command_volume_balance.go:124-170): move from the fullest ratio to
+    the emptiest until within one volume of ideal."""
+    caps = {n["url"]: max(n.get("max", 1), 1) for n in nodes}
+    held: dict[str, set[int]] = {n["url"]: set() for n in nodes}
+    movable: dict[str, list[dict]] = {n["url"]: [] for n in nodes}
+    for v in volumes:
+        if v["server"] not in held:
+            continue
+        held[v["server"]].add(v["id"])
+        if collection is None or v.get("collection", "") == collection:
+            movable[v["server"]].append(v)
+    plan = []
+    counts = {u: len(vs) for u, vs in held.items()}
+    for _ in range(1000):  # a hard stop; each round moves one volume
+        ratios = {u: counts[u] / caps[u] for u in counts}
+        src = max(ratios, key=ratios.get)
+        dsts = sorted(ratios, key=ratios.get)
+        moved = False
+        for dst in dsts:
+            # a move must strictly narrow the spread
+            if dst == src or ratios[src] - ratios[dst] <= 1.0 / caps[src]:
+                break
+            cand = next((v for v in movable[src] if v["id"] not in held[dst]), None)
+            if cand is None:
+                continue
+            plan.append({"vid": cand["id"], "from": src, "to": dst})
+            movable[src].remove(cand)
+            held[src].discard(cand["id"])
+            held[dst].add(cand["id"])
+            movable[dst].append(cand)
+            counts[src] -= 1
+            counts[dst] += 1
+            moved = True
+            break
+        if not moved:
+            break
+    return plan
+
+
+def _heat_balance_plan(volumes: list[dict], nodes: list[dict]) -> list[dict]:
+    """Move replicas off hot nodes. A node's heat is the sum of its
+    replicas' read + write EWMA heat (the heartbeat fields); while the
+    hottest node carries more than 1.1x the mean, move its hottest movable
+    volume to the coldest node without a replica of it. The JAX package's
+    own policy beside the reference's count balance."""
+    urls = [n["url"] for n in nodes]
+    if len(urls) < 2:
+        return []
+    held: dict[str, set[int]] = {u: set() for u in urls}
+    movable: dict[str, list[dict]] = {u: [] for u in urls}
+    vheat: dict[tuple[str, int], float] = {}
+    for v in volumes:
+        u = v["server"]
+        if u not in held:
+            continue
+        held[u].add(v["id"])
+        movable[u].append(v)
+        vheat[(u, v["id"])] = v.get("read_heat", 0.0) + v.get("write_heat", 0.0)
+    heat = {u: sum(vheat.get((u, vid), 0.0) for vid in held[u]) for u in urls}
+    plan: list[dict] = []
+    for _ in range(100):  # a hard stop; each round moves one volume
+        mean = sum(heat.values()) / len(heat)
+        src = max(heat, key=heat.get)
+        if mean <= 0.0 or heat[src] <= 1.1 * mean:
+            break  # within 10 % of even
+        moved = False
+        for cand in sorted(movable[src], key=lambda v: vheat.get((src, v["id"]), 0.0),
+                           reverse=True):
+            h = vheat.get((src, cand["id"]), 0.0)
+            if h <= 0.0:
+                break  # only cold volumes left on the hot node
+            dsts = sorted((u for u in urls if u != src and cand["id"] not in held[u]),
+                          key=heat.get)
+            if not dsts:
+                continue
+            dst = dsts[0]
+            # only a move that cools the hottest node by >= 10 %: one hot
+            # volume swapped between nodes would be churn
+            if max(heat[src] - h, heat[dst] + h) > 0.9 * heat[src]:
+                continue
+            plan.append({"vid": cand["id"], "from": src, "to": dst, "heat": round(h, 3)})
+            movable[src].remove(cand)
+            held[src].discard(cand["id"])
+            held[dst].add(cand["id"])
+            movable[dst].append(cand)
+            vheat[(dst, cand["id"])] = h
+            heat[src] -= h
+            heat[dst] += h
+            moved = True
+            break
+        if not moved:
+            break
+    return plan
+
+
+def volume_balance(env: CommandEnv, collection: Optional[str] = None,
+                   apply: bool = True, heat: bool = False) -> dict:
+    """Even out volume counts per server capacity (command_volume_balance.go);
+    ``apply=False`` returns the plan only, ``heat=True`` balances EWMA heat
+    instead of counts."""
+    if heat:
+        plan = _heat_balance_plan(volume_list(env), env.data_nodes())
+    else:
+        plan = _balance_plan(volume_list(env), env.data_nodes(), collection)
+    moved = []
+    skipped = []
+    if apply:
+        for m in plan:
+            # check each move against fresh state: an earlier move or a
+            # node's death can void later entries of the plan
+            live = {n["url"] for n in env.data_nodes()}
+            locs = env.volume_locations(m["vid"])
+            if m["from"] not in live or m["to"] not in live:
+                skipped.append({**m, "reason": "source or target node died"})
+                continue
+            if m["from"] not in locs:
+                skipped.append({**m, "reason": f"{m['from']} no longer holds volume"})
+                continue
+            if m["to"] in locs:
+                skipped.append({**m, "reason": f"{m['to']} already holds volume"})
+                continue
+            volume_move(env, m["vid"], m["to"], m["from"])
+            moved.append(m)
+    return {"plan": plan, "moved": moved, "skipped": skipped}
+
+
+def volume_server_evacuate(env: CommandEnv, server: str, apply: bool = True) -> dict:
+    """Move every volume and EC shard off one server so that it can be
+    retired (command_volume_server_evacuate.go)."""
+    nodes = [n for n in env.data_nodes() if n["url"] != server]
+    if not nodes:
+        raise RuntimeError("no other servers to evacuate to")
+    st = env.node_status(server)
+    held_elsewhere: dict[int, set[str]] = {}
+    for v in volume_list(env):
+        held_elsewhere.setdefault(v["id"], set()).add(v["server"])
+    counts = {n["url"]: n.get("volumes", 0) for n in nodes}
+    moves, ec_moves = [], []
+    for v in st.get("volumes", []):
+        vid = v["id"]
+        targets = sorted((u for u in counts if u not in held_elsewhere.get(vid, ())),
+                         key=counts.get)
+        if not targets:
+            raise RuntimeError(f"no target free of volume {vid}")
+        if apply:
+            volume_move(env, vid, targets[0], server)
+        counts[targets[0]] += 1
+        moves.append({"vid": vid, "to": targets[0]})
+    for s in st.get("ec", []):
+        vid = s["id"]
+        sids = [i for i in range(TOTAL_SHARDS) if s["ec_index_bits"] & (1 << i)]
+        target = min(counts, key=counts.get)
+        counts[target] += 1  # spread successive shard groups over the nodes
+        if apply:
+            shard_csv = ",".join(map(str, sids))
+            r = http_json("POST", f"http://{target}/admin/ec/copy?volume={vid}"
+                                  f"&source={server}&shards={shard_csv}"
+                                  f"&collection={s.get('collection', '')}")
+            if r.get("error"):
+                raise RuntimeError(f"ec copy {vid}: {r['error']}")
+            http_json("POST", f"http://{target}/admin/ec/mount?volume={vid}")
+            http_json("POST", f"http://{server}/admin/ec/delete_shards?volume={vid}"
+                              f"&shards={shard_csv}")
+            http_json("POST", f"http://{server}/admin/ec/unmount?volume={vid}")
+        ec_moves.append({"vid": vid, "shards": sids, "to": target})
+    return {"volumes": moves, "ec": ec_moves}

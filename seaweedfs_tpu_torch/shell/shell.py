@@ -1,8 +1,9 @@
 """Interactive admin REPL (reference: `weed shell`, shell/commands.go).
 
-The port runs the EC commands and what they stand on (see ``HELP``). Every
-other command of the JAX package's shell raises an error that names it as
-not ported yet, so a script that calls one fails instead of doing nothing.
+The port runs the EC and volume-maintenance commands and what they stand on
+(see ``HELP``). Every other command of the JAX package's shell raises an
+error that names it as not ported yet, so a script that calls one fails
+instead of doing nothing.
 """
 
 from __future__ import annotations
@@ -18,9 +19,19 @@ from .commands import CommandEnv
 HELP = """commands:
   cluster.status                      show topology
   volume.list                         list volumes on all servers
+  volume.vacuum [-garbageThreshold=X] compact garbage volumes
   volume.delete -volumeId=N           delete a volume everywhere
   volume.mark -volumeId=N -readonly|-writable [-node=H]  flip the write gate
   volume.mark.readonly -volumeId=N    seal a volume
+  volume.fix.replication              re-replicate under-replicated volumes
+  volume.move -volumeId=N -target=host:port [-source=host:port]
+  volume.copy -volumeId=N -target=host:port [-source=host:port]
+  volume.mount|volume.unmount -volumeId=N -node=host:port
+  volume.configure.replication -volumeId=N -replication=XYZ
+  volume.balance [-collection=C] [-force=true] [-heat]  plan (and apply) even
+                 spread; -heat moves replicas off hot nodes (EWMA heat)
+  volumeServer.evacuate -node=host:port         drain a server
+  volumeServer.leave -node=host:port            deregister a server now
   ec.encode -volumeId=N[,M..] [-collection=C] [-fleet]
                  erasure-code + spread volume(s); -fleet hands the batch to
                  the master's scheduler, which fans generate jobs across
@@ -35,10 +46,7 @@ HELP = """commands:
 
 # the JAX package's commands that the port does not run yet
 NOT_PORTED = frozenset({
-    "volume.vacuum", "volume.fix.replication", "volume.move", "volume.copy",
-    "volume.mount", "volume.unmount", "volume.configure.replication",
-    "volume.tier.upload", "volume.tier.download", "volume.balance",
-    "volumeServer.evacuate", "volumeServer.leave", "volume.fsck",
+    "volume.tier.upload", "volume.tier.download", "volume.fsck",
     "fs.cd", "fs.pwd", "fs.ls", "fs.du", "fs.tree", "fs.cat", "fs.mv",
     "fs.meta.cat", "fs.meta.save", "fs.meta.load", "fs.meta.notify",
     "fs.configure", "bucket.list", "bucket.create", "bucket.delete", "query",
@@ -116,6 +124,33 @@ def run_command(env: CommandEnv, line: str) -> object:
         return C.cluster_status(env)
     if cmd == "volume.list":
         return C.volume_list(env)
+    if cmd == "volume.vacuum":
+        return C.volume_vacuum(env, float(flags.get("garbageThreshold", 0.3)))
+    if cmd == "volume.fix.replication":
+        return C.volume_fix_replication(env)
+    if cmd == "volume.move":
+        return C.volume_move(env, int(flags["volumeId"]), flags["target"],
+                             flags.get("source", ""))
+    if cmd == "volume.copy":
+        return C.volume_copy(env, int(flags["volumeId"]), flags["target"],
+                             flags.get("source", ""))
+    if cmd == "volume.mount":
+        return C.volume_mount(env, int(flags["volumeId"]), flags["node"])
+    if cmd == "volume.unmount":
+        return C.volume_unmount(env, int(flags["volumeId"]), flags["node"])
+    if cmd == "volume.configure.replication":
+        return C.volume_configure_replication(env, int(flags["volumeId"]),
+                                              flags["replication"])
+    if cmd == "volume.balance":
+        # plan only unless -force (command_volume_balance.go's opt-in);
+        # -heat balances EWMA heat instead of volume counts
+        return C.volume_balance(env, flags.get("collection"),
+                                apply=flags.get("force") == "true",
+                                heat=flags.get("heat") == "true")
+    if cmd == "volumeServer.evacuate":
+        return C.volume_server_evacuate(env, flags["node"])
+    if cmd == "volumeServer.leave":
+        return C.volume_server_leave(env, flags["node"])
     if cmd == "volume.delete":
         C.volume_delete(env, int(flags["volumeId"]))
         return "ok"

@@ -1,9 +1,10 @@
-"""Labelled counters, and the query engine's metrics.
+"""Labelled counters, and the query engine's and the scrub's metrics.
 
 The part of the reference's metrics (`weed/stats/metrics.go`) that the scan
-engine needs: a thread-safe labelled ``Counter`` and the ``sweed_query_*``
-counters under the reference's names. The counters are bumped from the
-volume server's request threads, so every read and update takes the
+engine and the background scrub need: a thread-safe labelled ``Counter``,
+and the ``sweed_query_*`` and ``sweed_scrub_*`` counters under the
+reference's names. The counters are bumped from the
+volume servers' request and scrub threads, so every read and update takes the
 counter's lock. The registry and its exposition come with ``/metrics``.
 """
 
@@ -63,4 +64,33 @@ def query_stats() -> dict:
         "rows_kernel": QUERY_COUNTERS["kernel"].total(),
         "rows_fallback": QUERY_COUNTERS["fallback"].total(),
         "scans": QUERY_COUNTERS["scans"].total(),
+    }
+
+
+def register_scrub_metrics() -> dict[str, Counter]:
+    """Counters for the background CRC scrub (server/volume_server.py,
+    SWEED_SCRUB=1). They are process-wide: several volume servers in one
+    process add into the same counters."""
+    return {
+        "checked": Counter("sweed_scrub_needles_checked_total",
+                           "needle CRCs verified by the background scrub"),
+        "bytes": Counter("sweed_scrub_bytes_total",
+                         "needle payload bytes read back by the scrub"),
+        "errors": Counter("sweed_scrub_crc_errors_total",
+                          "needles whose stored CRC did not match the payload"),
+        "rounds": Counter("sweed_scrub_rounds_total",
+                          "full passes completed over a volume"),
+    }
+
+
+SCRUB_COUNTERS = register_scrub_metrics()
+
+
+def scrub_stats() -> dict:
+    """Snapshot of the scrub counters for /status."""
+    return {
+        "needles_checked": SCRUB_COUNTERS["checked"].total(),
+        "bytes_read": SCRUB_COUNTERS["bytes"].total(),
+        "crc_errors": SCRUB_COUNTERS["errors"].total(),
+        "rounds": SCRUB_COUNTERS["rounds"].total(),
     }

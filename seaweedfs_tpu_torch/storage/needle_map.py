@@ -83,6 +83,11 @@ class IdxLogMixin:
     def deleted_count(self) -> int:
         return self.deletion_counter
 
+    def index_file_size(self) -> int:
+        """Bytes in the .idx log: compaction's snapshot point and the end of
+        its replay."""
+        return os.fstat(self._index_file.fileno()).st_size
+
     def sync(self) -> None:
         self._index_file.flush()
         os.fsync(self._index_file.fileno())

@@ -245,9 +245,7 @@ class Store:
         msg = self._volume_message(v) if v is not None else {"id": vid}
         for loc in self.locations:
             if loc.delete_volume(vid):
-                with self._lock:
-                    self.deleted_volumes.append(msg)
-                self.delta_event.set()
+                self.queue_deleted_volume(msg)
                 return True
         return False
 
@@ -260,9 +258,7 @@ class Store:
         msg = self._volume_message(v)
         for loc in self.locations:
             if loc.unload_volume(vid):
-                with self._lock:
-                    self.deleted_volumes.append(msg)
-                self.delta_event.set()
+                self.queue_deleted_volume(msg)
                 return True
         return False
 
@@ -292,6 +288,14 @@ class Store:
     def queue_new_volume(self, v: Volume) -> None:
         with self._lock:
             self.new_volumes.append(self._volume_message(v))
+        self.delta_event.set()
+
+    def queue_deleted_volume(self, msg: dict) -> None:
+        """Announce a volume's removal; ``msg`` is its ``_volume_message``
+        from before the change (the master unregisters it from the layout
+        that message names)."""
+        with self._lock:
+            self.deleted_volumes.append(msg)
         self.delta_event.set()
 
     def queue_new_ec_shards(self, vid: int, collection: str, bits: int) -> None:

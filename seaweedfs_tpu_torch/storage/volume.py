@@ -1,18 +1,20 @@
 """Volume: one append-only .dat + .idx pair holding many needles.
 
 Mirrors `weed/storage/volume.go` + `volume_read_write.go` +
-`volume_loading.go` + `volume_checking.go`:
+`volume_loading.go` + `volume_checking.go` + `volume_vacuum.go`:
 
 - writes append to .dat and log to .idx (offsets 8-byte aligned, stored /8);
 - deletes append a zero-data needle, then log a tombstone .idx entry;
 - reads look the needle up in the in-memory map, CRC-verify it and honour
   TTL expiry;
 - on load the last ≤10 .idx entries are verified against the .dat and a torn
-  tail is truncated (CheckAndFixVolumeDataIntegrity).
+  tail is truncated (CheckAndFixVolumeDataIntegrity);
+- vacuum (``compact``) copies the live needles to .cpd/.cpx while writes go
+  on, replays what landed meanwhile under the lock, and swaps the files
+  through the staged commit, bumping the super block's compaction revision.
 
 One lock per volume; writes are synchronous and ``sync()`` is explicit.
-Not ported: the remote S3 tier, the native data-plane attach and vacuum
-(compaction).
+Not ported: the remote S3 tier and the native data-plane attach.
 """
 
 from __future__ import annotations
@@ -24,8 +26,11 @@ import time
 from typing import Iterator, Optional
 
 from ..stats.heat import EwmaHeat
+from ..util import faultpoints
+from ..util.throttler import WriteThrottler
 from . import idx as idx_mod
 from .backend import DiskFile
+from .commit import StagedCommit
 from .needle import (
     CURRENT_VERSION,
     FLAG_HAS_LAST_MODIFIED,
@@ -44,6 +49,7 @@ from .types import (
     NEEDLE_HEADER_SIZE,
     OFFSET_SIZE,
     max_possible_volume_size,
+    needle_map_entry_size,
     size_is_valid,
 )
 
@@ -101,6 +107,7 @@ class Volume:
         self.read_only = False
         self.last_append_at_ns = 0
         self._lock = threading.RLock()
+        self._is_compacting = False
         # zipfian-skew signal: decayed op counters marked by the store,
         # shipped in heartbeats
         self.read_heat = EwmaHeat()
@@ -176,6 +183,13 @@ class Volume:
     def is_tiered(self) -> bool:
         """Always False: the remote tier is not ported."""
         return False
+
+    def garbage_level(self) -> float:
+        """Vacuum's trigger: deleted bytes over all content bytes ever
+        written (volume.go garbageLevel; ContentSize counts every put)."""
+        if self.content_size() == 0:
+            return 0.0
+        return self.deleted_size() / self.content_size()
 
     # -- load-time integrity (volume_checking.go:16-44) ----------------------
     def _check_and_fix_integrity(self, idx_file) -> int:
@@ -368,6 +382,140 @@ class Volume:
             yield n, offset, total
             offset += total
 
+    # -- tail / backup (storage/volume_backup.go) ----------------------------
+    def tail_needles(self, since_ns: int) -> Iterator[Needle]:
+        """Records appended after ``since_ns``, in append order: the
+        incremental follow stream (VolumeTailSender). Tombstones come as
+        size-0 records."""
+        for n, _, _ in self.scan_needles():
+            if n.append_at_ns > since_ns:
+                yield n
+
+    # -- vacuum / compaction (volume_vacuum.go) ------------------------------
+    def compact(self, bytes_per_second: int = 0) -> None:
+        """Concurrent compaction (the reference's ``Compact2`` +
+        ``makeupDiff``, `volume_vacuum.go:66,181`). Phases 1 and 2 run
+        without the lock while writes and deletes go on: the live map comes
+        from the .idx prefix of the snapshot, and the live needles below the
+        snapshot's .dat size are copied to .cpd/.cpx. Phase 3 takes the lock,
+        replays every .idx entry appended since the snapshot (a put copies
+        the new needle, a delete copies its tombstone needle) and swaps the
+        files through the staged commit. Both logs are append-only, so the
+        bytes below the snapshot sizes do not change under the copy.
+
+        ``bytes_per_second`` paces the unlocked copy (compactionBytePerSecond);
+        0 is unthrottled."""
+        throttler = WriteThrottler(bytes_per_second)
+        with self._lock:
+            if self._is_compacting:
+                raise VolumeError(f"volume {self.id} is already compacting")
+            self._is_compacting = True
+        base = self.file_name()
+        entry_size = needle_map_entry_size(self.offset_size)
+        version = self.version
+        try:
+            with self._lock:
+                self.sync()  # the snapshot sizes hold only after a flush
+                snap_dat = self.data_backend.size()
+                snap_idx = self.nm.index_file_size()
+                sb = self.super_block
+            new_sb = SuperBlock(
+                version=version,
+                replica_placement=sb.replica_placement,
+                ttl=sb.ttl,
+                compaction_revision=(sb.compaction_revision + 1) & 0xFFFF,
+                extra=sb.extra,
+            )
+            # phase 1 (no lock): the live map as of the snapshot
+            live: dict[int, tuple[int, int]] = {}
+            with open(base + ".idx", "rb") as f:
+                prefix = f.read(snap_idx)
+            for i in range(0, len(prefix) - entry_size + 1, entry_size):
+                key, off, size = idx_mod.unpack_entry(
+                    prefix[i:i + entry_size], self.offset_size)
+                if size_is_valid(size):
+                    live[key] = (off, size)
+                else:
+                    live.pop(key, None)
+            # phase 2 (no lock): live needles in .dat order up to the snapshot
+            with open(base + ".cpd", "wb") as dst, open(base + ".cpx", "wb") as dst_idx:
+                dst.write(new_sb.to_bytes())
+                new_offset = new_sb.block_size()
+                offset = sb.block_size()
+                while offset + NEEDLE_HEADER_SIZE <= snap_dat:
+                    hdr = self.data_backend.read_at(offset, NEEDLE_HEADER_SIZE)
+                    if len(hdr) < NEEDLE_HEADER_SIZE:
+                        break
+                    _, nid, nsize = parse_needle_header(hdr)
+                    total = NEEDLE_HEADER_SIZE + needle_body_length(max(nsize, 0), version)
+                    if offset + total > snap_dat:
+                        break
+                    lv = live.get(nid)
+                    if lv is not None and lv[0] == offset and size_is_valid(lv[1]):
+                        faultpoints.fire("vacuum.copy", path=base + ".cpd")
+                        dst.write(self.data_backend.read_at(offset, total))
+                        dst_idx.write(idx_mod.pack_entry(nid, new_offset, nsize,
+                                                         self.offset_size))
+                        new_offset += total
+                        throttler.maybe_slowdown(total)
+                    offset += total
+                # phase 3 (locked): makeupDiff, then the swap
+                with self._lock:
+                    self.sync()
+                    end_idx = self.nm.index_file_size()
+                    if end_idx > snap_idx:
+                        with open(base + ".idx", "rb") as f:
+                            f.seek(snap_idx)
+                            diff = f.read(end_idx - snap_idx)
+                        for i in range(0, len(diff) - entry_size + 1, entry_size):
+                            key, off, size = idx_mod.unpack_entry(
+                                diff[i:i + entry_size], self.offset_size)
+                            # a delete copies its tombstone needle and points
+                            # the entry at it: a tombstone at offset 0 would
+                            # fail the load-time check, be truncated away and
+                            # bring the needle back
+                            body = size if size_is_valid(size) else 0
+                            total = NEEDLE_HEADER_SIZE + needle_body_length(body, version)
+                            dst.write(self.data_backend.read_at(off, total))
+                            dst_idx.write(idx_mod.pack_entry(key, new_offset, size,
+                                                             self.offset_size))
+                            new_offset += total
+                    dst.close()
+                    dst_idx.close()
+                    self._commit_compact(base)
+        finally:
+            with self._lock:
+                self._is_compacting = False
+
+    # the reference's Compact2 is this compaction
+    compact2 = compact
+
+    def _commit_compact(self, base: str) -> None:
+        """Swap the compacted pair in as one staged commit, so that a crash
+        never leaves the new .dat live against the old .idx."""
+        with self._lock:
+            self._commit_compact_locked(base)
+
+    def _commit_compact_locked(self, base: str) -> None:
+        self.data_backend.close()
+        self.nm.close()
+        sc = StagedCommit(base, "vacuum")
+        sc.stage(base + ".dat", tmp_path=base + ".cpd")
+        sc.stage(base + ".idx", tmp_path=base + ".cpx")
+        sc.commit()
+        self.data_backend = DiskFile(base + ".dat")
+        head = self.data_backend.read_at(0, SUPER_BLOCK_SIZE)
+        extra_size = struct.unpack(">H", head[6:8])[0]
+        self.super_block = SuperBlock.from_bytes(
+            self.data_backend.read_at(0, SUPER_BLOCK_SIZE + extra_size))
+        # a fresh map from the new .idx: nothing keeps the old offsets
+        idx_file = open(base + ".idx", "a+b", buffering=0)
+        try:
+            self.nm = self._load_needle_map(idx_file)
+        except Exception:
+            idx_file.close()
+            raise
+
     # -- lifecycle -----------------------------------------------------------
     def sync(self) -> None:
         with self._lock:
@@ -382,9 +530,11 @@ class Volume:
     def destroy(self) -> None:
         """Remove every file of this volume (volume_read_write.go:46-72)."""
         with self._lock:
+            if self._is_compacting:
+                raise VolumeError(f"volume {self.id} is compacting")
             self.close()
             base = self.file_name()
-            for ext in (".dat", ".idx", ".vif", ".note"):
+            for ext in (".dat", ".idx", ".vif", ".cpd", ".cpx", ".note"):
                 try:
                     os.remove(base + ext)
                 except FileNotFoundError:

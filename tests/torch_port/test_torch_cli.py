@@ -9,7 +9,11 @@ device, and leaves no shard, index or staging file behind.
 The port-only cluster: a ``master`` and a ``volume`` process, then ``shell
 -c`` lists the volume and the topology. ``master -peers``/``-mdir`` are
 refused, and a shell command the port lacks fails with exit 1, naming it as
-not ported yet.
+not ported yet. On that cluster the volume maintenance runs from the
+command line: ``shell -c "volume.vacuum ..."`` compacts, ``backup`` copies
+the volume locally, ``volume.tail`` prints its appended needles and
+``volumeServer.leave`` retires the server. The offline ``compact`` writes the
+same files as the JAX package's ``compact``.
 """
 
 import json
@@ -175,7 +179,8 @@ def test_master_refuses_unported_flags(flag):
     assert "not ported yet" in r.stderr and flag.split("=")[0] in r.stderr
 
 
-@pytest.mark.parametrize("command", ["volume.vacuum", "fs.ls /", "volume.balance -force"])
+@pytest.mark.parametrize("command", ["volume.tier.upload -volumeId=1", "fs.ls /",
+                                     "volume.fsck"])
 def test_shell_unported_command_fails(command):
     mproc, murl = _start_master(free_port())
     try:
@@ -184,3 +189,71 @@ def test_shell_unported_command_fails(command):
         assert "not ported yet" in r.stdout and command.split()[0] in r.stdout
     finally:
         _stop(mproc)
+
+
+def _cli(*args):
+    return subprocess.run(
+        [sys.executable, "-m", "seaweedfs_tpu_torch", *args],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+        text=True, timeout=120)
+
+
+def test_port_only_cluster_volume_maintenance(tmp_path):
+    mproc, murl = _start_master(free_port())
+    try:
+        vproc, vurl = _start(tmp_path, murl, "-ec.backend=cpu")
+        try:
+            assert http_json("POST", f"http://{murl}/vol/grow?collection=m&count=1") == \
+                {"count": 1}
+            a = http_json("GET", f"http://{murl}/dir/assign?collection=m")
+            vid = int(a["fid"].split(",")[0])
+            fids = [f"{vid},{i:x}00001234" for i in range(1, 21)]
+            for i, fid in enumerate(fids):
+                assert http_bytes("POST", f"http://{vurl}/{fid}", body=b"x" * (500 + i))[0] == 201
+            for fid in fids[::2]:
+                assert http_bytes("DELETE", f"http://{vurl}/{fid}")[0] == 202
+            r = _shell(murl, "volume.vacuum -garbageThreshold=0.3")
+            assert r.returncode == 0 and json.loads(r.stdout) == [vid], r.stdout + r.stderr
+            r = _cli("backup", "-master", murl, "-volume", str(vid), "-dir",
+                     str(tmp_path / "bk"), "-collection", "m")
+            assert r.returncode == 0 and "+10 writes" in r.stdout, r.stdout + r.stderr
+            r = _cli("volume.tail", "-master", murl, "-volumeId", str(vid),
+                     "-timeoutSeconds", "0.5", "-pollInterval", "0.1")
+            lines = r.stdout.splitlines()
+            assert r.returncode == 0 and len(lines) == 10, r.stdout + r.stderr
+            assert all(line.startswith(f"+ {vid},") for line in lines)
+            r = _shell(murl, f"volumeServer.leave -node={vurl}")
+            assert r.returncode == 0 and json.loads(r.stdout) == {"left": vurl}, r.stdout
+            assert http_json("GET", f"http://{murl}/dir/status")["topology"][
+                "data_centers"][0]["racks"][0]["nodes"] == []
+        finally:
+            _stop(vproc)
+    finally:
+        _stop(mproc)
+
+
+def test_offline_compact_writes_the_reference_files(tmp_path):
+    from seaweedfs_tpu.storage.needle import Needle
+    from seaweedfs_tpu.storage.volume import Volume
+
+    for d in ("port", "jax"):
+        os.makedirs(tmp_path / d)
+        v = Volume(str(tmp_path / d), "c", 4)
+        for i in range(1, 31):
+            v.write_needle(Needle(cookie=9, id=i, data=bytes([i]) * (100 * i)),
+                           append_at_ns=1_700_000_000_000_000_000 + i)
+        for i in range(1, 31, 3):
+            v.delete_needle(Needle(cookie=9, id=i), append_at_ns=1_700_000_000_000_001_000 + i)
+        v.close()
+    r = _cli("compact", "-dir", str(tmp_path / "port"), "-collection", "c", "-volumeId", "4")
+    assert r.returncode == 0 and "reclaimed" in r.stdout, r.stdout + r.stderr
+    j = subprocess.run(
+        [sys.executable, "-m", "seaweedfs_tpu", "compact", "-dir", str(tmp_path / "jax"),
+         "-collection", "c", "-volumeId", "4"],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu"),
+        capture_output=True, text=True, timeout=120)
+    assert j.returncode == 0, j.stdout + j.stderr
+    assert r.stdout == j.stdout.replace("→", "->")
+    for ext in (".dat", ".idx"):
+        assert (tmp_path / "port" / f"c_4{ext}").read_bytes() == \
+            (tmp_path / "jax" / f"c_4{ext}").read_bytes()

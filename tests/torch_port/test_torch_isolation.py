@@ -44,7 +44,8 @@ def test_port_imports_nothing_of_jax():
     for name in ("cluster.sequence", "cluster.topology", "cluster.volume_layout",
                  "cluster.volume_growth", "cluster.master", "cluster.fleet",
                  "stats.histogram", "wdclient", "server.master_server",
-                 "shell.commands", "shell.shell"):
+                 "shell.commands", "shell.shell", "util.throttler",
+                 "storage.volume_backup", "stats.metrics"):
         assert "seaweedfs_tpu_torch." + name in walked, name
     assert lines["BAD"] == "[]", r.stdout
     assert lines["NEW_THREADS"] == "0", r.stdout
