@@ -53,7 +53,7 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    needle 3 must return the same rows, through gf_matmul;
 8. the cluster path: the port's master, four port volume servers (CUDA
    backend) and the port shell. A volume grown in a collection of its own
-   is filled to 1 GiB from 8 threads, every fid from /dir/assign;
+   is filled to 512 MiB from 8 threads, every fid from /dir/assign;
    ``ec.encode`` generates on the card and spreads the shards 4/4/3/3; the
    server with shards 1, 5, 9, 13 stops and the master's reaper drops it;
    64 degraded GETs and 64 healthy remote GETs go through /dir/lookup;
@@ -64,7 +64,7 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    degraded GETs, rebuild, decode) must launch the kernel;
 9. an operator's maintenance cycle: the port's master, four port volume
    servers (CUDA backend) with the background scrub on (``SWEED_SCRUB=1``,
-   ``SWEED_SCRUB_RATE`` raised to 1024) and the port shell. A 1 GiB volume
+   ``SWEED_SCRUB_RATE`` raised to 1024) and the port shell. A 512 MiB volume
    (phase 8's needles) loses ~30 % of its needles; ``volume.vacuum``
    compacts it while a writer and a deleter keep at it (every write and
    delete must survive, the compaction revision must reach the master);
@@ -78,7 +78,31 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    ``ec.rebuild`` makes it again on the card (sha256 equal to the .vif's);
    ``volumeServer.evacuate`` and ``volumeServer.leave`` retire a server, which
    the master drops at once; every live needle reads back through the
-   master. ``ec.encode`` and ``ec.rebuild`` must launch the kernel.
+   master. ``ec.encode`` and ``ec.rebuild`` must launch the kernel;
+10. ``weed benchmark`` on the default data plane: the port's master and one
+   port volume server on ``weed master``/``weed volume`` defaults (CUDA
+   backend, the native turbo engine on the public port, the asyncio core
+   behind it). ``run_benchmark`` at `weed/command/benchmark.go`'s defaults
+   (1 048 576 files of 1 KiB from 16 connections, assigns in batches of
+   100): no failure, a seeded 4 096 fids read back equal, the engine's
+   native posts and gets covering the run and its proxied requests a
+   sliver of it. The same server restarted with ``SWEED_TURBO=0`` (the
+   asyncio core alone): a 131 072-file run, 64 GETs of 256 KiB needles by
+   sendfile (byte-equal, served natively on the loop), then 512 concurrent
+   connections against ``SWEED_MAX_INFLIGHT=64``: every reply a 200 or a 503
+   with ``Retry-After``, at least one 503, then 64 GETs all 200. The engine
+   on again: the shell's ``ec.encode`` seals the fullest benchmark volume on
+   the card (shards checked against the plain version), shards {0, 3, 10,
+   13} go, and a seeded sample of its fids reads back equal through the
+   engine's public port, which proxies EC reads to Python and so to the
+   kernel. The encode and the reads must launch the kernel.
+
+Phases 6, 8, 9 and 10 run with the JAX package's default serving stack: the
+native turbo engine (built from ``seaweedfs_tpu_torch/csrc/turbo.cpp``)
+owns each volume server's public port, the asyncio core serves the rest.
+Each of them fails if a volume server in it started without the engine, and
+prints the engines' counters (native gets, posts, deletes; proxied
+requests).
 
 Phase 1 also runs four CudaCodecs from four threads at once (the volume
 servers of phase 8 share the card so, and the fleet scheduler runs up to
@@ -101,6 +125,7 @@ import io
 import json
 import os
 import re
+import resource
 import shutil
 import socket
 import statistics
@@ -116,6 +141,7 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
+from seaweedfs_tpu_torch.__main__ import run_benchmark  # noqa: E402
 from seaweedfs_tpu_torch.ec import decoder, encoder  # noqa: E402
 from seaweedfs_tpu_torch.ec import gf_matmul as gm  # noqa: E402
 from seaweedfs_tpu_torch.ec.codec import get_codec  # noqa: E402
@@ -125,6 +151,7 @@ from seaweedfs_tpu_torch.ec.ec_volume import EcVolume  # noqa: E402
 from seaweedfs_tpu_torch.query import execute_request, parse_sql, run_query  # noqa: E402
 from seaweedfs_tpu_torch.query import scan as query_scan  # noqa: E402
 from seaweedfs_tpu_torch.query.scan import TorchKernels, compile_plan  # noqa: E402
+from seaweedfs_tpu_torch.server.http_util import SERVING  # noqa: E402
 from seaweedfs_tpu_torch.server.master_server import MasterServer  # noqa: E402
 from seaweedfs_tpu_torch.server.volume_server import VolumeServer  # noqa: E402
 from seaweedfs_tpu_torch.shell import commands as shell_commands  # noqa: E402
@@ -656,6 +683,35 @@ class _Timed:
                 setattr(obj, name, old)
 
 
+class _Engines:
+    """The turbo engines of a phase's volume servers. ``check`` fails the
+    phase if one started without its engine (naming why); ``stop`` stops a
+    server after reading its counters; ``totals`` sums the counters of the
+    live engines and of the stopped ones."""
+
+    def __init__(self, phase: int, servers: list):
+        self.phase, self.servers = phase, servers
+        self.done: collections.Counter = collections.Counter()
+
+    def check(self) -> None:
+        off = {f"127.0.0.1:{vs.port}": vs.turbo_status()["reason"]
+               for vs in self.servers if vs.turbo is None}
+        if off:
+            raise SystemExit(f"phase {self.phase}: the turbo engine is off: {off}")
+
+    def stop(self, vs) -> None:
+        if vs.turbo is not None:
+            self.done.update(vs.turbo.counters())
+        vs.stop()
+
+    def totals(self) -> dict:
+        tot = collections.Counter(self.done)
+        for vs in self.servers:
+            if vs.turbo is not None:
+                tot.update(vs.turbo.counters())
+        return {k: tot[k] for k in ("gets", "posts", "deletes", "proxied")}
+
+
 def phase6(state) -> None:
     """The server path: a port VolumeServer with the CUDA backend, beside the
     port's master, takes a 1 GiB needle volume over HTTP, encodes it, serves
@@ -678,8 +734,10 @@ def phase6(state) -> None:
         steps[name] = gm.gf_matmul.launches - l0
         return res
 
+    eng = _Engines(6, [vs])
     try:
         vs.start()
+        eng.check()
         _admin(url, f"/admin/assign_volume?volume={vid}&replication=000")
 
         # needles with sizes log-uniform in 1 KiB..1 MiB until the .dat
@@ -819,9 +877,9 @@ def phase6(state) -> None:
             raise SystemExit(f"phase 6: the decoded volume differs from the original "
                              f"(dat {dat_ok}, idx {idx_ok}, GET {status})")
     finally:
-        vs.stop()
+        eng.stop(vs)
         master.stop()
-    out.update(crc=crc.implementation(), step_launches=steps,
+    out.update(turbo=eng.totals(), crc=crc.implementation(), step_launches=steps,
                launches=gm.gf_matmul.launches - state["l_phase"], nvidia_smi=state["smi"])
     emit(out)
     if out["crc"] != "native":
@@ -1172,12 +1230,17 @@ def phase7(state) -> None:
 
 
 # -- phase 8: the cluster path -------------------------------------------------
+# phases 8 and 9 fill a volume to this much .dat: 512 MiB since phase 10
+# came (1 GiB before), so the whole script stays well inside its time limit
+CLUSTER_BYTES = 512 * MiB
+
+
 def _needle_blobs(seed: int) -> list:
     """Needles of log-uniform sizes in 1 KiB..1 MiB until their records fill
-    1 GiB of .dat."""
+    CLUSTER_BYTES of .dat."""
     rng = np.random.default_rng(seed)
     blobs, total = [], 8
-    while total < GiB:
+    while total < CLUSTER_BYTES:
         size = int(np.exp(rng.uniform(np.log(1024), np.log(MiB))))
         blobs.append(rng.bytes(size))
         total += get_actual_size(size, 3)
@@ -1299,7 +1362,7 @@ def _shards_of(offsets: dict, key: int, k: int = 10) -> set:
 def phase8(state) -> None:
     """The cluster path: the port's master, four port volume servers (CUDA
     backend, ``weed volume`` defaults) and the port shell. A volume of its
-    own collection is grown through the master and filled to 1 GiB from 8
+    own collection is grown through the master and filled to 512 MiB from 8
     client threads, every fid from ``/dir/assign``. ``ec.encode`` seals it,
     generates on the card and spreads the shards 4/4/3/3. The server with
     shards 1, 5, 9, 13 stops; 64 degraded GETs (a block on a lost data
@@ -1323,6 +1386,7 @@ def phase8(state) -> None:
         dirs[f"127.0.0.1:{vs.port}"] = d
     by_url = {f"127.0.0.1:{vs.port}": vs for vs in servers}
     env = CommandEnv(master.url)
+    eng = _Engines(8, servers)
 
     def step(name: str, fn):
         l0, t0 = gm.gf_matmul.launches, time.perf_counter()
@@ -1331,7 +1395,7 @@ def phase8(state) -> None:
         return res
 
     def stop_server(url: str) -> None:
-        by_url[url].stop()
+        eng.stop(by_url[url])
         stopped.add(url)
 
         def dropped() -> bool:
@@ -1348,6 +1412,7 @@ def phase8(state) -> None:
     try:
         for vs in servers:
             vs.start()
+        eng.check()
         if not _until(lambda: len(master.master.topo.data_nodes()) == n_servers):
             raise SystemExit("phase 8: the volume servers did not register")
         grown = _admin(master.url, f"/vol/grow?collection={col}&count=1&replication=000")
@@ -1355,7 +1420,7 @@ def phase8(state) -> None:
             raise SystemExit(f"phase 8: /vol/grow answered {grown}")
 
         # needles of log-uniform sizes in 1 KiB..1 MiB until the .dat holds
-        # 1 GiB; each upload asks the master for its fid, as weed upload does
+        # 512 MiB; each upload asks the master for its fid, as weed upload does
         blobs = _needle_blobs(8)
         fids, assign_ms, post_ms, write_s, errors = _upload_via_master(
             master.url, col, blobs, threads)
@@ -1505,10 +1570,10 @@ def phase8(state) -> None:
     finally:
         for url, vs in by_url.items():
             if url not in stopped:
-                vs.stop()
+                eng.stop(vs)
         master.stop()
-    out.update(steps=steps, launches=gm.gf_matmul.launches - state["l_phase"],
-               nvidia_smi=state["smi"])
+    out.update(turbo=eng.totals(), steps=steps,
+               launches=gm.gf_matmul.launches - state["l_phase"], nvidia_smi=state["smi"])
     emit(out)
     idle = [name for name in ("ec_encode", "degraded_get", "ec_rebuild", "ec_decode")
             if not steps[name]["launches"]]
@@ -1570,7 +1635,7 @@ def phase9(state) -> None:
     """An operator's maintenance cycle on the port's cluster: the master,
     four volume servers (CUDA backend, ``weed volume`` defaults, the scrub on
     with ``SWEED_SCRUB=1``) and the shell, in one process. A volume filled to
-    1 GiB as in phase 8 loses ~30 % of its needles, then ``volume.vacuum``
+    512 MiB as in phase 8 loses ~30 % of its needles, then ``volume.vacuum``
     compacts it while a writer and a deleter keep at it; ``volume.configure
     .replication`` and ``volume.fix.replication`` add a replica; a byte
     flipped in that replica's .dat reaches the master through the scrub, the
@@ -1597,6 +1662,7 @@ def phase9(state) -> None:
         dirs[f"127.0.0.1:{vs.port}"] = d
     by_url = {f"127.0.0.1:{vs.port}": vs for vs in servers}
     env = CommandEnv(master.url)
+    eng = _Engines(9, servers)
     scrub0 = {k: c.total() for k, c in SCRUB_COUNTERS.items()}
     t_start = time.perf_counter()
 
@@ -1651,13 +1717,14 @@ def phase9(state) -> None:
     try:
         for vs in servers:
             vs.start()
+        eng.check()
         wait(lambda: len(master.master.topo.data_nodes()) == n_servers,
              "the volume servers did not register", 30)
         grown = _admin(master.url, f"/vol/grow?collection={col}&count=1&replication=000")
         if grown != {"count": 1}:
             raise SystemExit(f"phase 9: /vol/grow answered {grown}")
 
-        # 1. fill volume A to 1 GiB, then delete a seeded ~30 % of it
+        # 1. fill volume A to 512 MiB, then delete a seeded ~30 % of it
         blobs = _needle_blobs(9)
         fids, assign_ms, post_ms, write_s, errors = _upload_via_master(
             master.url, col, blobs, threads)
@@ -1746,6 +1813,8 @@ def phase9(state) -> None:
                     t.join()
         if failed:
             raise SystemExit(f"phase 9: writes or deletes beside the vacuum failed: {failed[:5]}")
+        if v.turbo is None or by_url[source].store.find_volume(vid) is not v:
+            raise SystemExit("phase 9: the engine did not take the compacted volume back")
         dat_after = os.path.getsize(base + ".dat")
         rev1 = json.loads(_call(source, "GET", f"/admin/volume_status?volume={vid}")[1])[
             "compaction_revision"]
@@ -1755,7 +1824,8 @@ def phase9(state) -> None:
             "dat_bytes_after": dat_after, "compact_s": ct["compact"].seconds,
             "live_MBps": dat_after / ct["compact"].seconds / 1e6,
             "entries_replayed": (idx.sizes[1] - idx.sizes[0]) // entry if len(idx.sizes) >= 2
-            else None, "compacted": compacted, "revision": [rev0, rev1], **during}
+            else None, "compacted": compacted, "revision": [rev0, rev1],
+            "engine_reattached": v.turbo is not None, **during}
         if compacted != [vid] or dat_after >= dat_before or rev1 != (rev0 + 1) & 0xFFFF:
             raise SystemExit(f"phase 9: the vacuum did not compact A: {out['vacuum']}")
         if during["writes"] < 200 or during["deletes"] < 50 or not (
@@ -1933,7 +2003,7 @@ def phase9(state) -> None:
                                            "through the master"), "wrong": 0}
     finally:
         for vs in servers:
-            vs.stop()
+            eng.stop(vs)
         master.stop()
         for k, val in saved_env.items():
             if val is None:
@@ -1944,12 +2014,278 @@ def phase9(state) -> None:
     scrubbed = SCRUB_COUNTERS["bytes"].total() - scrub0["bytes"]
     out["scrub"].update(bytes=scrubbed, MBps=scrubbed / wall / 1e6,
                         crc_errors=SCRUB_COUNTERS["errors"].total() - scrub0["errors"])
-    out.update(steps=steps, launches=gm.gf_matmul.launches - state["l_phase"],
-               nvidia_smi=state["smi"])
+    out.update(turbo=eng.totals(), steps=steps,
+               launches=gm.gf_matmul.launches - state["l_phase"], nvidia_smi=state["smi"])
     emit(out)
     idle = [name for name in ("ec_encode", "ec_rebuild") if not steps[name]["launches"]]
     if idle:
         raise SystemExit(f"phase 9: no kernel launch in {idle}")
+
+
+# -- phase 10: weed benchmark on the default data plane ------------------------
+# weed/command/benchmark.go's defaults (-n 1048576 -c 16 -size 1024) with the
+# reference's -assign.batch 100
+BENCH_N, BENCH_C, BENCH_SIZE, BENCH_BATCH = 1 << 20, 16, 1024, 100
+BENCH_N_THREADS = 1 << 15  # the run on the asyncio core alone (a cut: PERF.md section 4)
+BENCH_SAMPLE = 4096  # fids read back and compared after the run
+SHED_WATERMARK, SHED_CONNS = 64, 512
+EC_READS = 4096  # fids of the sealed volume read back through the engine
+
+
+def _bench_summary(run: dict, kind: str) -> dict:
+    ms = [x * 1e3 for x in run[kind]["latencies"]]
+    wall = run[kind]["wall"]
+    return {"requests": len(ms), "failures": run[kind]["failures"], "wall_s": wall,
+            "req_per_s": len(ms) / wall, "ms_p50": _pct(ms, 50), "ms_p99": _pct(ms, 99)}
+
+
+def _read_all(url: str, items: list, threads: int) -> tuple[list, list]:
+    """GET every (fid, body) of ``items`` from ``url`` on ``threads``
+    keep-alive connections: (wrong fids, ms per GET)."""
+    nxt = iter(items)
+    bad, ms = [], []
+    lock = threading.Lock()
+
+    def work() -> None:
+        conn = http.client.HTTPConnection(url, timeout=600)
+        try:
+            for fid, want in nxt:  # a shared iterator: each item goes to one thread
+                t0 = time.perf_counter()
+                conn.request("GET", "/" + fid)
+                resp = conn.getresponse()
+                data = resp.read()
+                with lock:
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    if resp.status != 200 or data != want:
+                        bad.append((fid, resp.status))
+        finally:
+            conn.close()
+
+    pool = [threading.Thread(target=work) for _ in range(threads)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join()
+    return bad, ms
+
+
+def _storm(port: int, n: int) -> collections.Counter:
+    """``n`` connections opened at once, one GET each: their answers by
+    status, and how many 503s carried a Retry-After."""
+    socks = []
+    for _ in range(n):
+        s = socket.socket()
+        s.settimeout(30)
+        s.connect(("127.0.0.1", port))
+        socks.append(s)
+    got: collections.Counter = collections.Counter()
+    req = b"GET /status HTTP/1.1\r\nHost: t\r\nContent-Length: 0\r\n\r\n"
+    for s in socks:
+        try:
+            s.sendall(req)
+        except OSError:
+            pass  # shed at accept: the 503 is already in the buffer
+    for s in socks:
+        buf = b""
+        try:
+            while b"\r\n\r\n" not in buf:
+                chunk = s.recv(65536)
+                if not chunk:
+                    break
+                buf += chunk
+        except OSError:
+            pass
+        finally:
+            s.close()
+        if not buf.startswith(b"HTTP/1.1 "):
+            got["no_reply"] += 1
+            continue
+        status = int(buf[9:12])
+        got[status] += 1
+        if status == 503 and b"\r\nRetry-After: " in buf.split(b"\r\n\r\n")[0]:
+            got["503_retry_after"] += 1
+    return got
+
+
+def phase10(state) -> None:
+    """``weed benchmark`` on the default data plane, then EC through the
+    engine: the port's master and one port volume server on ``weed
+    master``/``weed volume`` defaults, in one process as the reference's
+    small-file probe runs them."""
+    out: dict = {"phase": 10, "n": BENCH_N, "c": BENCH_C, "size": BENCH_SIZE,
+                 "assign_batch": BENCH_BATCH}
+    # the storm holds SHED_CONNS client sockets and as many accepted ones
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft != resource.RLIM_INFINITY and soft < 8192:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (
+            8192 if hard == resource.RLIM_INFINITY else min(8192, hard), hard))
+    master = MasterServer(host="127.0.0.1", port=_free_port()).start()
+    d = os.path.join(WORK, "10srv")
+    port = _free_port()
+    url = f"127.0.0.1:{port}"
+    env = CommandEnv(master.url)
+
+    def server():
+        vs = VolumeServer([d], host="127.0.0.1", port=port, master_url=master.url,
+                          ec_backend=EC_BACKEND).start()
+        if not _until(lambda: any(dn.url() == url for dn in master.master.topo.data_nodes())):
+            raise SystemExit("phase 10: the volume server did not register")
+        return vs
+
+    expected: dict = {}  # fid -> body, every needle written in the phase
+    vs = server()
+    eng = _Engines(10, [vs])
+    try:
+        # a. the benchmark under the defaults
+        eng.check()
+        c0 = vs.turbo.counters()
+        run = run_benchmark(master.url, BENCH_N, BENCH_C, BENCH_SIZE, assign_batch=BENCH_BATCH)
+        c1 = vs.turbo.counters()
+        delta = {k: c1[k] - c0[k] for k in c1}
+        a = {"write": _bench_summary(run, "write"), "read": _bench_summary(run, "read"),
+             "turbo": delta}
+        for fid, _ in run["fids"]:
+            expected[fid] = run["payload"]
+        sample = [run["fids"][int(i)][0] for i in
+                  np.random.default_rng(10).choice(len(run["fids"]), BENCH_SAMPLE, replace=False)]
+        bad, _ = _read_all(url, [(f, run["payload"]) for f in sample], 8)
+        a["sample_read_back"], a["sample_wrong"] = len(sample), len(bad)
+        out["benchmark"] = a
+        if a["write"]["failures"] or a["read"]["failures"] or bad or \
+                a["write"]["requests"] != BENCH_N or a["read"]["requests"] != BENCH_N:
+            raise SystemExit(f"phase 10: the benchmark failed: {a}, wrong {bad[:5]}")
+        if delta["posts"] < BENCH_N or delta["gets"] < BENCH_N or \
+                delta["proxied"] > BENCH_N // 100:
+            raise SystemExit(f"phase 10: the engine did not serve the run: {delta}")
+        eng.stop(vs)
+
+        # b. the same server on the asyncio core alone
+        os.environ["SWEED_TURBO"] = "0"
+        try:
+            vs = server()
+            if vs.turbo is not None or vs.turbo_status()["reason"] != "SWEED_TURBO=0":
+                raise SystemExit("phase 10: SWEED_TURBO=0 did not keep the engine out")
+            s0 = SERVING.snapshot()
+            run_b = run_benchmark(master.url, BENCH_N_THREADS, BENCH_C, BENCH_SIZE,
+                                  assign_batch=BENCH_BATCH)
+            s1 = SERVING.snapshot()
+            b = {"write": _bench_summary(run_b, "write"), "read": _bench_summary(run_b, "read"),
+                 "native_hits": s1["native_hits"] - s0["native_hits"],
+                 "native_fallbacks": s1["native_fallbacks"] - s0["native_fallbacks"]}
+            for fid, _ in run_b["fids"]:
+                expected[fid] = run_b["payload"]
+            # 1 KiB needles sit under the sendfile floor: the native route
+            # takes every read on the loop and hands it to the bridged path
+            if b["write"]["failures"] or b["read"]["failures"] or \
+                    b["native_hits"] + b["native_fallbacks"] < BENCH_N_THREADS:
+                raise SystemExit(f"phase 10: the asyncio-core run failed: {b}")
+            # needles above the sendfile floor go out by sendfile on the loop
+            asg = json.loads(_call(master.url, "GET", "/dir/assign?count=64&collection=benchmark")[1])
+            big_rng = np.random.default_rng(101)
+            bigs = []
+            for i in range(64):
+                fid = asg["fid"] if i == 0 else f"{asg['fid']}_{i}"
+                body = big_rng.bytes(256 * 1024)
+                status, _, _ = _call(asg["url"], "POST", "/" + fid, body)
+                if status != 201:
+                    raise SystemExit(f"phase 10: the 256 KiB upload {fid} answered {status}")
+                bigs.append((fid, body))
+                expected[fid] = body
+            h0 = SERVING.snapshot()["native_hits"]
+            bad, ms = _read_all(url, bigs, 4)
+            # the loop counts a native reply once its last byte is queued,
+            # which can come after the client has read it
+            _until(lambda: SERVING.snapshot()["native_hits"] - h0 >= len(bigs), 5)
+            b["sendfile_gets"] = {"reads": len(bigs), "wrong": len(bad),
+                                  "native_hits": SERVING.snapshot()["native_hits"] - h0,
+                                  "ms_p50": _pct(ms, 50), "ms_p99": _pct(ms, 99)}
+            if bad or b["sendfile_gets"]["native_hits"] < len(bigs):
+                raise SystemExit(f"phase 10: the sendfile GETs: {b['sendfile_gets']}")
+            # a connection storm against a low watermark: shed, then recover
+            os.environ["SWEED_MAX_INFLIGHT"] = str(SHED_WATERMARK)
+            try:
+                r0 = SERVING.snapshot()["admission_rejected"]
+                storm = _storm(port, SHED_CONNS)
+                shed = SERVING.snapshot()["admission_rejected"] - r0
+            finally:
+                os.environ.pop("SWEED_MAX_INFLIGHT")
+            bad, _ = _read_all(url, bigs, 8)
+            b["storm"] = {"connections": SHED_CONNS, "watermark": SHED_WATERMARK,
+                          "answers": {str(k): v for k, v in storm.items()},
+                          "admission_rejected": shed, "after_gets": len(bigs),
+                          "after_wrong": len(bad)}
+            if storm[200] + storm[503] != SHED_CONNS or storm[503] < 1 or \
+                    storm["503_retry_after"] != storm[503] or bad:
+                raise SystemExit(f"phase 10: the storm: {b['storm']}")
+            out["asyncio_core"] = b
+            vs.stop()
+        finally:
+            os.environ.pop("SWEED_TURBO", None)
+
+        # c. EC through the engine: seal the fullest benchmark volume
+        vs = server()
+        eng.servers = [vs]
+        eng.check()
+        vid = max((v for loc in vs.store.locations for v in loc.volumes.values()
+                   if v.collection == "benchmark"), key=lambda v: v.file_count()).id
+        fids = [f for f in expected if FileId.parse(f).volume_id == vid]
+        src = volume_file_name(d, "benchmark", vid)
+        check = os.path.join(WORK, "10check")
+        os.makedirs(check)
+        cbase = volume_file_name(check, "benchmark", vid)
+        os.link(src + ".dat", cbase + ".dat")
+        l0, t0 = gm.gf_matmul.launches, time.perf_counter()
+        saved = shell_commands.http_json
+
+        def keep_vif(method, target, *args, **kwargs):
+            # ec.encode's last step deletes the plain volume and its .vif
+            # with it (ROADMAP Queue C): keep a link to the sums first
+            res = saved(method, target, *args, **kwargs)
+            if urllib.parse.urlsplit(target).path == "/admin/ec/generate":
+                os.link(src + ".vif", cbase + ".vif")
+            return res
+
+        shell_commands.http_json = keep_vif
+        try:
+            enc = run_command(env, f"ec.encode -volumeId={vid} -collection=benchmark")
+        finally:
+            shell_commands.http_json = saved
+        c = {"volume": vid, "needles": len(fids), "dat_bytes": os.path.getsize(cbase + ".dat"),
+             "encode_s": time.perf_counter() - t0,
+             "encode_launches": gm.gf_matmul.launches - l0, "spread": enc["spread"]}
+        if not _until(lambda: len(env.ec_shard_locations(vid)) == 14
+                      and not master.master.topo.lookup("benchmark", vid), 60):
+            raise SystemExit("phase 10: the master never saw the 14 shards")
+        for i in range(14):
+            os.link(src + shard_ext(i), cbase + shard_ext(i))
+        bad_bytes, _ = check_shards(cbase, vs.store.ec_codec)
+        c["shard_mismatches"] = bad_bytes
+        if bad_bytes:
+            raise SystemExit("phase 10: the shards differ from the plain codec's")
+        removed = _admin(url, f"/admin/ec/delete_shards?volume={vid}&shards="
+                              + ",".join(map(str, LOST)))["removed"]
+        if removed != LOST:
+            raise SystemExit(f"phase 10: delete_shards removed {removed}")
+        picks = [fids[int(i)] for i in np.random.default_rng(102).permutation(len(fids))]
+        picks = picks[:EC_READS]
+        p0, l0 = vs.turbo.counters()["proxied"], gm.gf_matmul.launches
+        bad, ms = _read_all(url, [(f, expected[f]) for f in picks], BENCH_C)
+        c.update(reads=len(picks), wrong=len(bad), ms_p50=_pct(ms, 50), ms_p99=_pct(ms, 99),
+                 read_launches=gm.gf_matmul.launches - l0,
+                 proxied=vs.turbo.counters()["proxied"] - p0)
+        out["ec"] = c
+        if bad or c["proxied"] < len(picks):
+            raise SystemExit(f"phase 10: EC through the engine: {c}, wrong {bad[:5]}")
+    finally:
+        eng.stop(vs)
+        master.stop()
+        os.environ.pop("SWEED_TURBO", None)
+    out.update(turbo=eng.totals(), launches=gm.gf_matmul.launches - state["l_phase"],
+               nvidia_smi=state["smi"])
+    emit(out)
+    idle = [name for name in ("encode_launches", "read_launches") if not out["ec"][name]]
+    if idle:
+        raise SystemExit(f"phase 10: no kernel launch in {idle}")
 
 
 def _free_port() -> int:
@@ -1958,7 +2294,7 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-MAIN_PATH = (phase2, phase3, phase4, phase5, phase6, phase7, phase8, phase9)
+MAIN_PATH = (phase2, phase3, phase4, phase5, phase6, phase7, phase8, phase9, phase10)
 
 
 def main() -> int:

@@ -1,5 +1,5 @@
 """Command line: ``python -m seaweedfs_tpu_torch
-master|volume|shell|backup|compact|volume.tail ...``.
+master|volume|shell|backup|compact|volume.tail|benchmark ...``.
 
 - ``master`` runs a single master with the flags of ``weed master``: ``-ip
   -port -volumeSizeLimitMB -defaultReplication``. ``-peers`` and ``-mdir``
@@ -17,6 +17,11 @@ master|volume|shell|backup|compact|volume.tail ...``.
   (`weed compact`).
 - ``volume.tail -master -volumeId`` follows a volume's appended needles
   through ``/admin/tail``: ``+`` lines for writes, ``-`` for deletes.
+- ``benchmark -master -n -c -size -collection -assign.batch -deletePercent``
+  is `weed benchmark`: writes ``-n`` files of ``-size`` bytes from ``-c``
+  keep-alive connections (fids from count-batched assigns), optionally
+  deletes a share, reads the rest back, and reports requests/s and latency
+  percentiles per phase.
 
 The daemons run until SIGINT or SIGTERM, then stop cleanly.
 """
@@ -26,6 +31,7 @@ from __future__ import annotations
 import argparse
 import signal
 import threading
+import time
 
 
 def _positive_pulse(s: str) -> float:
@@ -146,6 +152,278 @@ def cmd_volume_tail(args) -> None:
         since = tolerant_uint(headers.get("X-Last-Append-Ns", since), since)
 
 
+class _BenchPump:
+    """Single-threaded event-loop HTTP/1.1 load generator.
+
+    The reference's benchmark client is compiled Go with goroutine workers
+    (weed/command/benchmark.go:196); 16 Python threads spend more time in
+    GIL handoffs than in requests.  One selectors loop with `concurrency`
+    keep-alive sockets (one in-flight request each, so per-request latency
+    stays honest) drives the turbo data plane at event-loop cost.
+
+    The port's copy of the JAX package's load generator."""
+
+    def __init__(self, concurrency: int):
+        import selectors
+
+        self.sel = selectors.DefaultSelector()
+        self.concurrency = concurrency
+        self.latencies: list[float] = []
+        self.failures = 0
+
+    def _connect(self, addr):
+        import socket
+
+        host, port = addr.split(":")
+        s = socket.create_connection((host, int(port)))
+        s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        # blocking: sendall must complete even past the kernel buffer;
+        # recv only runs after select says readable, so it never blocks long
+        return s
+
+    def run(self, jobs) -> float:
+        """jobs: iterator of (addr, request_bytes). Returns wall seconds."""
+        import socket
+
+        slots = []  # [addr, sock, buf, t0, need, busy]
+        for _ in range(self.concurrency):
+            slots.append({"addr": None, "sock": None, "buf": b"", "t0": 0.0,
+                          "busy": False})
+        it = iter(jobs)
+        pending = True
+        inflight = 0
+        t_start = time.perf_counter()
+
+        def feed(slot):
+            # loop so a send failure consumes the next job on a fresh
+            # connection instead of permanently parking this slot
+            nonlocal pending, inflight
+            while True:
+                if not pending:
+                    return False
+                try:
+                    addr, req = next(it)
+                except StopIteration:
+                    pending = False
+                    return False
+                try:
+                    if slot["addr"] != addr or slot["sock"] is None:
+                        if slot["sock"] is not None:
+                            self.sel.unregister(slot["sock"])
+                            slot["sock"].close()
+                            slot["sock"] = None
+                        slot["sock"] = self._connect(addr)
+                        slot["addr"] = addr
+                        import selectors
+
+                        self.sel.register(slot["sock"], selectors.EVENT_READ,
+                                          slot)
+                    slot["buf"] = b""
+                    slot["t0"] = time.perf_counter()
+                    slot["req"] = req
+                    slot["sock"].sendall(req)
+                except OSError:
+                    self.failures += 1
+                    if slot["sock"] is not None:
+                        try:
+                            self.sel.unregister(slot["sock"])
+                        except KeyError:
+                            pass
+                        slot["sock"].close()
+                        slot["sock"] = None
+                    continue  # job counted failed; try the next one
+                slot["busy"] = True
+                inflight += 1
+                return True
+
+        def finish(slot, ok):
+            nonlocal inflight
+            inflight -= 1
+            slot["busy"] = False
+            if ok:
+                self.latencies.append(time.perf_counter() - slot["t0"])
+            else:
+                self.failures += 1
+                # drop the (possibly poisoned) connection
+                self.sel.unregister(slot["sock"])
+                slot["sock"].close()
+                slot["sock"] = None
+
+        for slot in slots:
+            if not feed(slot):
+                break
+        while inflight > 0:
+            for key, _ in self.sel.select(timeout=5.0):
+                slot = key.data
+                if not slot["busy"]:
+                    continue
+                try:
+                    chunk = slot["sock"].recv(262144)
+                except (BlockingIOError, InterruptedError):
+                    continue
+                except OSError:
+                    finish(slot, False)
+                    feed(slot)
+                    continue
+                if not chunk:
+                    finish(slot, False)
+                    feed(slot)
+                    continue
+                buf = slot["buf"] = (slot["buf"] + chunk) if slot["buf"] else chunk
+                he = buf.find(b"\r\n\r\n")
+                if he < 0:
+                    continue
+                # canonical spelling first (what the turbo engine and the
+                # Python http layer both emit); the lower() fallback only
+                # pays its allocation for odd peers
+                ix = buf.find(b"Content-Length:", 0, he)
+                if ix < 0:
+                    ix = buf[:he].lower().find(b"content-length:")
+                cl = 0
+                if ix >= 0:
+                    end = buf.find(b"\r\n", ix)
+                    if end < 0 or end > he:
+                        end = he
+                    cl = int(buf[ix + 15:end])
+                if len(buf) < he + 4 + cl:
+                    continue
+                status = int(buf[9:12])
+                finish(slot, 200 <= status < 300)
+                feed(slot)
+        wall = time.perf_counter() - t_start
+        # the connections go when the run ends (the JAX package's pump
+        # leaves them open, and a server counts them against its watermark)
+        for slot in slots:
+            if slot["sock"] is not None:
+                self.sel.unregister(slot["sock"])
+                slot["sock"].close()
+                slot["sock"] = None
+        return wall
+
+
+def run_benchmark(master: str, n: int, c: int, size: int,
+                  collection: str = "benchmark",
+                  assign_batch: int = 100,
+                  delete_percent: int = 0) -> dict:
+    """Write-then-read load run; returns the raw stats for both phases,
+    and the (fid, server) pairs written, the deleted fids and the payload.
+    Shared by ``benchmark`` (below) and chip_smoke.py's phase 10.
+    delete_percent mirrors the reference's -deletePercent: that fraction of
+    written files is deleted (timed) before the read phase, and the reads
+    then expect 404s for the deleted fids."""
+    import random as _random
+    import secrets
+
+    from . import operation
+
+    payload = secrets.token_bytes(size)
+    batch = max(1, assign_batch)
+    fids: list[tuple[str, str]] = []  # (fid, volume server addr)
+
+    def write_jobs():
+        remaining = n
+        while remaining > 0:
+            a = operation.assign(master, count=min(batch, remaining),
+                                 collection=collection)
+            got = max(1, a.count)
+            for i in range(min(got, remaining)):
+                fid = a.fid if i == 0 else f"{a.fid}_{i}"
+                fids.append((fid, a.url))
+                req = (f"POST /{fid} HTTP/1.1\r\nHost: {a.url}\r\n"
+                       f"Content-Length: {len(payload)}\r\n\r\n").encode() + payload
+                yield a.url, req
+            remaining -= min(got, remaining)
+
+    wpump = _BenchPump(c)
+    wwall = wpump.run(write_jobs())
+
+    out = {
+        "write": {"wall": wwall, "latencies": wpump.latencies,
+                  "failures": wpump.failures},
+    }
+
+    rng = _random.Random(42)
+    deleted: set[str] = set()
+    if delete_percent > 0:
+        victims = [f for f in fids if rng.randrange(100) < delete_percent]
+        deleted = {f for f, _ in victims}
+
+        def delete_jobs():
+            for fid, url in victims:
+                req = f"DELETE /{fid} HTTP/1.1\r\nHost: {url}\r\n\r\n".encode()
+                yield url, req
+
+        dpump = _BenchPump(c)
+        dwall = dpump.run(delete_jobs())
+        out["delete"] = {"wall": dwall, "latencies": dpump.latencies,
+                         "failures": dpump.failures}
+
+    lookup_cache: dict[int, str] = {}
+
+    def read_jobs():
+        live = [(f, u) for f, u in fids if f not in deleted]
+        rng.shuffle(live)
+        for fid, url in live:
+            vid = int(fid.split(",")[0])
+            addr = lookup_cache.get(vid)
+            if addr is None:
+                locs = operation.lookup(master, vid)
+                addr = locs[0]["url"] if locs else url
+                lookup_cache[vid] = addr
+            req = f"GET /{fid} HTTP/1.1\r\nHost: {addr}\r\n\r\n".encode()
+            yield addr, req
+
+    rpump = _BenchPump(c)
+    rwall = rpump.run(read_jobs())
+    out["read"] = {"wall": rwall, "latencies": rpump.latencies,
+                   "failures": rpump.failures}
+    # what was written, so a caller can read bodies back
+    out.update(fids=fids, deleted=deleted, payload=payload)
+    return out
+
+
+def cmd_benchmark(args):
+    """The reference's benchmark (command/benchmark.go; its defaults: 1 KB
+    files, c=16, n=1048576; -n defaults to 10000 here, as in the JAX
+    package's CLI: pass -n 1048576 to match).
+
+    File ids come from count-batched assigns (`/dir/assign?count=N` + the
+    `fid_<delta>` sub-fid form, both first-class in the reference:
+    master_server_handlers.go:96, needle.go:120-142); -assign.batch 1
+    restores one-assign-per-file."""
+    batch = max(1, args.assign_batch)
+    print(f"writing {args.n} files of {args.size}B with concurrency {args.c} "
+          f"(assign batch {batch}) ...")
+    stats = run_benchmark(args.master, args.n, args.c, args.size,
+                          args.collection, batch,
+                          delete_percent=args.delete_percent)
+    _report("write", args, stats["write"]["latencies"], stats["write"]["wall"],
+            stats["write"]["failures"])
+    if "delete" in stats:
+        _report("delete", args, stats["delete"]["latencies"],
+                stats["delete"]["wall"], stats["delete"]["failures"])
+    print("reading surviving files ...")
+    _report("read", args, stats["read"]["latencies"], stats["read"]["wall"],
+            stats["read"]["failures"])
+
+
+def _report(op, args, latencies, wall, failures=0):
+    import numpy as np
+
+    lat = np.array(sorted(latencies))
+    total = len(lat)
+    print(f"\n--- {op} ---")
+    if total == 0:
+        print(f"failed: {failures} / {failures} (no successful requests)")
+        return
+    print(f"requests/sec: {total / wall:,.2f}")
+    print(f"transfer/sec: {total * args.size / wall / 1e6:,.2f} MB/s")
+    for p in (50, 90, 99):
+        print(f"p{p} latency: {lat[int(total * p / 100) - 1] * 1000:.2f} ms")
+    print(f"max latency: {lat[-1] * 1000:.2f} ms")
+    print(f"failed: {failures} / {total + failures}")
+
+
 def cmd_volume(args) -> None:
     from .server.volume_server import VolumeServer
 
@@ -232,6 +510,18 @@ def main(argv=None) -> None:
                     help="print the bodies of text needles")
     vt.add_argument("-pollInterval", dest="poll_interval", type=float, default=1.0)
     vt.set_defaults(fn=cmd_volume_tail)
+
+    b = sub.add_parser("benchmark", help="write/read benchmark")
+    b.add_argument("-master", default="127.0.0.1:9333")
+    b.add_argument("-c", type=int, default=16)
+    b.add_argument("-n", type=int, default=10000)
+    b.add_argument("-size", type=int, default=1024)
+    b.add_argument("-collection", default="benchmark")
+    b.add_argument("-assign.batch", dest="assign_batch", type=int, default=100,
+                   help="fids reserved per /dir/assign call (1 = per-file)")
+    b.add_argument("-deletePercent", dest="delete_percent", type=int, default=0,
+                   help="percent of written files to delete (timed) before the read phase")
+    b.set_defaults(fn=cmd_benchmark)
 
     args = p.parse_args(argv)
     glog.set_verbosity(args.v)

@@ -42,7 +42,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 from ..server.http_util import http_json
-from ..stats.histogram import Histogram
+from ..stats.metrics import default_registry
 from ..util import glog
 from ..util.retry import RetryPolicy
 
@@ -50,7 +50,7 @@ from ..util.retry import RetryPolicy
 _JOB_TIMEOUT = 600.0
 
 #: EC job round-trip latency (dispatch to settle), labeled by job kind
-JOB_HIST = Histogram(
+JOB_HIST = default_registry.histogram(
     "fleet_job_encode_seconds",
     "fleet EC job round-trip latency (dispatch to settle), by kind",
 )

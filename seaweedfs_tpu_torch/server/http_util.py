@@ -1,37 +1,297 @@
-"""HTTP plumbing for the daemons: a route-table request handler, a threaded
-server, and small client calls.
+"""HTTP plumbing for the daemons: the route-table request handler, the two
+serving cores with admission control, and the pooled keep-alive client.
 
-The subset of the JAX package's ``server/http_util.py`` that the volume
-server needs:
+The port of the JAX package's ``server/http_util.py``, minus what serves
+features the port does not have yet (the QoS tenant governor, tracing,
+deadlines, TLS serving):
 
 - ``JsonHandler``: routes by method and path prefix; a handler returns
-  ``(status, payload)``, where bytes go out as they are and anything else as
-  JSON. ``BadRequest`` answers 400 and any other error 500.
-- ``start_server``: a ``ThreadingHTTPServer`` (one thread per connection)
-  that severs its live keep-alive connections on shutdown.
-- ``http_json`` / ``http_bytes``: one request each on a fresh connection.
+  ``(status, payload)``, where bytes go out as they are, a ``StreamBody``
+  piece by piece, a ``SendfileBody`` by sendfile(2), and anything else as
+  JSON. ``BadRequest`` answers 400 and any other error 500. A handler tagged
+  with ``mark_streaming`` reads its own body from ``rfile``.
+- ``start_server``: the asyncio reactor (``server/aio.py``, the default) or,
+  with ``SWEED_SERVING=threads``, a ``ThreadingHTTPServer``. Both shed new
+  connections past ``SWEED_MAX_INFLIGHT`` (default 8192) with a canned 503
+  and a load-scaled ``Retry-After``, answer keep-alive peers with
+  ``Connection: close`` while overloaded, and sever their live connections
+  on shutdown.
+- ``SERVING``: the serving-core counters behind ``/metrics`` and ``/status``.
+- ``http_json`` / ``http_bytes`` / ``http_bytes_headers`` /
+  ``http_stream_request``: requests over per-thread pooled keep-alive
+  connections (re-dialled once when a reused socket went stale, for
+  idempotent methods only).
 - ``parse_byte_range`` / ``range_headers``: single-range ``Range`` support.
-
-Not ported: admission and QoS, tracing, deadlines, sendfile replies, the
-asyncio serving core, TLS and the pooled keep-alive client.
 """
 
 from __future__ import annotations
 
 import http.client
 import json
+import os
 import socket
 import threading
+import time
 import urllib.parse
+import weakref
+from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 from ..util import glog
+
+
+# -- serving-core settings -----------------------------------------------------
+def serving_mode() -> str:
+    """``aio`` (the default: the event-loop reactor) or ``threads``
+    (``SWEED_SERVING=threads``: one thread per connection)."""
+    mode = os.environ.get("SWEED_SERVING", "aio").strip().lower()
+    return "threads" if mode == "threads" else "aio"
+
+
+def serving_watermark() -> int:
+    """Inflight-connection admission watermark (0 disables shedding). Read
+    per call, so it can be changed around a live server."""
+    raw = os.environ.get("SWEED_MAX_INFLIGHT", "8192").strip()
+    if not (raw.isascii() and raw.isdigit()):
+        return 8192
+    return int(raw)
+
+
+def retry_after_seconds() -> int:
+    """The base ``Retry-After`` of a shed 503 (``SWEED_RETRY_AFTER``)."""
+    raw = os.environ.get("SWEED_RETRY_AFTER", "1").strip()
+    if not (raw.isascii() and raw.isdigit()):
+        return 1
+    return max(1, int(raw))
+
+
+def dynamic_retry_after() -> int:
+    """``Retry-After`` scaled by live pressure: the base times the
+    inflight/watermark load and the recent request p99, so a storm's
+    retries spread out instead of coming back as one herd. Clamped to
+    [base, 60]."""
+    base = retry_after_seconds()
+    wm = serving_watermark()
+    if wm <= 0:
+        return base
+    load = SERVING.inflight() / wm
+    val = base + int(load * (base + 2.0 * SERVING.request_p99()))
+    return max(base, min(val, 60))
+
+
+def sendfile_min_bytes() -> Optional[int]:
+    """Data-size floor of the zero-copy GET path (``SWEED_SENDFILE_MIN``,
+    default 64 KiB), or None when ``SWEED_SENDFILE=0`` disables it."""
+    if os.environ.get("SWEED_SENDFILE", "1").strip() == "0":
+        return None
+    raw = os.environ.get("SWEED_SENDFILE_MIN", "65536").strip()
+    if not (raw.isascii() and raw.isdigit()):
+        return 65536
+    return int(raw)
+
+
+def admission_reject_response() -> bytes:
+    """The canned 503 written to a just-accepted socket past the watermark."""
+    return (
+        "HTTP/1.1 503 Service Unavailable\r\n"
+        f"Retry-After: {dynamic_retry_after()}\r\n"
+        "Content-Length: 0\r\n"
+        "Connection: close\r\n\r\n"
+    ).encode("ascii")
+
+
+class _ServingState:
+    """Process-wide serving-core counters (the ``sweed_serving_*`` gauges
+    and ``/status``'s ``serving``). Live servers of either core register
+    themselves; inflight is summed from them on demand."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._servers: "weakref.WeakSet" = weakref.WeakSet()
+        self._rejected = 0
+        self._keepalive_shed = 0
+        self._loop_lag_last_ms = 0.0
+        self._loop_lag_max_ms = 0.0
+        self._lat_ring: deque = deque(maxlen=256)  # recent service seconds
+        self._reaped = {"idle": 0, "deadline": 0}
+        self._native_hits = 0
+        self._native_fallbacks = 0
+
+    def register_server(self, srv) -> None:
+        with self._lock:
+            self._servers.add(srv)
+
+    def inflight(self) -> int:
+        with self._lock:
+            servers = list(self._servers)
+        total = 0
+        for s in servers:
+            try:
+                total += s.inflight_count()
+            except Exception:  # noqa: BLE001 — a server mid-teardown
+                pass
+        return total
+
+    def note_rejected(self) -> None:
+        with self._lock:
+            self._rejected += 1
+
+    def note_keepalive_shed(self) -> None:
+        with self._lock:
+            self._keepalive_shed += 1
+
+    def note_loop_lag(self, seconds: float) -> None:
+        ms = max(0.0, seconds * 1000.0)
+        with self._lock:
+            self._loop_lag_last_ms = ms
+            self._loop_lag_max_ms = max(self._loop_lag_max_ms, ms)
+
+    def note_request_seconds(self, seconds: float) -> None:
+        with self._lock:
+            self._lat_ring.append(seconds)
+
+    def request_p99(self) -> float:
+        with self._lock:
+            return self._p99_locked()
+
+    def _p99_locked(self) -> float:
+        if not self._lat_ring:
+            return 0.0
+        ring = sorted(self._lat_ring)
+        return ring[min(len(ring) - 1, int(len(ring) * 0.99))]
+
+    def note_reaped(self, phase: str) -> None:
+        with self._lock:
+            self._reaped[phase] = self._reaped.get(phase, 0) + 1
+
+    def note_native(self) -> None:
+        with self._lock:
+            self._native_hits += 1
+
+    def note_native_fallback(self) -> None:
+        with self._lock:
+            self._native_fallbacks += 1
+
+    def snapshot(self) -> dict:
+        inflight = self.inflight()
+        with self._lock:
+            return {
+                "mode": serving_mode(),
+                "watermark": serving_watermark(),
+                "inflight": inflight,
+                "admission_rejected": self._rejected,
+                "keepalive_shed": self._keepalive_shed,
+                "loop_lag_ms": round(self._loop_lag_last_ms, 3),
+                "loop_lag_max_ms": round(self._loop_lag_max_ms, 3),
+                "request_p99_ms": round(self._p99_locked() * 1000.0, 3),
+                "reaped_idle": self._reaped.get("idle", 0),
+                "reaped_deadline": self._reaped.get("deadline", 0),
+                "native_hits": self._native_hits,
+                "native_fallbacks": self._native_fallbacks,
+            }
+
+
+SERVING = _ServingState()
+
+
+def serving_overloaded(handler) -> bool:
+    """True when the handler's server is past its admission watermark."""
+    fn = getattr(getattr(handler, "server", None), "overloaded", None)
+    return bool(fn()) if fn is not None else False
+
+
+class CountedReader:
+    """Bounded view of a request body stream; ``left`` counts the bytes
+    not consumed yet (keep-alive framing is gone while it is non-zero)."""
+
+    def __init__(self, rfile, length: int):
+        self._rfile = rfile
+        self.left = length
+
+    def read(self, n: int = -1) -> bytes:
+        if self.left <= 0:
+            return b""
+        want = self.left if n is None or n < 0 else min(n, self.left)
+        got = self._rfile.read(want)
+        self.left -= len(got)
+        return got
+
+    def drain(self) -> None:
+        while self.left > 0 and self.read(1 << 20):
+            pass
+
+
+def drain_refused_body(handler, reader, cap: int = 32 << 20,
+                       timeout: float = 2.0) -> None:
+    """After refusing a request whose streamed body is unread: drain a
+    bounded amount under a short socket timeout, so a modest body still
+    gets its error reply on the keep-alive socket, while a client that
+    stalls cannot wedge the worker. Anything left drops the connection."""
+    old = handler.connection.gettimeout()
+    handler.connection.settimeout(timeout)
+    try:
+        while reader.left > 0 and cap > 0:
+            try:
+                got = reader.read(min(1 << 20, cap))
+            except OSError:  # socket.timeout included
+                break
+            if not got:
+                break
+            cap -= len(got)
+    finally:
+        handler.connection.settimeout(old)
+    if reader.left > 0:
+        handler.close_connection = True
 
 
 class BadRequest(Exception):
     """Raised by a route handler on a malformed request parameter; the
     dispatcher answers 400 with the message."""
+
+
+class StreamBody:
+    """Handler return value for a body produced piece by piece: ``length``
+    goes in Content-Length, ``chunks`` (an iterable of bytes) is written as
+    it comes."""
+
+    def __init__(self, length: int, chunks):
+        self.length = length
+        self.chunks = chunks
+
+
+class SendfileBody:
+    """Handler return value for a zero-copy reply: ``count`` bytes at
+    ``offset`` of ``file`` (a real OS file, a dup of a volume's .dat fd) go
+    to the socket by sendfile(2). The threads core relays with
+    ``socket.sendfile``, the aio core with ``loop.sendfile``. The receiver
+    always closes ``file``."""
+
+    def __init__(self, file, offset: int, count: int):
+        self.file = file
+        self.offset = offset
+        self.count = count
+
+    def close(self) -> None:
+        try:
+            self.file.close()
+        except OSError:
+            pass
+
+
+class AsyncStreamBody:
+    """Native-route return value for a body produced piece by piece on the
+    event loop (``chunks`` is an async iterable): the native StreamBody."""
+
+    def __init__(self, length: int, chunks):
+        self.length = length
+        self.chunks = chunks
+
+
+#: What a native route coroutine returns to hand the request to the bridged
+#: worker path, which re-runs the untouched handler class: native routes
+#: serve only the plain hot path, every edge falls back.
+NATIVE_FALLBACK = object()
 
 
 def parse_content_length(headers) -> int:
@@ -46,17 +306,29 @@ def parse_content_length(headers) -> int:
 class JsonHandler(BaseHTTPRequestHandler):
     """Route-table handler; subclasses set ``routes`` as
     ``[(method, path_prefix, fn)]`` with ``fn(handler, path, query, body) ->
-    (status, payload)``. A handler may set ``extra_headers`` for its reply."""
+    (status, payload)``. A handler may set ``extra_headers`` for its reply.
+    ``native_routes`` (``[(method, prefix, coroutine)]``) are served on the
+    aio reactor's loop; the threads core ignores them."""
 
     # headers and body go out as separate writes: without TCP_NODELAY a
     # keep-alive peer's delayed ACK adds ~40 ms to every reply
     disable_nagle_algorithm = True
     protocol_version = "HTTP/1.1"
     routes: list[tuple[str, str, Callable]] = []
+    native_routes: list[tuple[str, str, Callable]] = []
+    server_ctx: Any = None
     extra_headers: Optional[dict] = None
 
     def log_message(self, fmt, *args):  # stdlib access log -> V(3)
         glog.V(3).info("http: " + fmt, *args)
+
+    @staticmethod
+    def mark_streaming(fn):
+        """Tag a route handler as streaming: it is called as
+        ``fn(h, path, query, rfile, length)`` before the body is read, and
+        must consume exactly ``length`` bytes of ``rfile``."""
+        fn._streaming = True
+        return fn
 
     def _dispatch(self, method: str) -> None:
         parsed = urllib.parse.urlparse(self.path)
@@ -67,44 +339,129 @@ class JsonHandler(BaseHTTPRequestHandler):
             self.close_connection = True
             self._reply(400, {"error": "bad Content-Length"})
             return
-        body = self.rfile.read(length) if length else b""
+        t0 = time.monotonic()
         for m, prefix, fn in self.routes:
             if m == method and parsed.path.startswith(prefix):
+                streaming = getattr(fn, "_streaming", False)
                 try:
-                    status, payload = fn(self, parsed.path, query, body)
+                    if streaming:
+                        status, payload = fn(self, parsed.path, query, self.rfile, length)
+                    else:
+                        body = self.rfile.read(length) if length else b""
+                        status, payload = fn(self, parsed.path, query, body)
                 except BadRequest as e:
                     status, payload = 400, {"error": str(e)}
+                    if streaming:  # the body may be half read: framing is gone
+                        self.close_connection = True
                 except Exception as e:  # noqa: BLE001 — the daemon keeps serving
                     glog.exception("%s %s failed", method, parsed.path)
                     status, payload = 500, {"error": f"{type(e).__name__}: {e}"}
+                    if streaming:
+                        self.close_connection = True
                 glog.V(2).info("%s %s -> %d", method, parsed.path, status)
                 self._reply(status, payload, head_only=(method == "HEAD"))
+                SERVING.note_request_seconds(time.monotonic() - t0)
                 return
+        # drain in bounded pieces for keep-alive framing: a large body to an
+        # unrouted path must not be buffered whole
+        left = length
+        while left > 0:
+            got = self.rfile.read(min(1 << 20, left))
+            if not got:
+                break
+            left -= len(got)
         self._reply(404, {"error": f"no route {method} {parsed.path}"})
 
+    def _shed_keepalive_if_overloaded(self) -> None:
+        """Past the watermark, tell a keep-alive peer to go away after this
+        reply, so established pools drain back through admission."""
+        if serving_overloaded(self):
+            self.send_header("Connection", "close")
+            self.close_connection = True
+            SERVING.note_keepalive_shed()
+
+    def _send_head(self, status: int, ctype: str, clen: str) -> None:
+        extra = self.extra_headers or {}
+        self.extra_headers = None
+        ctype = extra.pop("Content-Type", ctype)
+        # a HEAD of a chunked file advertises the whole file's length
+        clen = extra.pop("Content-Length", clen)
+        self.send_response(status)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", clen)
+        for k, v in extra.items():
+            self.send_header(k, v)
+        self._shed_keepalive_if_overloaded()
+        self.end_headers()
+
     def _reply(self, status: int, payload, head_only: bool = False) -> None:
+        if isinstance(payload, StreamBody):
+            self._reply_stream(status, payload, head_only)
+            return
+        if isinstance(payload, SendfileBody):
+            self._reply_sendfile(status, payload, head_only)
+            return
         if isinstance(payload, (bytes, bytearray, memoryview)):
             data = bytes(payload)
             ctype = "application/octet-stream"
         else:
             data = json.dumps(payload).encode()
             ctype = "application/json"
-        extra = self.extra_headers or {}
-        self.extra_headers = None
-        ctype = extra.pop("Content-Type", ctype)
-        # a HEAD of a chunked file advertises the whole file's length
-        clen = extra.pop("Content-Length", str(len(data)))
-        self.send_response(status)
-        self.send_header("Content-Type", ctype)
-        self.send_header("Content-Length", clen)
-        for k, v in extra.items():
-            self.send_header(k, v)
-        self.end_headers()
+        self._send_head(status, ctype, str(len(data)))
         if head_only:
             return
         try:
             self.wfile.write(data)
         except (BrokenPipeError, ConnectionResetError):
+            self.close_connection = True
+
+    def _reply_sendfile(self, status: int, body: SendfileBody, head_only: bool) -> None:
+        """Zero-copy reply: the headers through the normal path, then the
+        needle's data region kernel → socket. The aio reactor's shim
+        connection offers the same ``connection.sendfile`` surface, so this
+        serves both cores."""
+        self._send_head(status, "application/octet-stream", str(body.count))
+        if head_only:
+            body.close()
+            return
+        sent = 0
+        try:
+            self.wfile.flush()  # headers first: sendfile bypasses wfile
+            sent = self.connection.sendfile(body.file, offset=body.offset,
+                                            count=body.count) or 0
+        except (BrokenPipeError, ConnectionResetError):
+            self.close_connection = True
+            return
+        except Exception:  # noqa: BLE001 — the headers are gone: a short body
+            glog.exception("sendfile reply failed after %d/%d bytes", sent, body.count)
+            self.close_connection = True
+            return
+        finally:
+            body.close()
+        if sent != body.count:
+            glog.error("sendfile reply produced %d of %d bytes", sent, body.count)
+            self.close_connection = True
+
+    def _reply_stream(self, status: int, body: StreamBody, head_only: bool) -> None:
+        """A reply whose bytes come piece by piece: Content-Length up front,
+        each piece written as it is produced."""
+        self._send_head(status, "application/octet-stream", str(body.length))
+        if head_only:
+            return
+        sent = 0
+        try:
+            for piece in body.chunks:
+                self.wfile.write(piece)
+                sent += len(piece)
+        except (BrokenPipeError, ConnectionResetError):
+            self.close_connection = True
+            return
+        except Exception:  # noqa: BLE001 — the headers are gone: a short body
+            glog.exception("stream reply failed after %d/%d bytes", sent, body.length)
+            self.close_connection = True
+            return
+        if sent != body.length:
+            glog.error("stream reply produced %d of %d bytes", sent, body.length)
             self.close_connection = True
 
     def do_GET(self):
@@ -134,75 +491,255 @@ def _close_socket(sock) -> None:
         pass
 
 
-class _Server(ThreadingHTTPServer):
-    """ThreadingHTTPServer that closes its live connections on shutdown:
-    otherwise handler threads of keep-alive clients go on answering after
-    the server has stopped."""
+class _TrackingThreadingHTTPServer(ThreadingHTTPServer):
+    """ThreadingHTTPServer with admission at the inflight watermark, that
+    severs its live keep-alive connections on shutdown (otherwise their
+    handler threads go on answering after the server stopped)."""
 
     daemon_threads = True
     # the default backlog of 5 drops SYNs under a burst of new connections
-    request_queue_size = 1024
+    request_queue_size = 2048
 
     def __init__(self, *a, **k):
         super().__init__(*a, **k)
-        self._live: set = set()
-        self._live_lock = threading.Lock()
-        self._closing = False
+        self._live_conns: set = set()
+        self._conns_lock = threading.Lock()
+        self._shutting_down = False
+        SERVING.register_server(self)
+
+    def inflight_count(self) -> int:
+        with self._conns_lock:
+            return len(self._live_conns)
+
+    def overloaded(self) -> bool:
+        wm = serving_watermark()
+        return wm > 0 and self.inflight_count() >= wm
 
     def process_request(self, request, client_address):
-        with self._live_lock:
-            if self._closing:
+        wm = serving_watermark()
+        with self._conns_lock:
+            if self._shutting_down:
+                # raced shutdown(): the sever pass may have run already
                 _close_socket(request)
                 return
-            self._live.add(request)
+            reject = wm > 0 and len(self._live_conns) >= wm
+            if not reject:
+                self._live_conns.add(request)
+        if reject:
+            SERVING.note_rejected()
+            try:
+                request.sendall(admission_reject_response())
+            except OSError:
+                pass
+            _close_socket(request)
+            return
         super().process_request(request, client_address)
 
     def shutdown_request(self, request):
-        with self._live_lock:
-            self._live.discard(request)
+        with self._conns_lock:
+            self._live_conns.discard(request)
         super().shutdown_request(request)
 
     def shutdown(self):
         super().shutdown()
-        with self._live_lock:
-            self._closing = True
-            live, self._live = list(self._live), set()
-        for sock in live:
-            _close_socket(sock)
+        with self._conns_lock:
+            self._shutting_down = True
+            conns = list(self._live_conns)
+            self._live_conns.clear()
+        for c in conns:
+            _close_socket(c)
 
 
-def start_server(handler_cls, host: str, port: int) -> _Server:
-    """Serve ``handler_cls`` on (host, port) from a background thread. The
-    caller stops it with ``shutdown()`` and ``server_close()``."""
-    srv = _Server((host, port), handler_cls)
+def start_server(handler_cls, host: str, port: int):
+    """Serve ``handler_cls`` on (host, port) from a background thread: the
+    asyncio reactor by default, the thread-per-connection server under
+    ``SWEED_SERVING=threads``. Both offer ``shutdown()``,
+    ``server_close()`` and ``server_address``, and admission control."""
+    if serving_mode() == "aio":
+        from .aio import AioHTTPServer
+
+        return AioHTTPServer(handler_cls, host, port).start()
+    srv = _TrackingThreadingHTTPServer((host, port), handler_cls)
     threading.Thread(target=srv.serve_forever, daemon=True,
                      name=f"http-{host}:{srv.server_address[1]}").start()
     return srv
 
 
-def http_bytes_headers(method: str, url: str, body: Optional[bytes] = None,
-                       timeout: float = 30.0,
-                       headers: Optional[dict] = None) -> tuple[int, bytes, dict]:
-    """One request on a fresh connection -> (status, body, reply headers).
-    An unreachable peer raises OSError; HTTP error statuses come back as
-    statuses. Some admin replies carry metadata in headers
-    (X-Compaction-Revision, X-Last-Append-Ns)."""
+# -- pooled keep-alive client --------------------------------------------------
+# A fresh TCP connection per request costs a handshake on the hottest paths
+# (assigns, heartbeats, remote shard reads, replication). Connections are
+# pooled per (host, port) in thread-local storage (http.client connections
+# are not thread-safe) and re-dialled once when a pooled socket went stale.
+_pool_local = threading.local()
+
+
+def pool_max_idle_seconds() -> float:
+    """Max idle age of a pooled socket (``SWEED_POOL_IDLE_S``, default 30;
+    0 keeps them forever): old sockets retire before a peer's keep-alive
+    timeout can race a reuse."""
+    raw = os.environ.get("SWEED_POOL_IDLE_S", "30").strip()
+    if not (raw.isascii() and raw.isdigit()):
+        return 30.0
+    return float(int(raw))
+
+
+def _conn_idle_expired(conn) -> bool:
+    max_idle = pool_max_idle_seconds()
+    if max_idle <= 0:
+        return False
+    since = getattr(conn, "_sweed_idle_since", None)
+    return since is not None and (time.monotonic() - since) > max_idle
+
+
+class _NoDelayHTTPConnection(http.client.HTTPConnection):
+    def connect(self):
+        super().connect()
+        # Nagle and a delayed ACK turn each small request on a reused
+        # connection into a ~40 ms round trip
+        self.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+
+
+_IDEMPOTENT_METHODS = frozenset({"GET", "HEAD", "PUT", "DELETE"})
+
+
+def _pool() -> dict:
+    conns = getattr(_pool_local, "conns", None)
+    if conns is None:
+        conns = _pool_local.conns = {}
+    return conns
+
+
+def _pooled_request(method: str, url: str, body: Optional[bytes],
+                    headers: Optional[dict], timeout: float,
+                    idempotent: bool = False) -> tuple[int, bytes, dict]:
     u = urllib.parse.urlsplit(url)
-    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=timeout)
+    key = (u.hostname, u.port)
+    conns = _pool()
+    path = u.path + (f"?{u.query}" if u.query else "")
+    # a stale-socket retry can run a request twice (a reset may come after
+    # the server executed it), so only idempotent methods, and POSTs the
+    # caller marks idempotent (a fid-addressed upload), are retried
+    may_retry = method in _IDEMPOTENT_METHODS or idempotent
+    last_err: Optional[Exception] = None
+    for attempt in (0, 1):
+        conn = conns.get(key)
+        if conn is not None and _conn_idle_expired(conn):
+            conn.close()
+            conns.pop(key, None)
+            conn = None
+        fresh = conn is None
+        if fresh:
+            conn = _NoDelayHTTPConnection(u.hostname, u.port, timeout=timeout)
+            conns[key] = conn
+        elif conn.sock is not None:
+            conn.sock.settimeout(timeout)
+        try:
+            conn.request(method, path, body=body, headers=headers or {})
+            resp = conn.getresponse()
+            data = resp.read()
+            resp_headers = dict(resp.getheaders())
+            if resp.will_close:
+                conn.close()
+                conns.pop(key, None)
+            else:
+                conn._sweed_idle_since = time.monotonic()
+            return resp.status, data, resp_headers
+        except (http.client.RemoteDisconnected, http.client.BadStatusLine,
+                ConnectionResetError, BrokenPipeError) as e:
+            # the peer closed a reused socket before answering: re-dial once
+            conn.close()
+            conns.pop(key, None)
+            last_err = e
+            if fresh or attempt or not may_retry:
+                raise
+        except (http.client.HTTPException, OSError):
+            conn.close()
+            conns.pop(key, None)
+            raise
+    raise last_err  # unreachable
+
+
+def _conn_is_stale(conn) -> bool:
+    """True when a pooled socket's peer closed it (readable with EOF
+    pending); a healthy idle HTTP/1.1 socket has nothing to read."""
+    sock = getattr(conn, "sock", None)
+    if sock is None:
+        return False
+    import select
+
     try:
-        conn.request(method, u.path + (f"?{u.query}" if u.query else ""),
-                     body=body, headers=headers or {})
-        resp = conn.getresponse()
-        return resp.status, resp.read(), dict(resp.getheaders())
-    finally:
+        readable, _, _ = select.select([sock], [], [], 0)
+    except (OSError, ValueError):
+        return True
+    return bool(readable)
+
+
+def _checkout_conn(key: tuple, timeout: float):
+    """The calling thread's pooled connection for (host, port), probed for
+    staleness, or a fresh one; removed from the pool until ``_repool``."""
+    conns = _pool()
+    conn = conns.pop(key, None)
+    if conn is not None and (_conn_idle_expired(conn) or _conn_is_stale(conn)):
         conn.close()
+        conn = None
+    if conn is None:
+        conn = _NoDelayHTTPConnection(key[0], key[1], timeout=timeout)
+    elif conn.sock is not None:
+        conn.sock.settimeout(timeout)
+    return conn, conns
+
+
+def _repool(conn, key: tuple, conns: dict) -> None:
+    if key in conns:  # another request pooled its own meanwhile
+        conn.close()
+    else:
+        conn._sweed_idle_since = time.monotonic()
+        conns[key] = conn
+
+
+def http_stream_request(method: str, url: str, reader, length: int,
+                        headers: Optional[dict] = None,
+                        timeout: float = 600.0) -> tuple[int, bytes, dict]:
+    """A request whose body streams from a file-like ``reader`` over the
+    pooled transport. A consumed reader cannot be rewound, so there is no
+    stale-socket retry; the pooled socket is probed before the first byte."""
+    hdrs = dict(headers or {})
+    hdrs.setdefault("Content-Length", str(length))
+    u = urllib.parse.urlsplit(url)
+    key = (u.hostname, u.port)
+    path = u.path + (f"?{u.query}" if u.query else "")
+    conn, conns = _checkout_conn(key, timeout)
+    try:
+        conn.blocksize = 1 << 20  # MB pieces, not 8 KB sips
+        conn.request(method, path, body=reader, headers=hdrs)
+        resp = conn.getresponse()
+        data = resp.read()
+        resp_headers = dict(resp.getheaders())
+        if resp.will_close:
+            conn.close()
+        else:
+            _repool(conn, key, conns)
+        return resp.status, data, resp_headers
+    except Exception:
+        conn.close()
+        raise
+
+
+def http_bytes_headers(method: str, url: str, body: Optional[bytes] = None,
+                       timeout: float = 30.0, headers: Optional[dict] = None,
+                       idempotent: bool = False) -> tuple[int, bytes, dict]:
+    """One request over the pooled transport -> (status, body, reply
+    headers). An unreachable peer raises OSError; HTTP error statuses come
+    back as statuses. ``idempotent`` lets a POST take the stale-socket
+    retry (fid-addressed uploads are safe to resend; assigns are not)."""
+    return _pooled_request(method, url, body, headers, timeout, idempotent=idempotent)
 
 
 def http_bytes(method: str, url: str, body: Optional[bytes] = None,
-               timeout: float = 30.0,
-               headers: Optional[dict] = None) -> tuple[int, bytes]:
-    """One request on a fresh connection -> (status, body)."""
-    status, data, _ = http_bytes_headers(method, url, body, timeout, headers)
+               timeout: float = 30.0, headers: Optional[dict] = None,
+               idempotent: bool = False) -> tuple[int, bytes]:
+    """One request over the pooled transport -> (status, body)."""
+    status, data, _ = http_bytes_headers(method, url, body, timeout, headers, idempotent)
     return status, data
 
 

@@ -18,6 +18,7 @@ package's master, so its shell and volume servers talk to this one:
     /dir/status, /cluster/status                     → GET (topology json)
     fleet EC scheduler (cluster/fleet.py)            → /ec/fleet/{encode,
                                                        rebuild,status}
+    master_ui, metrics                               → GET /ui, /metrics
 
 Differences from the JAX package's master:
 
@@ -27,9 +28,12 @@ Differences from the JAX package's master:
   and the proxying to a leader), fid leases (``/dir/fid_lease``) and the
   lifecycle autopilot (``/lifecycle/*``) are not ported yet, nor are
   ``-peers`` and ``-mdir``.
-- No ``/ui``, ``/metrics`` or ``/debug/traces`` yet, and ``/dir/status``
+- No ``/debug/traces`` yet (tracing is not ported), and ``/dir/status``
   drops the sections of the subsystems the port lacks (``locks``,
   ``serving``, ``fid_leases``, ``trace``, ``lifecycle``).
+- The assign-latency histogram is this master's own (the JAX package's is
+  process-wide); ``/metrics`` exposes it beside the process registry under
+  the same name, ``master_assign_seconds``.
 
 Nothing starts at import: ``start()`` binds the port and starts the
 liveness reaper, ``stop()`` ends both at once.
@@ -48,11 +52,13 @@ from ..cluster.topology import DataNode
 from ..cluster.volume_growth import VolumeGrowOption
 from ..security import gen_jwt
 from ..stats.histogram import Histogram
+from ..stats.metrics import default_registry
 from ..storage.replica_placement import ReplicaPlacement
 from ..storage.ttl import EMPTY_TTL, read_ttl
 from ..util import glog
 from ..util.parsers import tolerant_ufloat, tolerant_uint
 from .http_util import JsonHandler, http_json, start_server
+from .status_ui import render_status_page
 
 #: the election term a single master reports (it never holds an election)
 TERM = 1
@@ -238,6 +244,29 @@ class MasterServer:
     def _h_ping(self, h, path, q, body):
         return 200, {"ok": True, "url": self.url}
 
+    def _h_ui(self, h, path, q, body):
+        """The embedded status page (server/master_ui analog)."""
+        h.extra_headers = {"Content-Type": "text/html; charset=utf-8"}
+        return 200, render_status_page(
+            f"seaweedfs_tpu_torch master {self.url}",
+            {
+                "Cluster": {
+                    "leader": self.url,
+                    "is_leader": True,
+                    "term": TERM,
+                    "peers": "",
+                    "volume_size_limit": self.master.topo.volume_size_limit,
+                    "max_volume_id": self.master.topo.max_volume_id,
+                },
+                "Topology": self.master.topology_info(),
+            },
+        )
+
+    def _h_metrics(self, h, path, q, body):
+        h.extra_headers = {"Content-Type": "text/plain; version=0.0.4"}
+        text = default_registry.expose() + "\n".join(self.assign_hist.expose()) + "\n"
+        return 200, text.encode()
+
     def _h_lock(self, h, path, q, body):
         try:
             token = self.master.lease_admin_token(
@@ -352,6 +381,8 @@ class MasterServer:
                 ("POST", "/ec/fleet/encode", ms._h_fleet_encode),
                 ("POST", "/ec/fleet/rebuild", ms._h_fleet_rebuild),
                 ("GET", "/ec/fleet/status", ms._h_fleet_status),
+                ("GET", "/ui", ms._h_ui),
+                ("GET", "/metrics", ms._h_metrics),
             ]
 
         self._srv = start_server(Handler, self.host, self.port)

@@ -35,7 +35,22 @@ package's volume server, so its master and shell drive this one:
     Query rpc                  POST /_query  volume_grpc_query.go:12 (an
                                S3-Select scan of one local needle; the
                                predicate tree runs on the store's device)
+    hot-needle cache size      POST /admin/ncache (?capacity=<bytes>, 0 off)
+    /metrics, /ui              GET  /metrics (Prometheus text), /ui (HTML)
     /status                    GET  /status
+
+The serving stack is the JAX package's default: the native turbo engine
+(``storage/turbo.py``, ``csrc/turbo.cpp``) owns the public port and serves
+fid GET/HEAD/POST/PUT/DELETE against the .dat/.idx itself, and proxies
+every other request to this daemon on a loopback port, which runs on the
+asyncio core (``server/aio.py``) with admission control and sendfile
+replies. ``SWEED_TURBO=0`` (or an IP whitelist, which stays in Python)
+leaves the engine out and the daemon takes the public port;
+``SWEED_SERVING=threads`` runs the thread-per-connection core instead of
+the reactor. An engine that cannot be built is reported, not hidden:
+``/status``'s ``turbo`` says ``{"on": false, "reason": ...}`` and the log
+carries the compiler's output. ``SWEED_NCACHE`` (bytes, default 0) sizes
+the hot-needle cache.
 
 With ``SWEED_SCRUB=1`` (read at ``start()``) a background thread re-reads
 needles and verifies their CRCs, at most ``SWEED_SCRUB_RATE`` needles a
@@ -70,7 +85,7 @@ from ..ec.ec_volume import rebuild_ecx_file
 from ..query import execute_request
 from ..security import Guard, gen_jwt, read_auth_query, verify_fid_jwt
 from ..stats.heat import heat_stats
-from ..stats.metrics import SCRUB_COUNTERS, scrub_stats
+from ..stats.metrics import SCRUB_COUNTERS, default_registry, scrub_stats
 from ..storage.commit import atomic_write
 from ..storage.disk_location import parse_volume_base_name
 from ..storage.file_id import FileId, parse_path
@@ -93,17 +108,31 @@ from ..storage.ttl import read_ttl
 from ..storage.types import NEEDLE_HEADER_SIZE
 from ..storage.volume import DeletedError, NotFoundError, volume_file_name
 from ..util import faultpoints, glog
+from ..util.needle_cache import NeedleCache
 from ..util.parsers import tolerant_uint
 from .http_util import (
+    NATIVE_FALLBACK,
+    SERVING,
     BadRequest,
     JsonHandler,
+    SendfileBody,
     http_bytes,
     http_json,
     parse_byte_range,
     range_headers,
+    sendfile_min_bytes,
     start_server,
     unsatisfiable_range_headers,
 )
+from .status_ui import render_status_page
+
+
+# The loopback address the daemon serves the engine's proxied requests on.
+# Not 127.0.0.1: its port comes from the OS (bind to port 0), and on
+# 127.0.0.1 that could be a port another process picked as free for its own
+# server a moment before and has not bound yet. SWEED_TURBO_BACKEND_HOST
+# overrides it.
+TURBO_BACKEND_HOST = os.environ.get("SWEED_TURBO_BACKEND_HOST", "127.0.0.2")
 
 
 def _q_req_uint(q: dict, key: str) -> int:
@@ -163,6 +192,10 @@ class VolumeServer:
         jwt_read_key: str = "",
         whitelist: Optional[list[str]] = None,
     ):
+        self._req_hist = default_registry.histogram(
+            "volume_server_request_seconds", "volume server request latency")
+        self._req_count = default_registry.counter(
+            "volume_server_request_total", "volume server requests")
         self.jwt_signing_key = jwt_signing_key
         self.jwt_read_key = jwt_read_key
         self.guard = Guard(whitelist)
@@ -180,7 +213,13 @@ class VolumeServer:
                            public_url=public_url or f"{host}:{port}",
                            ec_backend=ec_backend, needle_map_kind=needle_map_kind)
         self.store.remote_shard_reader = self._remote_shard_reader
+        # the hot-needle RAM cache: SWEED_NCACHE bytes (0, the default, is
+        # off), resizable live through POST /admin/ncache
+        self.ncache = NeedleCache(tolerant_uint(os.environ.get("SWEED_NCACHE"), 0) or 0)
         self._srv = None
+        # the native data plane while it owns the public port; why not, else
+        self.turbo = None
+        self.turbo_reason = "not started"
         self._stop = threading.Event()
         self._hb_thread: Optional[threading.Thread] = None
         self._scrub_thread: Optional[threading.Thread] = None
@@ -234,22 +273,69 @@ class VolumeServer:
             return 403, {"error": "ip not allowed"}
         if not self._auth_ok(h, path, q, self.jwt_read_key):
             return 401, {"error": "unauthorized read"}
+        self._req_count.inc(op="get")
+        with self._req_hist.time(op="get"):
+            return self._h_get_timed(h, path, q)
+
+    def _h_get_timed(self, h, path, q):
         vid, nid, cookie = self._parse_fid_path(path)
+        if self.ncache.enabled:
+            cached = self.ncache.get(vid, nid, cookie)
+            if cached is not None:
+                # a RAM hit is the bytes a disk read of this plain needle
+                # gives (mutations invalidate, the cache checks cookies);
+                # the heat signal still sees the read
+                self.store.note_volume_read(vid)
+                rng = h.headers.get("Range", "")
+                if rng:
+                    return self._range_reply(h, cached, rng)
+                h.extra_headers = {"Accept-Ranges": "bytes"}
+                return 200, cached
+        # fired below the cache: a RAM hit skips the modelled disk read
         faultpoints.fire("volume.read.needle")
         n = Needle(id=nid)
+        ext = None
         try:
-            self.store.read_volume_needle(vid, n)
+            ext = self._needle_extent(vid, n)
+            if ext is None:
+                self.store.read_volume_needle(vid, n)
         except Exception as e:  # noqa: BLE001 — the reference's 404 mapping
             if isinstance(e, (NotFoundError, DeletedError)) or "not in ecx" in str(e):
                 return 404, {"error": str(e)}
             raise
         if n.cookie != cookie:
+            if ext is not None:
+                ext[0].close()
             return 404, {"error": "cookie mismatch"}
+        if ext is not None and self.ncache.would_cache(ext[2]) \
+                and not n.is_chunk_manifest and not n.is_compressed:
+            # populate on a miss: one read of the extent now buys RAM hits
+            # after; extents too big for the cache stay zero-copy
+            f, data_off, data_len = ext
+            try:
+                n.data = os.pread(f.fileno(), data_len, data_off)
+            finally:
+                f.close()
+            self.ncache.put(vid, nid, cookie, bytes(n.data))
+            ext = None
+        if ext is not None:
+            resp = self._sendfile_reply(h, q, n, ext)
+            if resp is not None:
+                return resp
+            # disqualified by the metadata (a chunk manifest to resolve,
+            # gzip the client did not ask for): read it buffered
+            try:
+                self.store.read_volume_needle(vid, n)
+            except (NotFoundError, DeletedError) as e:
+                return 404, {"error": str(e)}
         data = bytes(n.data)
         if n.is_chunk_manifest and q.get("cm") != "false":
             # server-side chunked-file resolution
             # (volume_server_handlers_read.go:181)
             return self._serve_chunked_manifest(h, data)
+        if self.ncache.would_cache(len(data)) and not n.is_compressed:
+            # plain needles only, so a hit needs no metadata decisions
+            self.ncache.put(vid, nid, cookie, data)
         serving_gzip = False
         if n.is_compressed:
             # gzip goes out as stored only to clients that asked for it
@@ -263,6 +349,95 @@ class VolumeServer:
             return self._range_reply(h, data, rng)
         h.extra_headers = (h.extra_headers or {}) | {"Accept-Ranges": "bytes"}
         return 200, data
+
+    def _needle_extent(self, vid: int, n: Needle):
+        """The zero-copy read setup (``Store.read_volume_needle_extent``),
+        or None for the buffered path (sendfile off, or the needle does not
+        qualify)."""
+        min_size = sendfile_min_bytes()
+        if min_size is None:
+            return None
+        return self.store.read_volume_needle_extent(vid, n, min_size)
+
+    def _sendfile_reply(self, h, q, n: Needle, ext):
+        """The zero-copy reply for a qualified extent, or None (the file
+        closed) when the metadata disqualifies it: a chunk manifest to
+        resolve, gzip the client did not ask for."""
+        f, data_off, data_len = ext
+        if n.is_chunk_manifest and q.get("cm") != "false":
+            f.close()
+            return None
+        serving_gzip = False
+        if n.is_compressed:
+            if "gzip" not in h.headers.get("Accept-Encoding", ""):
+                f.close()
+                return None
+            serving_gzip = True
+        rng = h.headers.get("Range", "")
+        if rng and not serving_gzip:  # ranges address the plain bytes
+            parsed = parse_byte_range(rng, data_len)
+            if parsed == "unsatisfiable":
+                f.close()
+                h.extra_headers = unsatisfiable_range_headers(data_len)
+                return 416, b""
+            if parsed is not None:
+                start, end = parsed
+                h.extra_headers = range_headers(start, end, data_len)
+                return 206, SendfileBody(f, data_off + start, end - start + 1)
+        h.extra_headers = {"Accept-Ranges": "bytes"}
+        if serving_gzip:
+            h.extra_headers["Content-Encoding"] = "gzip"
+        return 200, SendfileBody(f, data_off, data_len)
+
+    async def _h_get_native(self, h, path, q):
+        """The hot GET/HEAD on the aio core's loop: cache hits and
+        sendfile-qualified extents with no worker-thread hop. Every edge
+        (guard, auth, a lookup error, a cookie mismatch, a cache populate,
+        a chunk manifest, gzip the client will not take, a small needle)
+        falls back to the bridged ``_h_get``, which gives the canonical
+        bytes."""
+        if not self.guard.allowed(h.client_address[0]):
+            return NATIVE_FALLBACK
+        if not self._auth_ok(h, path, q, self.jwt_read_key):
+            return NATIVE_FALLBACK
+        try:
+            vid, nid, cookie = self._parse_fid_path(path)
+        except ValueError:
+            return NATIVE_FALLBACK
+        t0 = time.monotonic()
+        if self.ncache.enabled:
+            cached = self.ncache.get(vid, nid, cookie)
+            if cached is not None:
+                self._req_count.inc(op="get")
+                self.store.note_volume_read(vid)
+                rng = h.headers.get("Range", "")
+                if rng:
+                    resp = self._range_reply(h, cached, rng)
+                else:
+                    h.extra_headers = {"Accept-Ranges": "bytes"}
+                    resp = (200, cached)
+                self._req_hist.observe(time.monotonic() - t0, op="get")
+                return resp
+        n = Needle(id=nid)
+        try:
+            ext = self._needle_extent(vid, n)
+        except Exception:  # noqa: BLE001 — the bridge renders the canonical 404/500
+            return NATIVE_FALLBACK
+        if ext is None:
+            return NATIVE_FALLBACK  # a small needle: buffered path (and populate)
+        if n.cookie != cookie:
+            ext[0].close()
+            return NATIVE_FALLBACK
+        if self.ncache.would_cache(ext[2]) and not n.is_chunk_manifest \
+                and not n.is_compressed:
+            ext[0].close()  # the populate belongs to the bridged path
+            return NATIVE_FALLBACK
+        resp = self._sendfile_reply(h, q, n, ext)
+        if resp is None:
+            return NATIVE_FALLBACK
+        self._req_count.inc(op="get")
+        self._req_hist.observe(time.monotonic() - t0, op="get")
+        return resp
 
     @staticmethod
     def _range_reply(h, data: bytes, rng: str):
@@ -380,6 +555,11 @@ class VolumeServer:
             return 403, {"error": "ip not allowed"}
         if not self._auth_ok(h, path, q, self.jwt_signing_key):
             return 401, {"error": "unauthorized write"}
+        self._req_count.inc(op="put")
+        with self._req_hist.time(op="put"):
+            return self._h_post_timed(h, path, q, body)
+
+    def _h_post_timed(self, h, path, q, body):
         faultpoints.fire("volume.write.needle")
         vid, nid, cookie = self._parse_fid_path(path)
         n = Needle(cookie=cookie, id=nid, data=bytes(body))
@@ -404,11 +584,15 @@ class VolumeServer:
             n.set_flag(FLAG_HAS_TTL)
         _, _, unchanged = self.store.write_volume_needle(
             vid, n, fsync=q.get("fsync") == "true")
+        # an overwrite makes a cached copy stale (the rollback delete of a
+        # failed fan-out comes through _h_delete's invalidation too)
+        self.ncache.invalidate(vid, nid)
         if q.get("type") != "replicate":
             err = self._replicate(path, q, body, h, "POST")
             if err:
                 # all replicas or none (store_replicate.go:21)
                 self.store.delete_volume_needle(vid, Needle(cookie=cookie, id=nid))
+                self.ncache.invalidate(vid, nid)
                 return 500, {"error": f"replication failed: {err}"}
         return 201, {"size": len(body), "eTag": n.etag(), "unchanged": unchanged}
 
@@ -436,6 +620,7 @@ class VolumeServer:
                 except (ValueError, KeyError, TypeError) as e:
                     glog.warning("manifest parse vid %d: %s", vid, e)
         size = self.store.delete_volume_needle(vid, Needle(cookie=cookie, id=nid))
+        self.ncache.invalidate(vid, nid)
         if q.get("type") != "replicate":
             err = self._replicate(path, q, b"", h, "DELETE")
             if err:
@@ -522,6 +707,7 @@ class VolumeServer:
                 continue
             try:
                 size = self.store.delete_volume_needle(vid, Needle(cookie=cookie, id=nid))
+                self.ncache.invalidate(vid, nid)
             except NotFoundError:
                 item.update(status=404, error=f"volume {vid} not found")
             except Exception as e:  # noqa: BLE001 — one fid's failure stays its own
@@ -692,6 +878,13 @@ class VolumeServer:
                 # memory must not advertise a placement the disk never got
                 v.super_block.replica_placement = old
                 raise
+        if v.turbo is not None:
+            # the engine takes a volume's writes over HTTP only while it has
+            # no replica to fan out to: attach it again under the new
+            # placement (the JAX server keeps the old decision, so a volume
+            # raised to 001 kept taking native writes that no replica got)
+            v.detach_turbo()
+            self.store.attach_turbo_volume(v)
         # the master files a volume by its placement: withdraw it from the
         # old one and announce it under the new, as the reference's
         # unmount, configure, mount does (volume_grpc_admin.go
@@ -781,8 +974,72 @@ class VolumeServer:
         hb = self.store.collect_heartbeat()
         hb["ec"] = self.store.collect_ec_heartbeat()["ec_shards"]
         hb["heat"] = heat_stats()
+        hb["ncache"] = self.ncache.stats()
         hb["scrub"] = scrub_stats()
+        # request-latency quantiles from the histogram /metrics exposes
+        hb["request_latency"] = {"get": self._req_hist.summary(op="get"),
+                                 "put": self._req_hist.summary(op="put")}
+        hb["turbo"] = self.turbo_status()
+        hb["serving"] = SERVING.snapshot()
         return 200, hb
+
+    def turbo_status(self) -> dict:
+        """Whether the native engine owns the public port, and why not."""
+        if self.turbo is not None:
+            return {"on": True, "reason": "", "threads": self.turbo.threads,
+                    "counters": self.turbo.counters()}
+        return {"on": False, "reason": self.turbo_reason}
+
+    def _h_metrics(self, h, path, q, body):
+        out = default_registry.expose()
+        if self.turbo is not None:
+            # the engine serves its ops without touching the Python
+            # counters: its tallies go alongside
+            c = self.turbo.counters()
+            out += (
+                "# HELP volume_server_turbo_requests_total requests served "
+                "by the native data plane\n"
+                "# TYPE volume_server_turbo_requests_total counter\n"
+                f'volume_server_turbo_requests_total{{op="get"}} {c["gets"]}\n'
+                f'volume_server_turbo_requests_total{{op="post"}} {c["posts"]}\n'
+                f'volume_server_turbo_requests_total{{op="delete"}} {c["deletes"]}\n'
+                f'volume_server_turbo_requests_total{{op="proxied"}} {c["proxied"]}\n'
+            )
+        return 200, out.encode()
+
+    def _h_ncache(self, h, path, q, body):
+        """Resize the hot-needle cache's byte budget live (?capacity=<bytes>
+        or a JSON body; 0 disables)."""
+        cap = q.get("capacity")
+        if cap is None and body:
+            cap = json.loads(body).get("capacity")
+        if cap is not None:
+            self.ncache.set_capacity(_q_req_uint({"capacity": cap}, "capacity"))
+        return 200, self.ncache.stats()
+
+    def _h_ui(self, h, path, q, body):
+        """The embedded status page (server/volume_server_ui analog)."""
+        hb = self.store.collect_heartbeat()
+        h.extra_headers = {"Content-Type": "text/html; charset=utf-8"}
+        return 200, render_status_page(
+            f"seaweedfs_tpu_torch volume server {self.host}:{self.port}",
+            {
+                "Server": {
+                    "master": self.master_url,
+                    "data_center": self.data_center,
+                    "rack": self.rack,
+                    "max_volume_count": self.max_volume_count,
+                    "needle_map_kind": self.store.needle_map_kind,
+                    "ec_backend": self.store.ec_backend,
+                },
+                "Volumes": hb["volumes"],
+                "EC shards": self.store.collect_ec_heartbeat()["ec_shards"],
+                "Turbo": self.turbo_status(),
+                "Heat": heat_stats(),
+                "Hot-needle cache": self.ncache.stats(),
+                "Scrub": scrub_stats(),
+            },
+        )
 
     # -- admin: EC (volume_grpc_erasure_coding.go) ---------------------------
     def _find_base(self, vid: int) -> Optional[str]:
@@ -1174,19 +1431,31 @@ class VolumeServer:
                 ("GET", "/admin/file", vs._h_file),
                 ("GET", "/admin/needle_ids", vs._h_needle_ids),
                 ("GET", "/admin/needle_info", vs._h_needle_info),
+                ("POST", "/admin/ncache", vs._h_ncache),
                 ("GET", "/status", vs._h_status),
+                ("GET", "/ui", vs._h_ui),
+                ("GET", "/metrics", vs._h_metrics),
                 ("GET", "/", vs._h_get),
                 ("HEAD", "/", vs._h_get),
                 ("POST", "/", vs._h_post),
                 ("PUT", "/", vs._h_post),
                 ("DELETE", "/", vs._h_delete),
             ]
+            # the hot read path on the aio core's loop; every edge falls
+            # back to the bridged _h_get above
+            native_routes = [
+                ("GET", "/", vs._h_get_native),
+                ("HEAD", "/", vs._h_get_native),
+            ]
 
-        self._srv = start_server(Handler, self.host, self.port)
-        glog.info("volume server up on %s:%d (%d volumes, ec backend %s) -> master %s",
-                  self.host, self.port,
+        self._start_turbo(Handler)
+        if self.turbo is None:
+            self._srv = start_server(Handler, self.host, self.port)
+        glog.info("volume server up on %s:%d (%d volumes, ec backend %s, turbo %s) "
+                  "-> master %s", self.host, self.port,
                   sum(len(loc.volumes) for loc in self.store.locations),
-                  self.store.ec_backend, self.master_url)
+                  self.store.ec_backend, "on" if self.turbo is not None else "off",
+                  self.master_url)
         try:
             self._heartbeat_once()
         except Exception:  # noqa: BLE001 — the beat loop retries
@@ -1200,14 +1469,66 @@ class VolumeServer:
             self._scrub_thread.start()
         return self
 
+    def _start_turbo(self, handler_cls) -> None:
+        """The native engine takes the public port and this daemon moves to
+        a loopback port that the engine proxies every other request to, as
+        the JAX package's server does by default. Off under SWEED_TURBO=0 or
+        with an IP whitelist (which stays in Python). An engine that cannot
+        be built or bound leaves the daemon on the public port, with the
+        reason in ``/status`` and the log."""
+        from ..storage.turbo import TurboEngine, load, load_error
+
+        if os.environ.get("SWEED_TURBO", "1") == "0":
+            self.turbo_reason = "SWEED_TURBO=0"
+            return
+        if not self.guard.allow_all:
+            self.turbo_reason = "an IP whitelist is served by Python"
+            return
+        if load() is None:
+            self.turbo_reason = f"engine unavailable: {load_error()}"
+            return
+        internal = start_server(handler_cls, TURBO_BACKEND_HOST, 0)
+        try:
+            iport = internal.server_address[1]
+            self.turbo = TurboEngine(self.host, self.port, TURBO_BACKEND_HOST, iport)
+            if self.jwt_signing_key or self.jwt_read_key:
+                # fid JWTs are verified in the engine (HMAC-SHA256), so auth
+                # keeps the fast path
+                self.turbo.set_jwt_keys(self.jwt_signing_key, self.jwt_read_key)
+            self._srv = internal
+            self.store.turbo_engine = self.turbo
+            self.store.attach_turbo_all()
+        except Exception as e:  # noqa: BLE001 — served from Python, said in /status
+            glog.warning("turbo engine disabled: %s", e)
+            self.turbo_reason = f"{type(e).__name__}: {e}"
+            if self.turbo is not None:
+                self.turbo.stop()
+                self.turbo = None
+            self.store.turbo_engine = None
+            self._srv = None
+            internal.shutdown()
+            internal.server_close()
+            return
+        self.turbo_reason = ""
+        glog.info("turbo data plane on %s:%d (%d workers) -> python %s:%d",
+                  self.host, self.port, self.turbo.threads, TURBO_BACKEND_HOST, iport)
+
     def stop(self) -> None:
         self._stop.set()
         self.store.delta_event.set()  # wake the heartbeat loop so it exits
         if self._hb_thread is not None:
             self._hb_thread.join(timeout=5.0)
         self._join_scrub()
+        # the public port first (the engine finishes its in-flight proxies
+        # against the still-live loopback server), then the loopback server,
+        # then the store (each volume's detach is a no-op against the
+        # stopped engine)
+        if self.turbo is not None:
+            self.turbo.stop()
         if self._srv is not None:
             self._srv.shutdown()
             self._srv.server_close()
         self.store.close()
+        self.store.turbo_engine = None
+        self.turbo = None
         glog.info("volume server %s:%d stopped", self.host, self.port)

@@ -11,8 +11,9 @@ status sections read percentiles from (the master's assign summary in
   computes server-side), so a status page answers without a scrape
   pipeline.
 
-The histograms are built directly. The metrics registry, the text
-exposition with its exemplars, and ``/metrics`` are not ported yet.
+- ``expose()`` — the Prometheus text lines ``/metrics`` serves
+  (``stats/metrics.py`` registers the histograms). The reference's
+  exemplars (a trace id per bucket) come with tracing and are not ported.
 """
 
 from __future__ import annotations
@@ -25,6 +26,19 @@ _DEFAULT_BUCKETS = (
     0.0001, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
     0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
 )
+
+
+def _escape_label_value(v) -> str:
+    """Prometheus text-format label escaping: backslash, double quote and
+    newline are the three characters the format requires escaped."""
+    return str(v).replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _fmt_labels(labels: dict) -> str:
+    if not labels:
+        return ""
+    inner = ",".join(f'{k}="{_escape_label_value(v)}"' for k, v in sorted(labels.items()))
+    return "{" + inner + "}"
 
 
 class Histogram:
@@ -115,3 +129,23 @@ class Histogram:
             "p50_ms": round(p50 * 1000.0, 3) if p50 is not None else None,
             "p99_ms": round(p99 * 1000.0, 3) if p99 is not None else None,
         }
+
+    def expose(self) -> list[str]:
+        """Prometheus text lines: cumulative ``_bucket`` counts per ``le``,
+        then ``_sum`` and ``_count``, per label set."""
+        out = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} histogram"]
+        with self._lock:
+            keys = sorted(self._counts)
+            counts = {k: list(v) for k, v in self._counts.items()}
+            totals = dict(self._total)
+            sums = dict(self._sum)
+        for key in keys:
+            labels = dict(key)
+            for i, b in enumerate(self.buckets):
+                lb = {**labels, "le": repr(b)}
+                out.append(f"{self.name}_bucket{_fmt_labels(lb)} {counts[key][i]}")
+            lb = {**labels, "le": "+Inf"}
+            out.append(f"{self.name}_bucket{_fmt_labels(lb)} {totals[key]}")
+            out.append(f"{self.name}_sum{_fmt_labels(labels)} {sums[key]}")
+            out.append(f"{self.name}_count{_fmt_labels(labels)} {totals[key]}")
+        return out

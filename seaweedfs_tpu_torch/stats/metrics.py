@@ -1,16 +1,34 @@
-"""Labelled counters, and the query engine's and the scrub's metrics.
+"""Metrics registry with Prometheus text exposition.
 
-The part of the reference's metrics (`weed/stats/metrics.go`) that the scan
-engine and the background scrub need: a thread-safe labelled ``Counter``,
-and the ``sweed_query_*`` and ``sweed_scrub_*`` counters under the
-reference's names. The counters are bumped from the
-volume servers' request and scrub threads, so every read and update takes the
-counter's lock. The registry and its exposition come with ``/metrics``.
+The port of the JAX package's ``stats/metrics.py`` (after the reference's
+`weed/stats/metrics.go`): labelled ``Counter`` and
+``Gauge`` (a gauge may read a function at exposition time), the
+``Registry`` that ``/metrics`` of the volume server and the master expose
+in the Prometheus text format, and ``default_registry`` with the gauges and
+counters under the reference's names:
+
+- ``sweed_serving_*``: the serving core (``server/http_util.SERVING``);
+- ``sweed_heat_*``: the volumes' heat (``stats/heat.py``);
+- ``sweed_ncache_*``: the hot-needle cache (``util/needle_cache.py``);
+- ``sweed_fleet_*``: the master's EC scheduler (``cluster/fleet.py``);
+- ``sweed_query_*``: the scan engine (``query/scan.py``);
+- ``sweed_scrub_*``: the background scrub.
+
+Counters and gauges are bumped and read from request and background
+threads, so each takes its own lock. Not ported: the gauges of features the
+port has not got yet (the lock sanitizer, the QoS governor, hedged reads
+and deadlines, filer sync, the lifecycle autopilot), the push-gateway
+client, and the host probes (``disk_status``, ``memory_status``), which
+nothing in the JAX package's daemons prints.
 """
 
 from __future__ import annotations
 
 import threading
+from typing import Callable, Optional
+
+from ..util import glog
+from .histogram import Histogram, _fmt_labels
 
 
 class Counter:
@@ -33,23 +51,234 @@ class Counter:
         with self._lock:
             return sum(self._values.values())
 
+    def expose(self) -> list[str]:
+        out = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} counter"]
+        with self._lock:
+            items = sorted(self._values.items())
+        for key, v in items:
+            out.append(f"{self.name}{_fmt_labels(dict(key))} {v}")
+        return out
 
-def register_query_metrics() -> dict[str, Counter]:
+
+class Gauge:
+    def __init__(self, name: str, help_: str = ""):
+        self.name, self.help = name, help_
+        self._values: dict[tuple, float] = {}
+        self._fns: dict[tuple, Callable[[], float]] = {}
+        self._lock = threading.Lock()
+
+    def set(self, value: float, **labels) -> None:
+        with self._lock:
+            self._values[tuple(sorted(labels.items()))] = float(value)
+
+    def set_function(self, fn: Callable[[], float], **labels) -> None:
+        """A gauge read from ``fn`` at exposition time."""
+        with self._lock:
+            self._fns[tuple(sorted(labels.items()))] = fn
+
+    def value(self, **labels) -> float:
+        key = tuple(sorted(labels.items()))
+        with self._lock:
+            fn = self._fns.get(key)
+            if fn is None:
+                return self._values.get(key, 0.0)
+        return float(fn())
+
+    def expose(self) -> list[str]:
+        out = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} gauge"]
+        with self._lock:
+            items = dict(self._values)
+            fns = dict(self._fns)
+        for key, fn in fns.items():
+            try:
+                items[key] = float(fn())
+            except Exception as e:  # noqa: BLE001 — one probe must not break /metrics
+                glog.V(2).info("gauge %s callback failed: %s", self.name, e)
+        for key, v in sorted(items.items()):
+            out.append(f"{self.name}{_fmt_labels(dict(key))} {v}")
+        return out
+
+
+class Registry:
+    def __init__(self):
+        self._metrics: dict[str, object] = {}
+        self._lock = threading.Lock()
+
+    def counter(self, name: str, help_: str = "") -> Counter:
+        return self._get_or_make(name, lambda: Counter(name, help_))
+
+    def gauge(self, name: str, help_: str = "") -> Gauge:
+        return self._get_or_make(name, lambda: Gauge(name, help_))
+
+    def histogram(self, name: str, help_: str = "", buckets=None) -> Histogram:
+        return self._get_or_make(name, lambda: Histogram(name, help_, buckets))
+
+    def register(self, metric):
+        """Add an existing metric object (a module-level histogram); the
+        first one registered under a name wins."""
+        return self._get_or_make(metric.name, lambda: metric)
+
+    def _get_or_make(self, name, factory):
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None:
+                m = factory()
+                self._metrics[name] = m
+            return m
+
+    def expose(self) -> str:
+        lines: list[str] = []
+        with self._lock:
+            metrics = list(self._metrics.values())
+        for m in metrics:
+            lines.extend(m.expose())
+        return "\n".join(lines) + "\n"
+
+
+default_registry = Registry()
+
+
+def _gauges(reg: Registry, snap: Callable[[str], float], specs) -> None:
+    for name, help_, key in specs:
+        reg.gauge(name, help_).set_function(lambda key=key: snap(key))
+
+
+def register_serving_metrics(registry: Optional[Registry] = None) -> None:
+    """Gauges over the serving core (``server/http_util.SERVING``)."""
+
+    def snap(key):
+        from ..server.http_util import SERVING  # stats must not import the server at import
+
+        return SERVING.snapshot().get(key, 0)
+
+    _gauges(registry or default_registry, snap, (
+        ("sweed_serving_inflight", "connections currently inside live HTTP servers",
+         "inflight"),
+        ("sweed_serving_admission_rejected_total",
+         "connections shed with 503 + Retry-After at the watermark", "admission_rejected"),
+        ("sweed_serving_keepalive_shed_total",
+         "keep-alive replies downgraded to Connection: close while overloaded",
+         "keepalive_shed"),
+        ("sweed_serving_loop_lag_ms", "event-loop scheduling lag, last sample (aio mode)",
+         "loop_lag_ms"),
+        ("sweed_serving_loop_lag_max_ms",
+         "worst event-loop scheduling lag observed (aio mode)", "loop_lag_max_ms"),
+        ("sweed_serving_request_p99_ms",
+         "p99 request service time over the recent ring (feeds Retry-After)",
+         "request_p99_ms"),
+        ("sweed_serving_reaped_idle_total",
+         "connections reaped for exceeding the idle timeout (slow-loris)", "reaped_idle"),
+        ("sweed_serving_reaped_deadline_total",
+         "connections reaped for exceeding the handler deadline", "reaped_deadline"),
+        ("sweed_serving_native_hits_total",
+         "requests served by native-async fast-path handlers (no bridge)", "native_hits"),
+        ("sweed_serving_native_fallbacks_total",
+         "native-handler requests punted to the bridged worker path", "native_fallbacks"),
+    ))
+
+
+def register_heat_metrics(registry: Optional[Registry] = None) -> None:
+    """Gauges over the volumes' heat, summed across every live store."""
+
+    def snap(key):
+        from .heat import heat_stats
+
+        return heat_stats().get(key, 0)
+
+    _gauges(registry or default_registry, snap, (
+        ("sweed_heat_read", "decayed read-op heat summed over local volumes", "read_heat"),
+        ("sweed_heat_write", "decayed write-op heat summed over local volumes",
+         "write_heat"),
+        ("sweed_heat_max_volume", "hottest single local volume (read+write heat)",
+         "max_volume_heat"),
+    ))
+
+
+def register_ncache_metrics(registry: Optional[Registry] = None) -> None:
+    """Gauges over the hot-needle caches (one per volume server)."""
+
+    def snap(key):
+        from ..util.needle_cache import ncache_stats
+
+        return ncache_stats().get(key, 0)
+
+    _gauges(registry or default_registry, snap, (
+        ("sweed_ncache_hits_total", "volume GETs answered from the hot-needle RAM cache",
+         "hits"),
+        ("sweed_ncache_misses_total", "cacheable volume GETs that fell through to disk",
+         "misses"),
+        ("sweed_ncache_evictions_total", "entries evicted to hold the byte budget",
+         "evictions"),
+        ("sweed_ncache_bytes", "payload bytes resident in the hot-needle cache", "bytes"),
+        ("sweed_ncache_entries", "needles resident in the hot-needle cache", "entries"),
+    ))
+
+
+def register_fleet_metrics(registry: Optional[Registry] = None) -> None:
+    """Gauges over the master's EC scheduler: job counts, and the encode
+    GB/s of each member keyed by its url."""
+    reg = registry or default_registry
+
+    def snap(key):
+        from ..cluster.fleet import fleet_stats
+
+        return fleet_stats().get(key, 0)
+
+    _gauges(reg, snap, (
+        ("sweed_fleet_members", "volume servers reporting jax.distributed mesh coordinates",
+         "members"),
+        ("sweed_fleet_jobs_scheduled_total", "EC jobs accepted by the fleet scheduler",
+         "jobs_scheduled"),
+        ("sweed_fleet_jobs_running", "EC jobs queued or in flight on a member",
+         "jobs_running"),
+        ("sweed_fleet_jobs_done_total", "EC jobs that committed their shard set",
+         "jobs_done"),
+        ("sweed_fleet_jobs_failed_total",
+         "EC jobs that errored (member death, missing volume, ...)", "jobs_failed"),
+        ("sweed_fleet_retries_total", "EC job dispatches re-queued onto a different member",
+         "jobs_retried"),
+        ("sweed_fleet_preempted_total",
+         "running EC jobs pulled back because their member went dark", "jobs_preempted"),
+    ))
+    gbps = reg.gauge("sweed_fleet_member_encode_gbps",
+                     "last observed encode throughput per member (volume bytes / wall s)")
+
+    def push_members():
+        # per-member label sets change: refresh them at every read
+        from ..cluster.fleet import fleet_stats
+
+        per = fleet_stats().get("member_gbps", {})
+        for url, v in per.items():
+            gbps.set(v, member=url)
+        return len(per)
+
+    reg.gauge("sweed_fleet_members_measured",
+              "members with at least one completed encode job").set_function(push_members)
+
+
+register_serving_metrics()
+register_heat_metrics()
+register_ncache_metrics()
+register_fleet_metrics()
+
+
+def register_query_metrics(registry: Optional[Registry] = None) -> dict[str, Counter]:
     """Counters for the scan engine (query/scan.py): rows and bytes pushed
     through scan plans, and the kernel-vs-exact-lane split that tells an
     operator whether their data shape vectorizes. Scans are labelled by
     backend (cuda / cpu)."""
+    reg = registry or default_registry
     return {
-        "rows": Counter("sweed_query_rows_scanned_total",
-                        "documents evaluated by scan plans"),
-        "bytes": Counter("sweed_query_bytes_scanned_total",
-                         "object bytes fed through scan plans"),
-        "kernel": Counter("sweed_query_rows_kernel_total",
-                          "rows decided by the vectorized kernels"),
-        "fallback": Counter("sweed_query_rows_fallback_total",
-                            "rows routed to the row-at-a-time exact lane"),
-        "scans": Counter("sweed_query_scans_total",
-                         "scan plan executions, by backend label"),
+        "rows": reg.counter("sweed_query_rows_scanned_total",
+                            "documents evaluated by scan plans"),
+        "bytes": reg.counter("sweed_query_bytes_scanned_total",
+                             "object bytes fed through scan plans"),
+        "kernel": reg.counter("sweed_query_rows_kernel_total",
+                              "rows decided by the vectorized kernels"),
+        "fallback": reg.counter("sweed_query_rows_fallback_total",
+                                "rows routed to the row-at-a-time exact lane"),
+        "scans": reg.counter("sweed_query_scans_total",
+                             "scan plan executions, by backend label"),
     }
 
 
@@ -67,19 +296,20 @@ def query_stats() -> dict:
     }
 
 
-def register_scrub_metrics() -> dict[str, Counter]:
+def register_scrub_metrics(registry: Optional[Registry] = None) -> dict[str, Counter]:
     """Counters for the background CRC scrub (server/volume_server.py,
     SWEED_SCRUB=1). They are process-wide: several volume servers in one
     process add into the same counters."""
+    reg = registry or default_registry
     return {
-        "checked": Counter("sweed_scrub_needles_checked_total",
-                           "needle CRCs verified by the background scrub"),
-        "bytes": Counter("sweed_scrub_bytes_total",
-                         "needle payload bytes read back by the scrub"),
-        "errors": Counter("sweed_scrub_crc_errors_total",
-                          "needles whose stored CRC did not match the payload"),
-        "rounds": Counter("sweed_scrub_rounds_total",
-                          "full passes completed over a volume"),
+        "checked": reg.counter("sweed_scrub_needles_checked_total",
+                               "needle CRCs verified by the background scrub"),
+        "bytes": reg.counter("sweed_scrub_bytes_total",
+                             "needle payload bytes read back by the scrub"),
+        "errors": reg.counter("sweed_scrub_crc_errors_total",
+                              "needles whose stored CRC did not match the payload"),
+        "rounds": reg.counter("sweed_scrub_rounds_total",
+                              "full passes completed over a volume"),
     }
 
 

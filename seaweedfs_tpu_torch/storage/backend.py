@@ -53,14 +53,18 @@ class DiskFile(BackendStorageFile):
         self._f = open(path, mode, buffering=0)
         self._lock = threading.Lock()
 
+    # Positional IO (pread/pwrite) never moves the file offset, which the fd
+    # shares with its dups: a zero-copy reply sendfiles from a dup of this fd,
+    # and socket.sendfile / loop.sendfile seek that dup when they finish. A
+    # seek-then-read here could read at the position such a seek left behind.
     def read_at(self, offset: int, size: int) -> bytes:
-        # raw FileIO reads are single syscalls and may be partial
+        # a pread may return fewer bytes than asked
         with self._lock:
-            self._f.seek(offset)
+            fd = self._f.fileno()
             chunks = []
             remaining = size
             while remaining > 0:
-                b = self._f.read(remaining)
+                b = os.pread(fd, remaining, offset + size - remaining)
                 if not b:
                     break  # EOF
                 chunks.append(b)
@@ -69,11 +73,11 @@ class DiskFile(BackendStorageFile):
 
     def write_at(self, offset: int, data: bytes) -> int:
         with self._lock:
-            self._f.seek(offset)
+            fd = self._f.fileno()
             view = memoryview(data)
             written = 0
             while written < len(data):
-                n = self._f.write(view[written:])
+                n = os.pwrite(fd, view[written:], offset + written)
                 if not n:
                     raise OSError(f"short write at {offset + written} in {self._path}")
                 written += n

@@ -179,6 +179,9 @@ class Store:
         self.ec_backend = ec_backend or "cuda"
         self._ec_codec: Optional[Codec] = None
         self._codec_lock = threading.Lock()
+        # the native data plane (storage/turbo.py), set by the volume server
+        # when the engine owns its public port
+        self.turbo_engine = None
         self.remote_shard_reader: Optional[RemoteShardReader] = None
         # delta queues drained by the heartbeat loop (store.go:33-50);
         # delta_event wakes it for an instant delta beat
@@ -220,8 +223,23 @@ class Store:
         v = Volume(loc.directory, collection, vid, replica_placement, ttl,
                    needle_map_kind=self.needle_map_kind)
         loc.add_volume(v)
+        self.attach_turbo_volume(v)
         self.queue_new_volume(v)
         return v
+
+    def attach_turbo_volume(self, v: Volume) -> None:
+        """Hand a volume's data plane to the native engine, if one is up.
+        A replicated volume keeps its HTTP writes in Python (the fan-out),
+        but the engine still owns its appends and index."""
+        if self.turbo_engine is None:
+            return
+        writable_http = v.super_block.replica_placement.copy_count() == 1
+        v.attach_turbo(self.turbo_engine, writable_http)
+
+    def attach_turbo_all(self) -> None:
+        for loc in self.locations:
+            for v in list(loc.volumes.values()):
+                self.attach_turbo_volume(v)
 
     def find_volume(self, vid: int) -> Optional[Volume]:
         for loc in self.locations:
@@ -280,6 +298,7 @@ class Store:
                 v = Volume(loc.directory, collection, vid, create_if_missing=False,
                            needle_map_kind=loc.needle_map_kind)
                 loc.add_volume(v)
+                self.attach_turbo_volume(v)
                 self.queue_new_volume(v)
                 return v
         return None
@@ -367,6 +386,23 @@ class Store:
         if ev is not None:
             return self.read_ec_shard_needle(ev, n)
         raise NotFoundError(f"volume {vid} not found")
+
+    def read_volume_needle_extent(self, vid: int, n: Needle, min_size: int = 0):
+        """Zero-copy read setup of a plain volume's needle
+        (``Volume.read_needle_extent``); None for an EC volume, whose data
+        has no contiguous extent on disk (the caller reads buffered)."""
+        v = self.find_volume(vid)
+        if v is None:
+            return None
+        v.read_heat.mark()
+        return v.read_needle_extent(n, min_size)
+
+    def note_volume_read(self, vid: int) -> None:
+        """Count a read answered without touching the volume (a hot-needle
+        cache hit): the heat signal must still see it."""
+        v = self.find_volume(vid)
+        if v is not None:
+            v.read_heat.mark()
 
     # -- EC encode -----------------------------------------------------------
     def ec_encode_volume(self, vid: int) -> list[int]:

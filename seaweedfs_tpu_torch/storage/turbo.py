@@ -1,0 +1,307 @@
+"""ctypes bindings for the native turbo data plane (``csrc/turbo.cpp``).
+
+The port's counterpart of the JAX package's ``native/turbo.py``.
+``TurboEngine`` wraps one native engine instance: epoll HTTP workers on the
+volume server's public port, plus the needle state of the volumes attached
+to it. While a volume is attached the engine is the single writer of its
+.dat/.idx; the Python ``Volume`` delegates through ``TurboNeedleMap``
+(lookups, counters) and ``TurboEngine.append`` (the writes the engine's
+fast path proxies back to Python: TTL'd needles, replicated fan-out,
+manifest cascades).
+
+The library is built at first use with the system ``g++`` (and zlib) into
+the git-ignored ``csrc/build/``, under a file name hashed from the source,
+the flags and the host CPU (the build is ``-march=native``), and moved into
+place with ``os.replace``, so several
+processes building at once never load a half-written file. Nothing is built
+at import. ``load_error()`` says why the engine is unavailable (the
+compiler's stderr included) when it is.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import platform
+import shutil
+import subprocess
+import threading
+from typing import Optional
+
+from ..util import glog
+from . import idx as idx_mod
+from .needle_map import NeedleMapper, NeedleValue
+from .types import OFFSET_SIZE, size_is_valid
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+SOURCE = os.path.join(_CSRC, "turbo.cpp")
+BUILD_DIR = os.path.join(_CSRC, "build")
+CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-shared",
+             "-fvisibility=hidden")
+LD_FLAGS = ("-lpthread", "-lz")
+
+
+def _cpu_signature() -> bytes:
+    """The host CPU's model and feature flags: ``-march=native`` code built
+    on one CPU may not run on another, so a library is reused only where it
+    was built for the same one."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            lines = [ln for ln in f.read().splitlines()
+                     if ln.startswith((b"model name", b"flags"))]
+        return b"\n".join(sorted(set(lines)))
+    except OSError:
+        return platform.machine().encode()
+
+
+def build() -> str:
+    """Compile ``turbo.cpp`` into ``csrc/build/`` unless a library built
+    from the same source and flags, for this CPU, is there. Returns its
+    path; raises RuntimeError (with the compiler's output) when it cannot be
+    built."""
+    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    if cxx is None:
+        raise RuntimeError("no C++ compiler (g++): cannot build turbo.cpp")
+    with open(SOURCE, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(CXX_FLAGS + LD_FLAGS).encode()
+                                + _cpu_signature()).hexdigest()[:16]
+    lib_path = os.path.join(BUILD_DIR, f"libturbo-{digest}.so")
+    if os.path.exists(lib_path):
+        return lib_path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib_path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    res = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, SOURCE, *LD_FLAGS],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        try:
+            os.remove(tmp)
+        except FileNotFoundError:
+            pass
+        raise RuntimeError(f"g++ failed ({res.returncode}) building turbo.cpp:\n"
+                           f"{res.stdout}{res.stderr}")
+    os.replace(tmp, lib_path)  # atomic: a concurrent build sees all or nothing
+    return lib_path
+
+
+_lock = threading.Lock()
+_lib = None
+_load_error: Optional[str] = None
+
+
+def _bind(lib) -> None:
+    lib.turbo_start.restype = ctypes.c_longlong
+    lib.turbo_start.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p,
+                                ctypes.c_int, ctypes.c_int]
+    lib.turbo_stop.argtypes = [ctypes.c_longlong]
+    lib.turbo_set_jwt.argtypes = [ctypes.c_longlong, ctypes.c_char_p, ctypes.c_char_p]
+    lib.turbo_register.restype = ctypes.c_int
+    lib.turbo_register.argtypes = [ctypes.c_longlong, ctypes.c_uint, ctypes.c_char_p,
+                                   ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_int]
+    lib.turbo_unregister.restype = ctypes.c_int
+    lib.turbo_unregister.argtypes = [ctypes.c_longlong, ctypes.c_uint]
+    lib.turbo_lookup.restype = ctypes.c_int
+    lib.turbo_lookup.argtypes = [ctypes.c_longlong, ctypes.c_uint, ctypes.c_ulonglong,
+                                 ctypes.POINTER(ctypes.c_ulonglong),
+                                 ctypes.POINTER(ctypes.c_int)]
+    lib.turbo_append.restype = ctypes.c_int
+    lib.turbo_append.argtypes = [ctypes.c_longlong, ctypes.c_uint, ctypes.c_ulonglong,
+                                 ctypes.c_char_p, ctypes.c_ulonglong, ctypes.c_int,
+                                 ctypes.c_int, ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.turbo_stats.restype = ctypes.c_int
+    lib.turbo_stats.argtypes = [ctypes.c_longlong, ctypes.c_uint,
+                                ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.turbo_set_readonly.restype = ctypes.c_int
+    lib.turbo_set_readonly.argtypes = [ctypes.c_longlong, ctypes.c_uint, ctypes.c_int]
+    lib.turbo_sync.restype = ctypes.c_int
+    lib.turbo_sync.argtypes = [ctypes.c_longlong, ctypes.c_uint]
+    lib.turbo_counters.argtypes = [ctypes.c_longlong, ctypes.POINTER(ctypes.c_ulonglong)]
+
+
+def load():
+    """The bound library, built on first call; None when it cannot be
+    built or loaded (``load_error()`` says why, and a warning was logged
+    with the compiler's output)."""
+    global _lib, _load_error
+    with _lock:
+        if _lib is None and _load_error is None:
+            try:
+                lib = ctypes.CDLL(build(), mode=os.RTLD_LOCAL)
+                _bind(lib)
+                _lib = lib
+            except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+                _load_error = f"{type(e).__name__}: {e}"
+                glog.warning("turbo engine unavailable: %s", _load_error)
+    return _lib
+
+
+def load_error() -> Optional[str]:
+    return _load_error
+
+
+def library_path() -> Optional[str]:
+    """Path of the loaded engine library, or None before it is loaded."""
+    return _lib._name if _lib is not None else None
+
+
+class TurboEngine:
+    """One native engine instance: HTTP workers and attached volumes."""
+
+    def __init__(self, bind_ip: str, port: int, backend_ip: str,
+                 backend_port: int, threads: int = 0):
+        lib = load()
+        if lib is None:
+            raise RuntimeError(f"native turbo library unavailable: {_load_error}")
+        if threads <= 0:
+            threads = int(os.environ.get("SWEED_TURBO_THREADS", "0") or 0)
+        if threads <= 0:
+            ncpu = os.cpu_count() or 1
+            threads = min(4, max(1, ncpu - 1)) if ncpu > 1 else 1
+        self._lib = lib
+        self._h = lib.turbo_start(bind_ip.encode(), port, backend_ip.encode(),
+                                  backend_port, threads)
+        if not self._h:
+            raise RuntimeError(f"turbo_start failed to bind {bind_ip}:{port}")
+        self.port = port
+        self.threads = threads
+
+    def set_jwt_keys(self, write_key: str, read_key: str) -> None:
+        """Install fid-JWT keys for native verification (before any volume
+        is attached; ``security/jwt.py`` semantics)."""
+        self._lib.turbo_set_jwt(self._h, write_key.encode(), read_key.encode())
+
+    def stop(self) -> None:
+        if self._h:
+            self._lib.turbo_stop(self._h)
+            self._h = 0
+
+    # -- volume attach/detach ------------------------------------------------
+    def register(self, vid: int, dat_path: str, idx_path: str, version: int,
+                 offset_size: int, writable_http: bool, read_only: bool) -> bool:
+        rc = self._lib.turbo_register(self._h, vid, dat_path.encode(), idx_path.encode(),
+                                      version, offset_size, 1 if writable_http else 0,
+                                      1 if read_only else 0)
+        if rc != 0:
+            glog.V(1).info("turbo register vid %d failed rc=%d", vid, rc)
+        return rc == 0
+
+    def unregister(self, vid: int) -> bool:
+        return self._lib.turbo_unregister(self._h, vid) == 0
+
+    # -- delegated needle-map ops -------------------------------------------
+    def lookup(self, vid: int, key: int) -> Optional[tuple[int, int]]:
+        off = ctypes.c_ulonglong()
+        size = ctypes.c_int()
+        rc = self._lib.turbo_lookup(self._h, vid, key, ctypes.byref(off), ctypes.byref(size))
+        if rc == 1:
+            return off.value, size.value
+        if rc == 0:
+            return None
+        raise KeyError(f"volume {vid} not attached to turbo")
+
+    def append(self, vid: int, key: int, record: bytes, size_field: int,
+               is_delete: bool) -> int:
+        out = ctypes.c_ulonglong()
+        rc = self._lib.turbo_append(self._h, vid, key, record, len(record), size_field,
+                                    1 if is_delete else 0, ctypes.byref(out))
+        if rc != 0:
+            raise OSError(f"turbo_append vid {vid} failed rc={rc}")
+        return out.value
+
+    def stats(self, vid: int) -> dict:
+        buf = (ctypes.c_ulonglong * 9)()
+        if self._lib.turbo_stats(self._h, vid, buf) != 0:
+            raise KeyError(f"volume {vid} not attached to turbo")
+        return {"file_count": buf[0], "file_bytes": buf[1], "del_count": buf[2],
+                "del_bytes": buf[3], "max_key": buf[4], "dat_size": buf[5],
+                "idx_size": buf[6], "last_modified_s": buf[7], "last_append_ns": buf[8]}
+
+    def set_readonly(self, vid: int, ro: bool) -> None:
+        self._lib.turbo_set_readonly(self._h, vid, 1 if ro else 0)
+
+    def sync(self, vid: int) -> None:
+        self._lib.turbo_sync(self._h, vid)
+
+    def counters(self) -> dict:
+        buf = (ctypes.c_ulonglong * 4)()
+        self._lib.turbo_counters(self._h, buf)
+        return {"gets": buf[0], "posts": buf[1], "deletes": buf[2], "proxied": buf[3]}
+
+
+class TurboNeedleMap(NeedleMapper):
+    """NeedleMapper view over the engine's per-volume state.
+
+    Installed by ``Volume.attach_turbo``. Mutations never come through here:
+    the Volume routes them through ``TurboEngine.append``, so the .dat
+    append, the .idx entry and the map update stay atomic under the
+    engine's lock."""
+
+    def __init__(self, engine: TurboEngine, vid: int, index_file,
+                 offset_size: int = OFFSET_SIZE):
+        self.engine = engine
+        self.vid = vid
+        self._index_file = index_file  # kept for the reload at detach
+        self._offset_size = offset_size
+
+    def get(self, key: int) -> Optional[NeedleValue]:
+        hit = self.engine.lookup(self.vid, key)
+        if hit is None:
+            return None
+        return NeedleValue(key, hit[0], hit[1])
+
+    def put(self, key: int, offset: int, size: int) -> None:
+        raise RuntimeError("turbo volume: put must go through Volume.write_needle")
+
+    def delete(self, key: int, offset: int) -> None:
+        raise RuntimeError("turbo volume: delete must go through Volume.delete_needle")
+
+    def ascending_visit(self, fn) -> None:
+        # a rare admin path (needle listing): replay the .idx, which the
+        # engine keeps current with every append
+        live: dict[int, tuple[int, int]] = {}
+        with open(self._index_file.name, "rb") as f:
+            for key, off, size in idx_mod.iter_index_file(f, self._offset_size):
+                if size_is_valid(size):
+                    live[key] = (off, size)
+                else:
+                    old = live.get(key)
+                    if old is not None:
+                        live[key] = (old[0], -abs(old[1]))
+        for key in sorted(live):
+            off, size = live[key]
+            fn(NeedleValue(key, off, size))
+
+    # -- counters (mapMetric parity) ----------------------------------------
+    def _s(self) -> dict:
+        return self.engine.stats(self.vid)
+
+    def content_size(self) -> int:
+        return self._s()["file_bytes"]
+
+    def deleted_size(self) -> int:
+        return self._s()["del_bytes"]
+
+    def file_count(self) -> int:
+        return self._s()["file_count"]
+
+    def deleted_count(self) -> int:
+        return self._s()["del_count"]
+
+    @property
+    def max_file_key(self) -> int:
+        return self._s()["max_key"]
+
+    def index_file_size(self) -> int:
+        return self._s()["idx_size"]
+
+    def sync(self) -> None:
+        self.engine.sync(self.vid)
+
+    def release(self) -> None:
+        pass
+
+    def close(self) -> None:
+        # the engine's detach closes its own fds; the shared Python handle
+        # is closed by the Volume on its full close
+        pass

@@ -14,11 +14,18 @@ Mirrors `weed/storage/volume.go` + `volume_read_write.go` +
   through the staged commit, bumping the super block's compaction revision.
 
 One lock per volume; writes are synchronous and ``sync()`` is explicit.
-Not ported: the remote S3 tier and the native data-plane attach.
+
+``attach_turbo`` hands a volume's data plane to the native engine
+(``storage/turbo.py``): while attached the engine is the single writer of
+the .dat/.idx, lookups and counters go through it, and the Python write and
+delete paths append their records through it. ``compact`` detaches for the
+rewrite and attaches again over the new files. Not ported: the remote S3
+tier.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import struct
 import threading
@@ -104,6 +111,9 @@ class Volume:
         self.id = vid
         self.offset_size = offset_size
         self.needle_map_kind = needle_map_kind
+        # the native engine (storage/turbo.py) while it owns the data plane
+        self.turbo = None
+        self._turbo_writable_http = True
         self.read_only = False
         self.last_append_at_ns = 0
         self._lock = threading.RLock()
@@ -149,6 +159,70 @@ class Volume:
 
     def _load_needle_map(self, idx_file):
         return NEEDLE_MAP_KINDS[self.needle_map_kind].load(idx_file, self.offset_size)
+
+    # -- native turbo attach/detach ------------------------------------------
+    @property
+    def read_only(self) -> bool:
+        return self._read_only
+
+    @read_only.setter
+    def read_only(self, value: bool) -> None:
+        self._read_only = value
+        engine = self.turbo
+        if engine is not None:  # the engine refuses its own writes too
+            engine.set_readonly(self.id, value)
+
+    def attach_turbo(self, engine, writable_http: bool = True) -> bool:
+        """Hand the data plane to the native engine. Refused for volumes the
+        engine cannot own (a non-disk backend, a volume-level TTL the native
+        writer would not inherit)."""
+        if self.turbo is not None:
+            return True
+        if not isinstance(self.data_backend, DiskFile):
+            return False
+        if self.ttl != EMPTY_TTL:
+            return False
+        from .turbo import TurboNeedleMap
+
+        base = self.file_name()
+        with self._lock:
+            self.sync()  # the engine must see a complete .dat
+            if not engine.register(self.id, base + ".dat", base + ".idx", self.version,
+                                   self.offset_size, writable_http, self._read_only):
+                return False
+            idx_file = self.nm._index_file
+            self.nm.release()
+            self.nm = TurboNeedleMap(engine, self.id, idx_file, self.offset_size)
+            self.turbo = engine
+            self._turbo_writable_http = writable_http
+        return True
+
+    def detach_turbo(self, reload_map: bool = True) -> None:
+        """Take the data plane back: reload the Python needle map from the
+        .idx the engine kept current."""
+        if self.turbo is None:
+            return
+        with self._lock:
+            engine = self.turbo
+            self.turbo = None
+            engine.unregister(self.id)
+            idx_file = self.nm._index_file
+            if reload_map:
+                self.nm = self._load_needle_map(idx_file)
+            else:
+                self.nm = CompactNeedleMap(idx_file, self.offset_size)
+
+    @contextlib.contextmanager
+    def _turbo_reattach_ctx(self):
+        """Detach for a file-rewriting operation, attach again after."""
+        engine = self.turbo
+        writable = self._turbo_writable_http
+        self.detach_turbo()
+        try:
+            yield
+        finally:
+            if engine is not None:
+                self.attach_turbo(engine, writable)
 
     # -- identity and counters -----------------------------------------------
     def file_name(self) -> str:
@@ -297,9 +371,20 @@ class Volume:
                 if cookie != n.cookie:
                     raise VolumeError(f"mismatching cookie {n.cookie:x}")
             n.append_at_ns = append_at_ns or time.time_ns()
-            offset = self.data_backend.append(n.to_bytes(self.version))
-            if nv is None or nv.offset < offset:
-                self.nm.put(n.id, offset, n.size)
+            blob = n.to_bytes(self.version)
+            if self.turbo is not None:
+                if n.id == 0xFFFFFFFFFFFFFFFF:
+                    # the native map's empty-slot sentinel: a record under it
+                    # would vanish at the next table growth
+                    raise VolumeError("key ffffffffffffffff is reserved on "
+                                      "native-attached volumes")
+                # the engine appends the record, logs the .idx entry and
+                # updates its map under its own per-volume lock
+                offset = self.turbo.append(self.id, n.id, blob, n.size, False)
+            else:
+                offset = self.data_backend.append(blob)
+                if nv is None or nv.offset < offset:
+                    self.nm.put(n.id, offset, n.size)
             self.last_append_at_ns = n.append_at_ns
             if fsync:
                 self.sync()
@@ -329,8 +414,11 @@ class Volume:
                 return 0
             n.data = b""
             n.append_at_ns = append_at_ns or time.time_ns()
-            offset = self.data_backend.append(n.to_bytes(self.version))
-            self.nm.delete(n.id, offset)
+            blob = n.to_bytes(self.version)
+            if self.turbo is not None:
+                self.turbo.append(self.id, n.id, blob, 0, True)
+            else:
+                self.nm.delete(n.id, self.data_backend.append(blob))
             self.last_append_at_ns = n.append_at_ns
             return nv.size
 
@@ -357,6 +445,69 @@ class Volume:
         if time.time() < n.last_modified + n.ttl.minutes() * 60:
             return len(n.data)
         raise NotFoundError(f"needle {n.id:x} expired")
+
+    def read_needle_extent(self, n: Needle, min_size: int = 0) -> Optional[tuple]:
+        """Zero-copy read setup: parse everything but the data region.
+
+        Returns ``(file, data_offset, data_len)``, where ``file`` is a dup
+        of the .dat fd that the caller sendfiles from ``data_offset`` and
+        must close; or None when the record does not qualify (a v1 layout,
+        an empty needle, below ``min_size``, any parse irregularity), and
+        the caller takes the buffered ``read_needle`` path, which also gives
+        the proper error for a corrupt record. Not found, deleted and
+        expired raise as ``read_needle`` does. ``n``'s metadata (cookie,
+        flags, name, mime, ttl, ...) is filled in and ``n.data`` stays
+        empty. The data CRC is not verified on this path: the bytes go from
+        the page cache to the socket (the scrub is its safety net)."""
+        with self._lock:
+            if self.version == 1:
+                return None
+            backend_fileno = getattr(self.data_backend, "fileno", None)
+            if backend_fileno is None:
+                return None
+            nv = self.nm.get(n.id)
+            if nv is None or nv.offset == 0:
+                raise NotFoundError(f"needle {n.id:x} not found")
+            read_size = nv.size
+            if read_size < 0:
+                raise DeletedError(f"needle {n.id:x} deleted")
+            if read_size == 0:
+                return None
+            head = self.data_backend.read_at(nv.offset, NEEDLE_HEADER_SIZE + 4)
+            if len(head) < NEEDLE_HEADER_SIZE + 4:
+                return None
+            m = Needle()
+            m.parse_header(head[:NEEDLE_HEADER_SIZE])
+            if m.size != read_size:
+                return None  # the buffered path raises the proper mismatch
+            data_len = struct.unpack(">I", head[NEEDLE_HEADER_SIZE:])[0]
+            if data_len < max(1, min_size):
+                return None
+            # the tail: flags byte + optional name/mime/last_modified/ttl/pairs
+            tail_len = read_size - 4 - data_len
+            if tail_len < 1:
+                return None
+            tail = self.data_backend.read_at(nv.offset + NEEDLE_HEADER_SIZE + 4 + data_len,
+                                             tail_len)
+            if len(tail) < tail_len:
+                return None
+            # dup under the lock: a compaction's commit swaps data_backend,
+            # and the offset and the fd must come from the same generation
+            fd = os.dup(backend_fileno())
+        try:
+            # the buffered path's own tail parser, over an empty data region
+            m._read_body_v2(struct.pack(">I", 0) + tail)
+        except Exception:  # noqa: BLE001 — irregular tail: the buffered path decides
+            os.close(fd)
+            return None
+        m.size = read_size
+        n.__dict__.update(m.__dict__)
+        n.data = b""
+        if (n.has(FLAG_HAS_TTL) and n.ttl.minutes() != 0 and n.has(FLAG_HAS_LAST_MODIFIED)
+                and time.time() >= n.last_modified + n.ttl.minutes() * 60):
+            os.close(fd)
+            raise NotFoundError(f"needle {n.id:x} expired")
+        return os.fdopen(fd, "rb", buffering=0), nv.offset + NEEDLE_HEADER_SIZE + 4, data_len
 
     # -- sequential scan -----------------------------------------------------
     def scan_needles(self, verify_crc: bool = False) -> Iterator[tuple[Needle, int, int]]:
@@ -404,7 +555,14 @@ class Volume:
         bytes below the snapshot sizes do not change under the copy.
 
         ``bytes_per_second`` paces the unlocked copy (compactionBytePerSecond);
-        0 is unthrottled."""
+        0 is unthrottled. A volume the native engine owns is detached for the
+        compaction and attached again over the compacted files."""
+        if self.turbo is not None:
+            with self._turbo_reattach_ctx():
+                return self._compact(bytes_per_second)
+        return self._compact(bytes_per_second)
+
+    def _compact(self, bytes_per_second: int) -> None:
         throttler = WriteThrottler(bytes_per_second)
         with self._lock:
             if self._is_compacting:
@@ -519,10 +677,14 @@ class Volume:
     # -- lifecycle -----------------------------------------------------------
     def sync(self) -> None:
         with self._lock:
+            if self.turbo is not None:
+                self.turbo.sync(self.id)
+                return
             self.data_backend.sync()
             self.nm.sync()
 
     def close(self) -> None:
+        self.detach_turbo(reload_map=False)
         with self._lock:
             self.nm.close()
             self.data_backend.close()

@@ -257,3 +257,70 @@ def test_offline_compact_writes_the_reference_files(tmp_path):
     for ext in (".dat", ".idx"):
         assert (tmp_path / "port" / f"c_4{ext}").read_bytes() == \
             (tmp_path / "jax" / f"c_4{ext}").read_bytes()
+
+
+_REPORT_LINE = (r"^(requests/sec: [\d,]+\.\d\d|transfer/sec: [\d,]+\.\d\d MB/s|"
+                r"p(50|90|99) latency: \d+\.\d\d ms|max latency: \d+\.\d\d ms|"
+                r"failed: \d+ / \d+)$")
+
+
+def _report_blocks(out: str) -> dict:
+    """{"write": [lines], "read": [lines]} from a benchmark's output."""
+    blocks, cur = {}, None
+    for line in out.splitlines():
+        if line.startswith("--- ") and line.endswith(" ---"):
+            cur = blocks.setdefault(line[4:-4], [])
+        elif cur is not None and line and not line.startswith("reading"):
+            cur.append(line)
+    return blocks
+
+
+@pytest.mark.parametrize("kind", ["port", "jax"])
+def test_benchmark_cli_against_a_cluster(tmp_path_factory, kind):
+    """``python -m seaweedfs_tpu_torch benchmark -n 2000 -c 8`` against a
+    cluster of either package (engines on): no failure, and the report's
+    lines parse as the reference's do."""
+    import re
+
+    from serving_pair import pair
+
+    with pair(tmp_path_factory, assign_vid=False) as nodes:
+        master = nodes[kind].master.url
+        r = subprocess.run(
+            [sys.executable, "-m", "seaweedfs_tpu_torch", "benchmark", "-master", master,
+             "-n", "2000", "-c", "8", "-deletePercent", "10"],
+            cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+            text=True, timeout=300)
+        assert r.returncode == 0, r.stdout + r.stderr
+        blocks = _report_blocks(r.stdout)
+        assert set(blocks) == {"write", "delete", "read"}, r.stdout
+        for name, lines in blocks.items():
+            assert len(lines) == 7 and all(re.match(_REPORT_LINE, ln) for ln in lines), lines
+            failed = re.match(r"failed: (\d+) / (\d+)", lines[-1])
+            assert failed.group(1) == "0", (name, lines)
+        assert re.match(r"failed: 0 / 2000", blocks["write"][-1])
+        assert r.stdout.startswith("writing 2000 files of 1024B with concurrency 8 "
+                                   "(assign batch 100) ...")
+        c = nodes[kind].vs.turbo.counters()
+        assert c["posts"] >= 2000 and c["gets"] >= 1700, c
+
+
+def test_benchmark_flags_and_report_are_the_reference_ones(capsys):
+    import types
+
+    from seaweedfs_tpu.__main__ import _report as jreport
+    from seaweedfs_tpu_torch.__main__ import _report as preport
+
+    args = types.SimpleNamespace(size=1024)
+    for lat, wall, failures in (([], 1.0, 7), ([0.001 * i for i in range(1, 200)], 2.0, 3)):
+        preport("write", args, lat, wall, failures)
+        port = capsys.readouterr().out
+        jreport("write", args, lat, wall, failures)
+        assert port == capsys.readouterr().out
+        if failures == 7:
+            assert "failed: 7 / 7" in port
+    r = _cli("benchmark", "-h")
+    j = subprocess.run([sys.executable, "-m", "seaweedfs_tpu", "benchmark", "-h"],
+                       cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu"),
+                       capture_output=True, text=True, timeout=120)
+    assert r.stdout.replace("seaweedfs_tpu_torch", "seaweedfs_tpu").split() == j.stdout.split()

@@ -45,7 +45,9 @@ def test_port_imports_nothing_of_jax():
                  "cluster.volume_growth", "cluster.master", "cluster.fleet",
                  "stats.histogram", "wdclient", "server.master_server",
                  "shell.commands", "shell.shell", "util.throttler",
-                 "storage.volume_backup", "stats.metrics"):
+                 "storage.volume_backup", "stats.metrics", "storage.turbo",
+                 "server.aio", "server.status_ui", "util.aio_pipeline",
+                 "util.needle_cache", "operation"):
         assert "seaweedfs_tpu_torch." + name in walked, name
     assert lines["BAD"] == "[]", r.stdout
     assert lines["NEW_THREADS"] == "0", r.stdout
@@ -59,3 +61,32 @@ def test_jax_factory_still_refuses_cuda():
     assert "cuda" not in _BACKENDS
     with pytest.raises(ValueError):
         get_codec("cuda")
+
+
+def test_engine_is_built_from_the_ports_own_source():
+    """The volume server's engine is the port's ``csrc/turbo.cpp``, built
+    into ``csrc/build/`` (never the JAX package's ``native/`` library), and
+    it loads beside the JAX package's engine in one process without either
+    binding the other's symbols."""
+    from seaweedfs_tpu.native import turbo as jturbo
+    from seaweedfs_tpu_torch.storage import turbo as pturbo
+
+    port_src = os.path.join(REPO, "seaweedfs_tpu_torch", "csrc", "turbo.cpp")
+    assert pturbo.SOURCE == port_src
+    with open(port_src) as f:
+        assert "#include" in f.read()
+    lib = pturbo.load()
+    assert lib is not None, pturbo.load_error()
+    built = pturbo.library_path()
+    assert os.path.dirname(built) == os.path.join(REPO, "seaweedfs_tpu_torch", "csrc", "build")
+    assert pturbo.build() == built  # the same source and flags: no rebuild
+    assert jturbo._load() is not None
+    assert os.path.realpath(jturbo._SO) != os.path.realpath(built)
+    # the two engines run side by side, each answering its own counters
+    a = lib.turbo_start(b"127.0.0.1", 0, b"127.0.0.1", 1, 1)
+    b = jturbo._load().turbo_start(b"127.0.0.1", 0, b"127.0.0.1", 1, 1)
+    try:
+        assert a and b and a != b
+    finally:
+        lib.turbo_stop(a)
+        jturbo._load().turbo_stop(b)

@@ -51,6 +51,7 @@ from seaweedfs_tpu_torch.storage.file_id import FileId
 
 COLLECTION = "warm"
 SOURCE_RANK = 1  # the server that holds the plain volume: a port server in both mixes
+SOURCE_VID = 11  # the plain volume, allocated on the source
 NOW = 1_760_000_000  # the needles' fixed time stamp, seconds
 
 # pairing id -> (master, shell, server mix); "port" and "mixed" are
@@ -143,6 +144,10 @@ def _cluster(master_kind, shell_kind, mix, tmp_path):
 def frozen_needle_time(monkeypatch):
     monkeypatch.setattr(p_volume, "time", _FrozenTime())
     monkeypatch.setattr(p_volume_server, "time", _FrozenTime())
+    # the native engine stamps its needles with the real clock: the port
+    # servers write through Python here, so the shard bytes are the same in
+    # every run
+    monkeypatch.setenv("SWEED_TURBO", "0")
 
 
 @pytest.fixture(params=list(PAIRINGS))
@@ -154,25 +159,24 @@ def cluster(request, tmp_path, frozen_needle_time):
         yield (request.param, *c, tmp_path)
 
 
-def _fill(master_url, source, n_files=60):
+def _fill(master_url, source, env, n_files=60):
     """Upload seeded blobs (40-400 KB) into one volume that ``source`` (a
     port server) holds, so that a port server generates the shards. The
-    volume comes from an assign; the fids are made here (the master's keys
-    and cookies differ from run to run), so every run writes the same
-    needles. Returns (vid, {fid: bytes})."""
+    volume is allocated on ``source`` itself (the master's growth places a
+    collection's first volumes at random, and may leave ``source`` none) and
+    announced by its heartbeat; the fids are made here, so every run writes
+    the same needles. Returns (vid, {fid: bytes})."""
     rng = np.random.default_rng(11)
-    for _ in range(200):
-        a = operation.assign(master_url, collection=COLLECTION)
-        if a.url == source:
-            break
-    else:
-        pytest.fail(f"no assign landed on {source}")
-    vid = FileId.parse(a.fid).volume_id
+    vid = SOURCE_VID
+    status, body = http_bytes("POST", f"http://{source}/admin/assign_volume?volume={vid}"
+                                      f"&collection={COLLECTION}&replication=000")
+    assert status == 200, body
+    assert _wait(lambda: env.volume_locations(vid) == [source])
     blobs = {}
     for i in range(n_files):
         fid = str(FileId(vid, 1000 + i, 0x5EED0000 + i))
         data = rng.bytes(int(rng.integers(40_000, 400_000)))
-        operation.upload_data(a.url, fid, data)
+        operation.upload_data(source, fid, data)
         blobs[fid] = data
     return vid, blobs
 
@@ -196,7 +200,7 @@ def _scenario(master_url, run, env, port_urls, urls, tmp):
     rank = {u: i for i, u in enumerate(urls)}
     source = urls[SOURCE_RANK]
     assert source in port_urls
-    vid, blobs = _fill(master_url, source)
+    vid, blobs = _fill(master_url, source, env)
     assert env.volume_locations(vid) == [source]
     _downloads_ok(master_url, blobs)
 
