@@ -83,11 +83,11 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    port volume server on ``weed master``/``weed volume`` defaults (CUDA
    backend, the native turbo engine on the public port, the asyncio core
    behind it). ``run_benchmark`` at `weed/command/benchmark.go`'s defaults
-   (1 048 576 files of 1 KiB from 16 connections, assigns in batches of
-   100): no failure, a seeded 4 096 fids read back equal, the engine's
-   native posts and gets covering the run and its proxied requests a
-   sliver of it. The same server restarted with ``SWEED_TURBO=0`` (the
-   asyncio core alone): a 131 072-file run, 64 GETs of 256 KiB needles by
+   but half its files (524 288 files of 1 KiB from 16 connections, assigns
+   in batches of 100): no failure, a seeded 4 096 fids read back equal, the
+   engine's native posts and gets covering the run and its proxied requests
+   a sliver of it. The same server restarted with ``SWEED_TURBO=0`` (the
+   asyncio core alone): a 32 768-file run, 64 GETs of 256 KiB needles by
    sendfile (byte-equal, served natively on the loop), then 512 concurrent
    connections against ``SWEED_MAX_INFLIGHT=64``: every reply a 200 or a 503
    with ``Retry-After``, at least one 503, then 64 GETs all 200. The engine
@@ -95,7 +95,23 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    the card (shards checked against the plain version), shards {0, 3, 10,
    13} go, and a seeded sample of its fids reads back equal through the
    engine's public port, which proxies EC reads to Python and so to the
-   kernel. The encode and the reads must launch the kernel.
+   kernel. The encode and the reads must launch the kernel;
+11. the master's autopilot, with no operator command after setup: three port
+   masters (``master -peers A,B,C -mdir D`` subprocesses, ``SWEED_LIFECYCLE=1``
+   at a cycle a second, the cold tier at the in-repo fake S3) and four port
+   volume servers (CUDA backend, the scrub on, the Python data plane: the
+   engine marks no heat). A 256 MiB volume with 40 % of its needles deleted
+   is vacuumed; a 256 MiB volume read once a second cools and is fleet-EC'd
+   on the card, the first leader dying (``lifecycle.journal.running=crash``)
+   as that EC starts and a follower, elected, running it once (one generate);
+   a byte flipped in one of its shards reaches the leader through the scrub
+   and ``repair_shard`` rebuilds it on the card (sha256 equal to the .vif's);
+   a 128 MiB volume never read moves to the tier, 64 reads through the tier
+   warm it and it comes back; the dead master restarts from its ``-mdir``,
+   the leader stops, and the restarted one, elected, replays its journal
+   without running the EC again; every live needle reads back through the
+   masters. Prints each action's seconds from its plan to done, the
+   failover's seconds, the tier's MB/s both ways and its GET p50/p99.
 
 Phases 6, 8, 9 and 10 run with the JAX package's default serving stack: the
 native turbo engine (built from ``seaweedfs_tpu_torch/csrc/turbo.cpp``)
@@ -109,8 +125,8 @@ servers of phase 8 share the card so, and the fleet scheduler runs up to
 four generate jobs together); each result must equal the plain version's.
 
 Every phase prints one JSON line with its numbers and kernel launches.
-Phases 2-9 are the main path: the launch counts are zeroed before phase 2
-and read after phase 9, and every phase must have launched the kernel. The
+Phases 2-11 are the main path: the launch counts are zeroed before phase 2
+and read after phase 11, and every phase must have launched the kernel. The
 line before last lists each kernel with its launches, error and times; the
 last line is the device record. Any mismatch or error exits non-zero.
 """
@@ -167,8 +183,9 @@ from seaweedfs_tpu_torch.storage.store import (  # noqa: E402
     ec_encode_volume,
     read_ec_shard_needle,
 )
+from seaweedfs_tpu_torch.storage.backend.fake_s3 import FakeS3Server  # noqa: E402
 from seaweedfs_tpu_torch.storage.super_block import SuperBlock  # noqa: E402
-from seaweedfs_tpu_torch.storage.volume import volume_file_name  # noqa: E402
+from seaweedfs_tpu_torch.storage.volume import Volume, volume_file_name  # noqa: E402
 
 MiB, GiB = 1 << 20, 1 << 30
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
@@ -1235,12 +1252,12 @@ def phase7(state) -> None:
 CLUSTER_BYTES = 512 * MiB
 
 
-def _needle_blobs(seed: int) -> list:
+def _needle_blobs(seed: int, fill: int = 0) -> list:
     """Needles of log-uniform sizes in 1 KiB..1 MiB until their records fill
-    CLUSTER_BYTES of .dat."""
+    ``fill`` (CLUSTER_BYTES by default) of .dat."""
     rng = np.random.default_rng(seed)
     blobs, total = [], 8
-    while total < CLUSTER_BYTES:
+    while total < (fill or CLUSTER_BYTES):
         size = int(np.exp(rng.uniform(np.log(1024), np.log(MiB))))
         blobs.append(rng.bytes(size))
         total += get_actual_size(size, 3)
@@ -2023,9 +2040,10 @@ def phase9(state) -> None:
 
 
 # -- phase 10: weed benchmark on the default data plane ------------------------
-# weed/command/benchmark.go's defaults (-n 1048576 -c 16 -size 1024) with the
-# reference's -assign.batch 100
-BENCH_N, BENCH_C, BENCH_SIZE, BENCH_BATCH = 1 << 20, 16, 1024, 100
+# weed/command/benchmark.go's defaults (-c 16 -size 1024) with the reference's
+# -assign.batch 100, at half its -n 1048576 (a cut since phase 11 came, so
+# that the whole script stays well inside its time limit: PERF.md section 4)
+BENCH_N, BENCH_C, BENCH_SIZE, BENCH_BATCH = 1 << 19, 16, 1024, 100
 BENCH_N_THREADS = 1 << 15  # the run on the asyncio core alone (a cut: PERF.md section 4)
 BENCH_SAMPLE = 4096  # fids read back and compared after the run
 SHED_WATERMARK, SHED_CONNS = 64, 512
@@ -2288,13 +2306,452 @@ def phase10(state) -> None:
         raise SystemExit(f"phase 10: no kernel launch in {idle}")
 
 
+# -- phase 11: the master's autopilot ------------------------------------------
+# each volume's .dat (the reference's volumes grow to 30 GiB: a cut, PERF.md 4)
+AUTO_BYTES = {"garbage": 256 * MiB, "cool": 256 * MiB, "cold": 128 * MiB}
+AUTO_DELETE = 0.4  # the share of garbage's needles deleted
+# the masters' knobs (cluster/lifecycle.py, cluster/volume_layout.py): a cycle
+# a second, two cool observations before a move, one cycle of cooldown, and
+# heat bands for counters that halve each second: warm from 5, cold below
+# 0.3, nothing hot (an EC volume's reads must not un-EC it within the phase)
+AUTO_MASTER_ENV = {
+    "SWEED_LIFECYCLE": "1", "SWEED_LIFECYCLE_INTERVAL": "1",
+    "SWEED_LIFECYCLE_COLD_STREAK": "2", "SWEED_LIFECYCLE_COOLDOWN": "1",
+    "SWEED_HEAT_FLOOR": "5", "SWEED_TIER_FLOOR": "0.3", "SWEED_HEAT_CEILING": "1000000",
+}
+# the phase's volumes' heat half-life, set on their counters: the volume
+# servers share this process, which read SWEED_HEAT_HALFLIFE at import. The
+# cold volume's is shorter while it cools, so it crosses the cool band
+# within one heartbeat and tiers instead of taking the EC on the way down.
+AUTO_HALFLIFE, AUTO_COLD_HALFLIFE = 1.0, 0.1
+TIER_READS = 64  # needles of the tiered volume read through the tier
+
+
+class _Journals:
+    """Polls the masters' plan journals (``lifecycle_{port}.json``) every
+    50 ms: for each action of each master's cycles, the master's clock at
+    the plan (the journal's ``started``) and when each state was first seen
+    on disk."""
+
+    def __init__(self, paths: dict):
+        self.paths = paths  # master url -> journal path
+        self.actions: dict = {}  # (url, cycle, id) -> record
+        self.lock = threading.Lock()
+        self.halt = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self) -> None:
+        while not self.halt.wait(0.05):
+            for url, path in self.paths.items():
+                try:
+                    with open(path) as f:
+                        doc = json.load(f)
+                except (OSError, ValueError):
+                    continue
+                now = time.time()
+                with self.lock:
+                    for a in doc.get("actions", []):
+                        rec = self.actions.setdefault((url, doc["cycle"], a["id"]), {
+                            "master": url, "kind": a["kind"], "vid": a["vid"],
+                            "planned_at": doc.get("started", now), "seen": {}})
+                        rec["seen"].setdefault(a["state"], now)
+                        rec["error"] = a.get("error", "")
+
+    def find(self, kind: str, vid: int, state: str = "done") -> list:
+        with self.lock:
+            return [dict(r, seen=dict(r["seen"])) for r in self.actions.values()
+                    if r["kind"] == kind and r["vid"] == vid and state in r["seen"]]
+
+    def stop(self) -> None:
+        self.halt.set()
+        self.thread.join()
+
+
+def _leader_among(urls: list) -> str:
+    """The leader every one of ``urls`` names, if it is among them and says
+    so itself; else ''."""
+    sts = {}
+    for u in urls:
+        try:
+            status, data, _ = _call(u, "GET", "/cluster/status")
+        except OSError:
+            return ""
+        if status != 200:
+            return ""
+        sts[u] = json.loads(data)
+    leads = {st["leader"] for st in sts.values()}
+    lead = leads.pop() if len(leads) == 1 else ""
+    return lead if lead in sts and sts[lead]["is_leader"] else ""
+
+
+def phase11(state) -> None:
+    """The master's autopilot, with no operator command after setup: three
+    port masters (``master -peers A,B,C -mdir D``, subprocesses, the
+    lifecycle on at a cycle a second, the tier at the in-repo fake S3), four
+    port volume servers in this process (CUDA backend, the scrub on) and
+    three volumes of their own collections filled with phase 8's needles,
+    every fid from ``/dir/assign`` through the leader. ``garbage`` (256 MiB,
+    40 % deleted) is vacuumed. ``cool`` (256 MiB, one read a second) is
+    fleet-EC'd: the first leader, armed with
+    ``lifecycle.journal.running=crash`` past its first action, dies as the
+    EC starts; a follower is elected and runs it, once. A byte flipped in a
+    shard of ``cool`` reaches the leader through the scrub, and its
+    ``repair_shard`` rebuilds the shard on the card. ``cold`` (128 MiB,
+    never read) moves to the tier; 64 reads through the tier warm it and
+    the autopilot brings it back. The dead master restarts from its
+    ``-mdir``, the leader stops, and the restarted master, elected, replays
+    its journal: the EC it died in is done already, and runs no more. Every
+    live needle reads back through the masters."""
+    n_servers, threads = 4, 8
+    out: dict = {"phase": 11, "servers": n_servers, "masters": 3,
+                 "sizes_MiB": {k: v / MiB for k, v in AUTO_BYTES.items()},
+                 "master_env": AUTO_MASTER_ENV, "halflife_s": AUTO_HALFLIFE}
+    names = {k: f"auto11{k}" for k in AUTO_BYTES}  # collection of each volume
+    murls = [f"127.0.0.1:{p}" for p in sorted(_free_port() for _ in range(3))]
+    A, B, C = murls  # the lowest url campaigns first: A leads at start
+    mdirs = {u: os.path.join(WORK, f"11master{i}") for i, u in enumerate(murls)}
+    s3 = FakeS3Server(os.path.join(WORK, "11s3")).start()
+    menv = dict(os.environ, PYTHONPATH=HERE, SWEED_TIER_ENDPOINT=s3.endpoint, **AUTO_MASTER_ENV)
+    menv.pop("SWEED_FAULTPOINTS", None)
+    procs: dict = {}
+    logs = {u: os.path.join(WORK, f"11master{i}.log") for i, u in enumerate(murls)}
+
+    def start_master(url: str, fault: str = "") -> None:
+        env = dict(menv, SWEED_FAULTPOINTS=fault) if fault else menv
+        deadline = time.monotonic() + 30
+        while True:  # a restart retries its bind while the old socket clears
+            with open(logs[url], "ab") as log:
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "seaweedfs_tpu_torch", "master", "-ip", "127.0.0.1",
+                     "-port", url.rsplit(":", 1)[1], "-peers", ",".join(murls),
+                     "-mdir", mdirs[url]], cwd=HERE, env=env, stdout=log,
+                    stderr=subprocess.STDOUT)
+            while proc.poll() is None and time.monotonic() < deadline:
+                try:
+                    if _call(url, "GET", "/cluster/ping")[0] == 200:
+                        procs[url] = proc
+                        return
+                except OSError:
+                    time.sleep(0.05)
+            if time.monotonic() >= deadline:
+                proc.kill()
+                raise SystemExit(f"phase 11: master {url} never answered")
+
+    def stop_master(url: str) -> None:
+        proc = procs.pop(url, None)
+        if proc is not None and proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+    saved_env = {k: os.environ.get(k) for k in ("SWEED_SCRUB", "SWEED_SCRUB_RATE", "SWEED_TURBO")}
+    # the native engine serves needles without marking heat (as in the JAX
+    # package), and the autopilot steers by heat: the Python data plane
+    os.environ.update(SWEED_SCRUB="1", SWEED_SCRUB_RATE=str(SCRUB_RATE), SWEED_TURBO="0")
+    lock = threading.Lock()
+    generates: collections.Counter = collections.Counter()
+    moves: list = []  # (direction, vid, bytes, seconds) of each tier move
+    patched = {"gen": VolumeServer._h_ec_generate, "up": Volume.tier_upload,
+               "down": Volume.tier_download}
+
+    def counted_generate(vs, h, path, q, body):  # one count a generate served
+        with lock:
+            generates[int(q.get("volume", 0))] += 1
+        return patched["gen"](vs, h, path, q, body)
+
+    def timed(direction: str, fn):
+        def run(v, *args, **kwargs):
+            size, t0 = v.size(), time.perf_counter()
+            res = fn(v, *args, **kwargs)
+            with lock:
+                moves.append((direction, v.id, max(size, v.size()), time.perf_counter() - t0))
+            return res
+        return run
+
+    VolumeServer._h_ec_generate = counted_generate
+    Volume.tier_upload = timed("upload", patched["up"])
+    Volume.tier_download = timed("download", patched["down"])
+    servers, dirs = [], {}
+    for i in range(n_servers):
+        d = os.path.join(WORK, f"11srv{i}")
+        vs = VolumeServer([d], host="127.0.0.1", port=_free_port(), master_url=",".join(murls),
+                          pulse_seconds=0.5, ec_backend=EC_BACKEND)
+        servers.append(vs)
+        dirs[f"127.0.0.1:{vs.port}"] = d
+    journals = _Journals({u: os.path.join(mdirs[u], f"lifecycle_{u.rsplit(':', 1)[1]}.json")
+                          for u in murls})
+    halt = threading.Event()
+    readers: list = []
+    t_start = time.perf_counter()
+    ok = False
+
+    def wait(cond, what: str, timeout: float = 120.0) -> float:
+        t0 = time.perf_counter()
+        if not _until(cond, timeout=timeout):
+            raise SystemExit(f"phase 11: {what}")
+        return time.perf_counter() - t0
+
+    def done(kind: str, vid: int) -> list:
+        return journals.find(kind, vid, "done")
+
+    def volume(col: str):
+        """(holder url, Volume) of the collection's one plain volume."""
+        for vs in servers:
+            for v in list(vs.store.locations[0].volumes.values()):
+                if v.collection == col:
+                    return f"127.0.0.1:{vs.port}", v
+        raise SystemExit(f"phase 11: no volume of {col}")
+
+    def grow(leader: str, key: str, halflife: float):
+        _admin(leader, f"/vol/grow?collection={names[key]}&count=1&replication=000")
+        url, v = volume(names[key])
+        v.read_heat.halflife = v.write_heat.halflife = halflife
+        return url, v
+
+    def fill(leader: str, key: str, seed: int) -> tuple:
+        blobs = _needle_blobs(seed, AUTO_BYTES[key])
+        fids, _, _, write_s, errors = _upload_via_master(leader, names[key], blobs, threads)
+        if errors:
+            raise SystemExit(f"phase 11: uploads to {key} failed: {errors[:5]}")
+        out.setdefault("upload", {})[key] = {
+            "needles": len(blobs), "payload_MB": sum(map(len, blobs)) / 1e6, "s": write_s,
+            "MBps": sum(map(len, blobs)) / write_s / 1e6}
+        return dict(zip(fids, blobs))
+
+    def reader(url: str, fids: list, period: float) -> threading.Event:
+        """GET a needle of ``fids`` from the volume's holder every
+        ``period`` seconds (its heat must not wait on a master) until the
+        phase ends or the returned event is set."""
+        done_reading = threading.Event()
+
+        def run() -> None:
+            rng = np.random.default_rng(len(readers))
+            while not (halt.wait(period) or done_reading.is_set()):
+                try:
+                    _call(url, "GET", "/" + fids[int(rng.integers(len(fids)))])
+                except OSError:
+                    pass
+        t = threading.Thread(target=run, daemon=True)
+        t.start()
+        readers.append(t)
+        return done_reading
+
+    def action_s(recs: list) -> list:
+        return [{"master": murls.index(r["master"]), "plan_to_done_s":
+                 r["seen"]["done"] - r["planned_at"]} for r in recs]
+
+    try:
+        for vs in servers:
+            vs.start()
+        start_master(A, fault="lifecycle.journal.running=crash::1")  # the vacuum's passes
+        start_master(B)
+        start_master(C)
+        out["election_s"] = wait(lambda: _leader_among(murls) == A, "A never led", 60)
+        wait(lambda: len(CommandEnv(A).data_nodes()) == n_servers,
+             "the volume servers never registered", 30)
+
+        # 1. garbage: fill, delete 40 %, keep it warm; the autopilot vacuums it
+        gurl, gv = grow(A, "garbage", AUTO_HALFLIFE)
+        live = fill(A, "garbage", 111)
+        rng = np.random.default_rng(112)
+        gone = list(rng.choice(sorted(live), int(len(live) * AUTO_DELETE), replace=False))
+        failed: list = []
+
+        def delete(fid: str) -> None:
+            if _call(gurl, "DELETE", "/" + fid)[0] != 202:
+                failed.append(fid)
+
+        _parallel(delete, gone, threads)
+        if failed:
+            raise SystemExit(f"phase 11: deletes failed: {failed[:5]}")
+        for fid in gone:
+            live.pop(fid)
+        reader(gurl, sorted(live), 0.2)  # five reads a second: warm
+        dat_before = gv.size()
+        wait(lambda: done("vacuum", gv.id), "the autopilot never vacuumed garbage", 60)
+        out["vacuum"] = {"dat_bytes_before": dat_before, "dat_bytes_after": gv.size(),
+                         "actions": action_s(done("vacuum", gv.id))}
+        if gv.size() >= dat_before:
+            raise SystemExit(f"phase 11: the vacuum left {gv.size()} bytes of {dat_before}")
+
+        # 2. cool: one read a second keeps it cool; the autopilot fleet-ECs it,
+        # and A dies as the EC starts (running is journaled, nothing executed)
+        curl, cv = grow(A, "cool", AUTO_HALFLIFE)
+        cool = fill(A, "cool", 113)
+        live.update(cool)
+        cool_reading = reader(curl, sorted(cool), 1.0)
+        cool_vid = cv.id
+        wait(lambda: procs[A].poll() is not None, "A never died in the EC", 120)
+        t_crash = time.perf_counter()
+        if procs[A].returncode != 113:
+            raise SystemExit(f"phase 11: A exited {procs[A].returncode}, not by its fault")
+        procs.pop(A)
+        time.sleep(0.2)  # the journal poller reads what A left
+        died_in = [(r["kind"], r["vid"]) for r in journals.find("ec", cool_vid, "running")
+                   if r["master"] == A and "done" not in r["seen"]]
+        if died_in != [("ec", cool_vid)]:
+            raise SystemExit(f"phase 11: A did not die in cool's EC: {journals.actions}")
+        t_lead = wait(lambda: _leader_among([B, C]) in (B, C), "no new leader", 60)
+        leader = _leader_among([B, C])
+        out["failover"] = {"crash_to_leader_s": t_lead, "leader": murls.index(leader)}
+        wait(lambda: done("ec", cool_vid), "the new leader never EC'd cool", 120)
+        ec_recs = done("ec", cool_vid)
+        first_plan = min(r["planned_at"] for r in journals.find("ec", cool_vid, "running"))
+        out["ec"] = {"actions": action_s(ec_recs), "from_first_plan_s":
+                     ec_recs[0]["seen"]["done"] - first_plan, "generates": generates[cool_vid]}
+        if [r["master"] for r in ec_recs] != [leader] or generates[cool_vid] != 1:
+            raise SystemExit(f"phase 11: cool's EC ran {generates[cool_vid]} times: {ec_recs}")
+        cool_reading.set()  # sealed: an EC volume takes no further move by its heat
+        env = CommandEnv(leader)
+        wait(lambda: len(env.ec_shard_locations(cool_vid)) == 14, "cool's 14 shards", 60)
+
+        # 3. a byte of a cool shard decays on a server that holds the .vif,
+        # and cold is filled, never read
+        flipped = None
+        for url, d in sorted(dirs.items()):
+            cbase = volume_file_name(d, names["cool"], cool_vid)
+            sids = [sid for sid in range(14) if os.path.exists(cbase + shard_ext(sid))]
+            if sids and os.path.exists(cbase + ".vif"):
+                with open(cbase + ".vif") as f:
+                    want_sum = json.load(f)["shard_sums"][sids[0]]
+                _flip(cbase + shard_ext(sids[0]), 4321)
+                flipped = (url, sids[0])
+                break
+        if flipped is None:
+            raise SystemExit("phase 11: no server holds a cool shard and the .vif")
+        l_repair = gm.gf_matmul.launches
+        t_flip = time.perf_counter()
+        kurl, kv = grow(leader, "cold", AUTO_COLD_HALFLIFE)
+        cold = fill(leader, "cold", 114)
+        live.update(cold)
+        wait(lambda: done("repair_shard", cool_vid), "the autopilot never repaired cool", 120)
+        repair_s = time.perf_counter() - t_flip
+        rebuilt = [volume_file_name(d, names["cool"], cool_vid) + shard_ext(flipped[1])
+                   for d in dirs.values()]
+        rebuilt = [p for p in rebuilt if os.path.exists(p)]
+        sums_equal = [_sha256(p) == want_sum for p in rebuilt]
+        out["repair"] = {"server": flipped[0], "shard": flipped[1], "flip_to_done_s": repair_s,
+                         "actions": action_s(done("repair_shard", cool_vid)),
+                         "launches": gm.gf_matmul.launches - l_repair, "sum_equal": sums_equal}
+        if not sums_equal or not all(sums_equal):
+            raise SystemExit(f"phase 11: the repaired shard differs: {out['repair']}")
+
+        # 4. cold on the tier; 64 reads through it warm it, and it comes back
+        wait(lambda: done("tier_up", kv.id), "the autopilot never tiered cold", 120)
+        if not kv.is_tiered() or os.path.exists(kv.file_name() + ".dat"):
+            raise SystemExit("phase 11: cold's .dat is still local")
+        kv.read_heat.halflife = kv.write_heat.halflife = AUTO_HALFLIFE
+        get_ms, wrong, gets0 = [], [], len(s3.ranged_gets)
+
+        def tier_get(fid: str) -> None:
+            status, data, sec = _call(kurl, "GET", "/" + fid)
+            get_ms.append(sec * 1e3)
+            if (status, data) != (200, cold[fid]):
+                wrong.append((fid, status))
+
+        # a burst from 8 clients: done before a beat and a cycle can start
+        # the download, which would hold the volume's lock
+        _parallel(tier_get, sorted(cold)[:TIER_READS], threads)
+        if wrong:
+            raise SystemExit(f"phase 11: reads through the tier went wrong: {wrong[:5]}")
+        s3_ms = [t * 1e3 for t, n in s3.ranged_gets[gets0:] if n <= MiB + 4096]
+        wait(lambda: done("tier_down", kv.id), "the autopilot never brought cold back", 60)
+        reader(kurl, sorted(cold), 0.2)  # warm: no second trip to the tier
+        ups = [m for m in moves if m[0] == "upload" and m[1] == kv.id]
+        downs = [m for m in moves if m[0] == "download" and m[1] == kv.id]
+        out["tier"] = {
+            "tier_up": action_s(done("tier_up", kv.id)),
+            "tier_down": action_s(done("tier_down", kv.id)),
+            "upload_MBps": ups[0][2] / ups[0][3] / 1e6, "download_MBps":
+            downs[0][2] / downs[0][3] / 1e6, "bytes": ups[0][2],
+            "get_p50_ms": _pct(get_ms, 50), "get_p99_ms": _pct(get_ms, 99),
+            "s3_ranged_gets": len(s3_ms), "s3_get_p50_ms": _pct(s3_ms, 50),
+            "s3_get_p99_ms": _pct(s3_ms, 99)}
+        if len(s3_ms) < len(get_ms):
+            raise SystemExit(f"phase 11: {len(s3_ms)} ranged GETs reached the tier for "
+                             f"{len(get_ms)} reads")
+
+        # 5. A restarts from its -mdir, the leader stops, A leads and replays
+        # its journal: the EC it died in is done, and runs no more
+        start_master(A)
+        wait(lambda: _leader_among(murls) == leader, "the restarted A never followed", 60)
+        t0 = time.perf_counter()
+        stop_master(leader)
+        rest = [u for u in murls if u != leader]
+        wait(lambda: _leader_among(rest) == A, "A never led again", 60)
+        t_led = time.perf_counter() - t0
+
+        def recovered() -> dict:
+            st = json.loads(_call(A, "GET", "/lifecycle/status")[1])
+            return st if st["recovery"] else {}
+
+        wait(recovered, "A never replayed its journal", 30)
+        lstatus = recovered()
+        out["replay"] = {"stop_to_leader_s": t_led, "recovery": lstatus["recovery"],
+                         "resumed": lstatus["counters"]["resumed"],
+                         "abandoned": lstatus["counters"]["abandoned"]}
+        time.sleep(2.5)  # two cycles: the resumed EC is re-validated
+        out["replay"]["generates"] = generates[cool_vid]
+        if lstatus["counters"]["resumed"] != 1 or generates[cool_vid] != 1:
+            raise SystemExit(f"phase 11: the replay ran the EC again: {out['replay']}")
+
+        # 6. every live needle back through the masters
+        bad: list = []
+
+        def back(item) -> None:
+            fid, want = item
+            status, data, _, _ = _client_get(A, fid)
+            if (status, data) != (200, want):
+                bad.append((fid, status))
+
+        out["read_back"] = {"needles": len(live), "s": _parallel(back, list(live.items()),
+                                                                threads)}
+        if bad:
+            raise SystemExit(f"phase 11: {len(bad)} needles read back wrong: {bad[:5]}")
+        out["actions_done"] = sorted({(r["kind"], r["vid"]) for r in journals.actions.values()
+                                      if "done" in r["seen"]})
+        ok = True
+    finally:
+        halt.set()
+        for t in readers:
+            t.join()
+        journals.stop()
+        for vs in servers:
+            vs.stop()
+        for u in list(procs):
+            stop_master(u)
+        s3.stop()
+        VolumeServer._h_ec_generate = patched["gen"]
+        Volume.tier_upload, Volume.tier_download = patched["up"], patched["down"]
+        for k, val in saved_env.items():
+            if val is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = val
+        if not ok:
+            for rec in sorted(journals.actions.values(), key=lambda r: r["planned_at"]):
+                print(f"phase 11: journal {rec}", file=sys.stderr)
+            for u, path in logs.items():
+                with open(path, "rb") as f:
+                    tail = f.read()[-3000:].decode("utf-8", "replace")
+                print(f"phase 11: master {murls.index(u)} log tail:\n{tail}", file=sys.stderr)
+    out.update(wall_s=time.perf_counter() - t_start, generates=dict(generates),
+               launches=gm.gf_matmul.launches - state["l_phase"], nvidia_smi=state["smi"])
+    emit(out)
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
 
 
-MAIN_PATH = (phase2, phase3, phase4, phase5, phase6, phase7, phase8, phase9, phase10)
+MAIN_PATH = (phase2, phase3, phase4, phase5, phase6, phase7, phase8, phase9, phase10,
+             phase11)
 
 
 def main() -> int:

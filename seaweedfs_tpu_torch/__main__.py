@@ -1,9 +1,13 @@
 """Command line: ``python -m seaweedfs_tpu_torch
 master|volume|shell|backup|compact|volume.tail|benchmark ...``.
 
-- ``master`` runs a single master with the flags of ``weed master``: ``-ip
-  -port -volumeSizeLimitMB -defaultReplication``. ``-peers`` and ``-mdir``
-  (election and its state directory) are refused as not ported yet.
+- ``master`` runs a master with the flags of ``weed master``: ``-ip -port
+  -volumeSizeLimitMB -defaultReplication -peers -mdir``. ``-peers A,B,C``
+  (this master's own address among them) elects one leader of the set;
+  ``-mdir D`` keeps the vote, the fid-lease journal and the autopilot's plan
+  journal there across restarts. ``SWEED_LIFECYCLE=1`` runs the autopilot on
+  the leader (``cluster/lifecycle.py`` lists its ``SWEED_LIFECYCLE_*`` and
+  ``SWEED_TIER_*`` knobs).
 - ``volume`` runs a volume server with the flags of ``weed volume`` (and of
   the JAX package's CLI): ``-ip -port -dir -mserver -dataCenter -rack -max
   -pulseSeconds -index``. ``-ec.backend`` is ``cuda`` (the default: the
@@ -55,15 +59,14 @@ def _serve_until_signalled(server) -> None:
 def cmd_master(args) -> None:
     from .server.master_server import MasterServer
 
-    for flag, val in (("-peers", args.peers), ("-mdir", args.mdir)):
-        if val:
-            raise SystemExit(f"master: {flag} is not ported yet "
-                             "(the port runs one master, its own leader)")
+    peers = [p.strip() for p in args.peers.split(",") if p.strip()]
     ms = MasterServer(
         host=args.ip,
         port=args.port,
         volume_size_limit_mb=args.volume_size_limit_mb,
         default_replication=args.default_replication,
+        peers=peers or None,
+        meta_dir=args.mdir or None,
     ).start()
     print(f"master listening on {ms.url}", flush=True)
     _serve_until_signalled(ms)
@@ -459,8 +462,10 @@ def main(argv=None) -> None:
     m.add_argument("-volumeSizeLimitMB", dest="volume_size_limit_mb", type=int,
                    default=30 * 1024)
     m.add_argument("-defaultReplication", dest="default_replication", default="000")
-    m.add_argument("-peers", default="", help="not ported yet")
-    m.add_argument("-mdir", default="", help="not ported yet")
+    m.add_argument("-mdir", default="",
+                   help="dir for durable election/sequence state (weed master -mdir)")
+    m.add_argument("-peers", default="",
+                   help="comma-separated master peers for HA (weed master -peers)")
     m.set_defaults(fn=cmd_master)
 
     v = sub.add_parser("volume", help="run a volume server")

@@ -129,7 +129,8 @@ class Master:
         # instant EC-shard deltas (master_grpc_server.go:83-98 incremental
         # branch): register/unregister only the changed shard bits
         for m in hb.get("new_ec_shards", []):
-            self.topo.register_ec_shards(m["id"], dn, m.get("ec_index_bits", 0))
+            self.topo.register_ec_shards(m["id"], dn, m.get("ec_index_bits", 0),
+                                         m.get("collection"))
         for m in hb.get("deleted_ec_shards", []):
             self.topo.unregister_ec_shards(
                 m["id"], dn, m.get("ec_index_bits", ~0)

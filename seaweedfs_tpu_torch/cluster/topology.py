@@ -171,6 +171,10 @@ class DataNode(Node):
         # heat per EC volume and scrub-flagged corrupt shard ids on this node
         self.ec_read_heat: dict[int, float] = {}
         self.ec_corrupt: dict[int, list[int]] = {}
+        # each EC volume's collection, as its entries name it: the autopilot
+        # rebuilds and decodes by it (the JAX package's master keeps none, so
+        # its autopilot cannot repair an EC volume of a named collection)
+        self.ec_collections: dict[int, str] = {}
         self.last_seen = 0.0
         self.pulse_seconds = 5.0  # node-reported beat interval
 
@@ -337,6 +341,7 @@ class Topology(Node):
             dn.ec_shards = {}
             dn.ec_read_heat = {}
             dn.ec_corrupt = {}
+            dn.ec_collections = {}
             if dn.parent:
                 dn.parent.children.pop(dn.id, None)
             return affected
@@ -362,9 +367,11 @@ class Topology(Node):
             incoming: dict[int, int] = {}
             heat: dict[int, float] = {}
             corrupt: dict[int, set[int]] = {}
+            collections: dict[int, str] = {}
             for s in shards:  # OR-merge: one entry per disk location
                 vid = s["id"]
                 incoming[vid] = incoming.get(vid, 0) | s.get("ec_index_bits", 0)
+                collections[vid] = s.get("collection", "")
                 h = s.get("read_heat", 0.0)
                 if h > heat.get(vid, 0.0):
                     heat[vid] = h
@@ -385,6 +392,7 @@ class Topology(Node):
             dn.ec_shards = incoming
             dn.ec_read_heat = heat
             dn.ec_corrupt = {v: sorted(s) for v, s in corrupt.items()}
+            dn.ec_collections = collections
             return new_s, deleted_s
 
     def _set_ec_shards(self, vid: int, dn: DataNode, bits: int) -> None:
@@ -406,10 +414,13 @@ class Topology(Node):
         if not by_shard:
             self.ec_shard_locations.pop(vid, None)
 
-    def register_ec_shards(self, vid: int, dn: DataNode, bits: int) -> None:
+    def register_ec_shards(self, vid: int, dn: DataNode, bits: int,
+                           collection: Optional[str] = None) -> None:
         with self._lock:
             self._set_ec_shards(vid, dn, dn.ec_shards.get(vid, 0) | bits)
             dn.ec_shards[vid] = dn.ec_shards.get(vid, 0) | bits
+            if collection is not None:
+                dn.ec_collections[vid] = collection
 
     def unregister_ec_shards(self, vid: int, dn: DataNode, bits: int = ~0) -> None:
         with self._lock:
@@ -419,6 +430,7 @@ class Topology(Node):
                 dn.ec_shards[vid] = remaining
             else:
                 dn.ec_shards.pop(vid, None)
+                dn.ec_collections.pop(vid, None)
 
     def lookup_ec_shards(self, vid: int) -> dict[int, list[DataNode]]:
         with self._lock:
@@ -427,6 +439,13 @@ class Topology(Node):
                 for sid, nodes in self.ec_shard_locations.get(vid, {}).items()
                 if nodes
             }
+
+    def checkpoint_max_volume_id(self, vid: int) -> None:
+        """Follower side: adopt the leader's volume-id high-water mark (it
+        rides the leader's beats), so a failover never allocates a vid
+        twice."""
+        with self._lock:
+            self.max_volume_id = max(self.max_volume_id, vid)
 
     def next_volume_id(self) -> int:
         with self._lock:

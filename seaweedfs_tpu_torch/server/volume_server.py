@@ -21,6 +21,8 @@ package's volume server, so its master and shell drive this one:
     VolumeTailSender           GET  /admin/tail (framed needles, paged)
     backup's status            GET  /admin/volume_status
     VolumeIncrementalCopy      GET  /admin/incremental_copy (raw .dat bytes)
+    VolumeTierMoveDatToRemote  POST /admin/tier_upload (the .dat to an S3 tier)
+    VolumeTierMoveDatFromRemote POST /admin/tier_download (and back)
     VolumeConfigure            POST /admin/volume_configure_replication
     VolumeServerLeave          POST /admin/server_leave
     VolumeEcShardsGenerate     POST /admin/ec/generate  (the CUDA kernel)
@@ -859,6 +861,33 @@ class VolumeServer:
         }
         return 200, data
 
+    def _h_tier_upload(self, h, path, q, body):
+        """Seal a volume and move its .dat to an S3-class backend
+        (volume_grpc_tier_upload.go): ``endpoint`` and ``bucket`` with
+        inline ``accessKey``/``secretKey``, or a ``backend`` named in
+        backend.toml; ``skipUpload=true`` verifies the object another replica
+        uploaded."""
+        v = self.store.find_volume(_q_req_uint(q, "volume"))
+        if v is None:
+            return 404, {"error": "volume not found"}
+        if not q.get("bucket"):
+            raise BadRequest("bucket= required")
+        return 200, v.tier_upload(
+            q.get("endpoint", ""), q["bucket"], access_key=q.get("accessKey", ""),
+            secret_key=q.get("secretKey", ""), keep_local=q.get("keepLocal") == "true",
+            skip_upload=q.get("skipUpload") == "true", backend=q.get("backend", ""))
+
+    def _h_tier_download(self, h, path, q, body):
+        """Fetch a tiered volume's .dat back (volume_grpc_tier_download.go)."""
+        v = self.store.find_volume(_q_req_uint(q, "volume"))
+        if v is None:
+            return 404, {"error": "volume not found"}
+        v.tier_download(access_key=q.get("accessKey", ""), secret_key=q.get("secretKey", ""))
+        # local again: the engine may own its reads (the JAX server leaves
+        # a recalled volume in Python)
+        self.store.attach_turbo_volume(v)
+        return 200, {"ok": True}
+
     def _h_volume_configure_replication(self, h, path, q, body):
         """Rewrite the super block's replica-placement byte (VolumeConfigure,
         command_volume_configure_replication.go): on disk or not at all."""
@@ -1232,7 +1261,11 @@ class VolumeServer:
         cursors: dict[int, int] = {}  # vid -> next .dat offset to verify
         ec_cursors: dict[int, int] = {}  # vid -> next shard slot to hash
         while not self._stop.is_set():
-            vols = [v for loc in self.store.locations for v in list(loc.volumes.values())]
+            # a tiered volume's .dat is the backend's to keep: re-reading it
+            # would GET the whole object from the tier every round (the JAX
+            # server does)
+            vols = [v for loc in self.store.locations for v in list(loc.volumes.values())
+                    if not v.is_tiered()]
             for v in vols:
                 if self._stop.is_set():
                     return
@@ -1417,6 +1450,8 @@ class VolumeServer:
                 ("GET", "/admin/tail", vs._h_tail),
                 ("GET", "/admin/volume_status", vs._h_volume_status),
                 ("GET", "/admin/incremental_copy", vs._h_incremental_copy),
+                ("POST", "/admin/tier_upload", vs._h_tier_upload),
+                ("POST", "/admin/tier_download", vs._h_tier_download),
                 ("POST", "/admin/volume_configure_replication",
                  vs._h_volume_configure_replication),
                 ("POST", "/admin/server_leave", vs._h_server_leave),

@@ -12,6 +12,8 @@ package's shell:
     ec.rebuild  (command_ec_rebuild.go:57 — copy ≥k shards → rebuild → mount)
     ec.decode   (command_ec_decode.go — collect shards → to_volume)
     ec.balance  (command_ec_balance.go — even shard spread across servers)
+    volume.tier.upload / volume.tier.download (the S3-class cold tier)
+    lifecycle.status / lifecycle.pause / lifecycle.resume (the autopilot)
     collection.list / collection.delete, cluster.status, lock / unlock
 
 Every command is a plain function usable programmatically; ``shell.py``
@@ -21,6 +23,7 @@ endpoints, where the GF(2^8) product goes through the store's codec.
 
 from __future__ import annotations
 
+import urllib.parse
 from dataclasses import dataclass
 from typing import Optional
 
@@ -115,6 +118,31 @@ def volume_list(env: CommandEnv) -> list[dict]:
 
 def cluster_status(env: CommandEnv) -> dict:
     return env.topology()
+
+
+# -- the lifecycle autopilot (cluster/lifecycle.py) ----------------------------
+def _lifecycle(env: CommandEnv, method: str, verb: str) -> dict:
+    """The leader answers; a follower proxies to it."""
+    r = http_json(method, f"http://{env.master}/lifecycle/{verb}")
+    if r.get("error"):
+        raise RuntimeError(r["error"])
+    return r
+
+
+def lifecycle_status(env: CommandEnv) -> dict:
+    """lifecycle.status: cycle counters, the interlock, the last plan and
+    the journal's recovery."""
+    return _lifecycle(env, "GET", "status")
+
+
+def lifecycle_pause(env: CommandEnv) -> dict:
+    """lifecycle.pause: schedule nothing new (a move in flight finishes; it
+    is staged-commit protected either way)."""
+    return _lifecycle(env, "POST", "pause")
+
+
+def lifecycle_resume(env: CommandEnv) -> dict:
+    return _lifecycle(env, "POST", "resume")
 
 
 def collection_list(env: CommandEnv) -> list[str]:
@@ -550,6 +578,39 @@ def volume_configure_replication(env: CommandEnv, vid: int, replication: str) ->
             raise RuntimeError(f"{loc}: {r['error']}")
         results.append({"server": loc} | r)
     return {"configured": results}
+
+
+def volume_tier_upload(env: CommandEnv, vid: int, endpoint: str, bucket: str,
+                       keep_local: bool = False, backend: str = "") -> dict:
+    """Move a sealed volume's .dat to an S3-compatible tier
+    (command_volume_tier_upload.go). One replica uploads the bytes; the
+    others verify that object and point their .tier descriptor at it."""
+    locs = env.volume_locations(vid)
+    if not locs:
+        raise RuntimeError(f"volume {vid} not found")
+    results = []
+    for i, loc in enumerate(locs):
+        q = urllib.parse.urlencode({
+            "volume": vid, "endpoint": endpoint, "bucket": bucket,
+            "keepLocal": "true" if keep_local else "false",
+            "skipUpload": "true" if i > 0 else "false", "backend": backend})
+        r = http_json("POST", f"http://{loc}/admin/tier_upload?{q}", timeout=600)
+        if r.get("error"):
+            raise RuntimeError(f"tier upload {vid} on {loc}: {r['error']}")
+        results.append({"server": loc} | r)
+    return {"tiered": results}
+
+
+def volume_tier_download(env: CommandEnv, vid: int) -> dict:
+    """Fetch a tiered volume's .dat back to local disk on every replica
+    (command_volume_tier_download.go)."""
+    results = []
+    for loc in env.volume_locations(vid):
+        r = http_json("POST", f"http://{loc}/admin/tier_download?volume={vid}", timeout=600)
+        if r.get("error"):
+            raise RuntimeError(f"tier download {vid} on {loc}: {r['error']}")
+        results.append({"server": loc} | r)
+    return {"downloaded": results}
 
 
 def volume_server_leave(env: CommandEnv, node: str) -> dict:

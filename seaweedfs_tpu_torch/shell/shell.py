@@ -39,6 +39,10 @@ HELP = """commands:
   ec.decode -volumeId=N [-collection=C]   turn an EC volume back to normal
   ec.rebuild -volumeId=N [-collection=C]  rebuild missing shards
   ec.balance [-collection=C]              even out shard spread
+  volume.tier.upload -volumeId=N [-backend=s3.default|-endpoint=..] [-bucket=B]
+                 [-keepLocal=true]   move a sealed volume's .dat to an S3 tier
+  volume.tier.download -volumeId=N    bring a tiered volume's .dat back
+  lifecycle.status | lifecycle.pause | lifecycle.resume   the master's autopilot
   collection.list | collection.delete -collection=C
   lock | unlock
   help | exit
@@ -46,12 +50,10 @@ HELP = """commands:
 
 # the JAX package's commands that the port does not run yet
 NOT_PORTED = frozenset({
-    "volume.tier.upload", "volume.tier.download", "volume.fsck",
-    "fs.cd", "fs.pwd", "fs.ls", "fs.du", "fs.tree", "fs.cat", "fs.mv",
+    "volume.fsck", "fs.cd", "fs.pwd", "fs.ls", "fs.du", "fs.tree", "fs.cat", "fs.mv",
     "fs.meta.cat", "fs.meta.save", "fs.meta.load", "fs.meta.notify",
     "fs.configure", "bucket.list", "bucket.create", "bucket.delete", "query",
-    "remote.dlq", "trace", "lifecycle.status", "lifecycle.pause",
-    "lifecycle.resume",
+    "remote.dlq", "trace",
 })
 
 
@@ -71,7 +73,8 @@ def _flags(parts: list[str]) -> dict[str, str]:
 # mutating command (ec.encode's multi-step spread, volume.delete, ...) may
 # have PARTIALLY executed before the connection error — auto-retrying would
 # re-issue completed steps, so those surface the error with the new master.
-_RETRY_SAFE = {"help", "cluster.status", "volume.list", "collection.list"}
+_RETRY_SAFE = {"help", "cluster.status", "volume.list", "collection.list",
+               "lifecycle.status"}
 
 
 def run_command_with_failover(env: CommandEnv, line: str) -> object:
@@ -151,6 +154,19 @@ def run_command(env: CommandEnv, line: str) -> object:
         return C.volume_server_evacuate(env, flags["node"])
     if cmd == "volumeServer.leave":
         return C.volume_server_leave(env, flags["node"])
+    if cmd == "volume.tier.upload":
+        return C.volume_tier_upload(env, int(flags["volumeId"]), flags.get("endpoint", ""),
+                                    flags.get("bucket", "tier"),
+                                    keep_local=flags.get("keepLocal") == "true",
+                                    backend=flags.get("backend", ""))
+    if cmd == "volume.tier.download":
+        return C.volume_tier_download(env, int(flags["volumeId"]))
+    if cmd == "lifecycle.status":
+        return C.lifecycle_status(env)
+    if cmd == "lifecycle.pause":
+        return C.lifecycle_pause(env)
+    if cmd == "lifecycle.resume":
+        return C.lifecycle_resume(env)
     if cmd == "volume.delete":
         C.volume_delete(env, int(flags["volumeId"]))
         return "ok"

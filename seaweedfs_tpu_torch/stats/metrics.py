@@ -12,12 +12,16 @@ counters under the reference's names:
 - ``sweed_ncache_*``: the hot-needle cache (``util/needle_cache.py``);
 - ``sweed_fleet_*``: the master's EC scheduler (``cluster/fleet.py``);
 - ``sweed_query_*``: the scan engine (``query/scan.py``);
-- ``sweed_scrub_*``: the background scrub.
+- ``sweed_scrub_*``: the background scrub;
+- ``sweed_lifecycle_*``: the master's autopilot (``cluster/lifecycle.py``,
+  which also owns the ``lifecycle_cycle_seconds`` and
+  ``lifecycle_action_seconds`` histograms). The election and the fid leases
+  register no family, as in the JAX package: ``/dir/status`` reports them.
 
 Counters and gauges are bumped and read from request and background
 threads, so each takes its own lock. Not ported: the gauges of features the
 port has not got yet (the lock sanitizer, the QoS governor, hedged reads
-and deadlines, filer sync, the lifecycle autopilot), the push-gateway
+and deadlines, filer sync), the push-gateway
 client, and the host probes (``disk_status``, ``memory_status``), which
 nothing in the JAX package's daemons prints.
 """
@@ -256,10 +260,46 @@ def register_fleet_metrics(registry: Optional[Registry] = None) -> None:
               "members with at least one completed encode job").set_function(push_members)
 
 
+def register_lifecycle_metrics(registry: Optional[Registry] = None) -> None:
+    """Gauges over the master's lifecycle controllers (cluster/lifecycle.py):
+    cycle and action counters and the interlocks' tallies. The cycle and
+    per-action latencies are the ``lifecycle_*_seconds`` histograms that
+    module owns."""
+
+    def snap(key):
+        from ..cluster.lifecycle import lifecycle_stats  # it imports this module
+
+        return lifecycle_stats().get(key, 0)
+
+    _gauges(registry or default_registry, snap, (
+        ("sweed_lifecycle_controllers", "live lifecycle controllers in this process",
+         "controllers"),
+        ("sweed_lifecycle_paused", "controllers currently paused by an operator", "paused"),
+        ("sweed_lifecycle_cycles_total", "observe→plan→execute cycles started", "cycles"),
+        ("sweed_lifecycle_actions_done_total", "lifecycle actions executed to completion",
+         "actions_done"),
+        ("sweed_lifecycle_actions_failed_total", "lifecycle actions that errored",
+         "actions_failed"),
+        ("sweed_lifecycle_actions_deferred_total",
+         "actions deferred because the load interlock saw a traffic peak",
+         "actions_deferred"),
+        ("sweed_lifecycle_cycles_deferred_total", "whole cycles deferred by the load interlock",
+         "cycles_deferred"),
+        ("sweed_lifecycle_cycles_skipped_locked_total",
+         "cycles skipped because a shell held the cluster admin lock",
+         "cycles_skipped_locked"),
+        ("sweed_lifecycle_recovered_resumed_total",
+         "journal-replay actions re-validated and re-executed after failover", "resumed"),
+        ("sweed_lifecycle_recovered_abandoned_total",
+         "journal-replay actions abandoned (never started before the crash)", "abandoned"),
+    ))
+
+
 register_serving_metrics()
 register_heat_metrics()
 register_ncache_metrics()
 register_fleet_metrics()
+register_lifecycle_metrics()
 
 
 def register_query_metrics(registry: Optional[Registry] = None) -> dict[str, Counter]:

@@ -2,7 +2,8 @@
 
 Mirrors `weed/storage/backend/backend.go:15-25` (BackendStorageFile):
 read_at/write_at/truncate/close/size/name/sync. ``DiskFile`` wraps a local
-file (backend/disk_file.go). The remote S3 tier is not ported.
+file (backend/disk_file.go). The remote S3 tier lives beside it
+(``s3_backend.py``, backend/s3_backend/s3_backend.go).
 """
 
 from __future__ import annotations

@@ -49,7 +49,9 @@ class DiskLocation:
                     continue
                 base, ext = os.path.splitext(entry)
                 try:
-                    if ext == ".dat":
+                    # a .tier names a sealed volume whose .dat moved to a
+                    # remote backend: it loads as a local one does
+                    if ext in (".dat", ".tier"):
                         collection, vid = parse_volume_base_name(base)
                         if vid not in self.volumes:
                             self.volumes[vid] = Volume(
@@ -71,6 +73,10 @@ class DiskLocation:
                     glog.error("not mounting ec volume %s: %s", base, e)
                 except (ValueError, FileNotFoundError):
                     continue  # not a volume file
+                except KeyError as e:
+                    # a named tier backend missing from backend.toml: skip
+                    # that volume, keep the server
+                    glog.error("skipping volume %s: %s", base, e)
 
     def _recover_staged_commits(self) -> None:
         """Once per process, before any volume loads, roll interrupted

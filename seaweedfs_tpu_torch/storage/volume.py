@@ -19,13 +19,19 @@ One lock per volume; writes are synchronous and ``sync()`` is explicit.
 (``storage/turbo.py``): while attached the engine is the single writer of
 the .dat/.idx, lookups and counters go through it, and the Python write and
 delete paths append their records through it. ``compact`` detaches for the
-rewrite and attaches again over the new files. Not ported: the remote S3
-tier.
+rewrite and attaches again over the new files.
+
+The cloud tier (`volume_tier.go`): ``tier_upload`` seals a volume and moves
+its .dat to an S3-class backend, keeping the .idx local; a ``.tier``
+descriptor names the object, and reads go on as ranged GETs. A volume whose
+.dat lives remotely loads from that descriptor. ``tier_download`` brings the
+.dat back through the staged commit. The engine never owns a tiered volume.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import struct
 import threading
@@ -36,8 +42,9 @@ from ..stats.heat import EwmaHeat
 from ..util import faultpoints
 from ..util.throttler import WriteThrottler
 from . import idx as idx_mod
-from .backend import DiskFile
-from .commit import StagedCommit
+from .backend import BackendStorageFile, DiskFile, RemoteS3File, S3BackendStorage
+from .backend_config import resolve_backend
+from .commit import StagedCommit, atomic_write
 from .needle import (
     CURRENT_VERSION,
     FLAG_HAS_LAST_MODIFIED,
@@ -124,10 +131,20 @@ class Volume:
         self.write_heat = EwmaHeat()
 
         base = self.file_name()
-        dat_exists = os.path.exists(base + ".dat")
+        tier_exists = os.path.exists(base + ".tier")
+        dat_exists = os.path.exists(base + ".dat") or tier_exists
         if not dat_exists and not create_if_missing:
             raise FileNotFoundError(base + ".dat")
-        self.data_backend = DiskFile(base + ".dat", create=True)
+        if tier_exists:
+            # a sealed volume whose .dat lives on a remote tier
+            with open(base + ".tier") as f:
+                info = json.load(f)
+            endpoint, ak, sk = Volume._tier_credentials(info)
+            self.data_backend: BackendStorageFile = RemoteS3File(
+                endpoint, info["bucket"], info["key"], ak, sk, size=info["size"])
+            self.read_only = True
+        else:
+            self.data_backend = DiskFile(base + ".dat", create=True)
         if dat_exists and self.data_backend.size() >= SUPER_BLOCK_SIZE:
             head = self.data_backend.read_at(0, SUPER_BLOCK_SIZE)
             extra_size = struct.unpack(">H", head[6:8])[0]
@@ -255,8 +272,9 @@ class Volume:
         return self.data_backend.size()
 
     def is_tiered(self) -> bool:
-        """Always False: the remote tier is not ported."""
-        return False
+        """True while the .dat lives on a remote backend; by type, not by a
+        stat of the .tier file, since every heartbeat asks."""
+        return isinstance(self.data_backend, RemoteS3File)
 
     def garbage_level(self) -> float:
         """Vacuum's trigger: deleted bytes over all content bytes ever
@@ -674,6 +692,101 @@ class Volume:
             idx_file.close()
             raise
 
+    # -- cloud tier (storage/volume_tier.go) ---------------------------------
+    def tier_file(self) -> str:
+        return self.file_name() + ".tier"
+
+    @staticmethod
+    def _tier_credentials(info: dict) -> tuple[str, str, str]:
+        """A .tier descriptor -> (endpoint, access_key, secret_key): a named
+        backend resolves through backend.toml, an inline one carries them."""
+        if info.get("backend"):
+            bc = resolve_backend(info["backend"])
+            return bc["endpoint"], bc["access_key"], bc["secret_key"]
+        return info.get("endpoint", ""), info.get("access_key", ""), info.get("secret_key", "")
+
+    def tier_upload(self, endpoint: str = "", bucket: str = "", access_key: str = "",
+                    secret_key: str = "", keep_local: bool = False, skip_upload: bool = False,
+                    backend: str = "") -> dict:
+        """Seal the volume and move its .dat to an S3-compatible backend,
+        keeping the .idx local; reads go on through ranged GETs
+        (volume_tier.go, volume_grpc_tier_upload.go). With ``skip_upload`` a
+        replica verifies the object another replica uploaded and writes only
+        its own descriptor. Returns the descriptor without credentials."""
+        if backend:
+            # the named backend wins: the descriptor stores only its name, so
+            # the upload must go where a later reopen will look
+            bc = resolve_backend(backend)
+            endpoint, access_key, secret_key = bc["endpoint"], bc["access_key"], bc["secret_key"]
+        if not endpoint:
+            raise VolumeError("tier_upload needs -backend or an endpoint")
+        self.detach_turbo()  # the .dat is about to leave the local disk
+        with self._lock:
+            was_read_only = self.read_only
+            self.read_only = True
+            try:
+                # the sealed snapshot includes every acknowledged write
+                self.data_backend.sync()
+                key = f"{self.collection or 'default'}_{self.id}.dat"
+                size = self.data_backend.size()
+                local = self.file_name() + ".dat"
+                s3 = S3BackendStorage(endpoint, access_key, secret_key, name=backend)
+                if skip_upload:
+                    s3.verify_object(bucket, key, size)
+                else:
+                    s3.upload_volume(bucket, key, local)  # multipart past one part
+            except Exception:
+                # the seal holds only once the upload committed
+                self.read_only = was_read_only
+                raise
+            info = {"bucket": bucket, "key": key, "size": size}
+            if backend:
+                info["backend"] = backend  # the secrets stay in backend.toml
+            else:
+                # inline credentials (mode 0600): a cluster without
+                # backend.toml keeps working, but -backend keeps them out of
+                # the data directories
+                info.update(endpoint=endpoint, access_key=access_key, secret_key=secret_key)
+            # atomic and durable: a crash leaves the old state (no descriptor,
+            # the .dat intact) or the new one, never a torn descriptor
+            faultpoints.fire("tier.upload.descriptor", path=local)
+            atomic_write(self.tier_file(), json.dumps(info).encode(), mode=0o600)
+            faultpoints.fire("tier.upload.committed", path=self.tier_file())
+            self.data_backend.close()
+            self.data_backend = RemoteS3File(endpoint, bucket, key, access_key, secret_key,
+                                             size=size)
+            if not keep_local:
+                os.unlink(local)  # past the commit point: a crash leaves a spare copy
+            return {k: v for k, v in info.items() if k not in ("access_key", "secret_key")}
+
+    def tier_download(self, access_key: str = "", secret_key: str = "") -> None:
+        """Fetch the .dat back from the remote tier
+        (volume_grpc_tier_download.go). Two-phase: the fetched .dat stages
+        as a temporary and the descriptor's removal rides the commit
+        manifest, so a crash leaves the volume fully tiered (the staged bytes
+        collected at restart) or fully local."""
+        with self._lock:
+            with open(self.tier_file()) as f:
+                info = json.load(f)
+            endpoint, ak, sk = self._tier_credentials(info)
+            s3 = S3BackendStorage(endpoint, access_key or ak, secret_key or sk,
+                                  name=info.get("backend", ""))
+            local = self.file_name() + ".dat"
+            sc = StagedCommit(self.file_name(), "tier.download")
+            tmp = sc.stage(local)
+            sc.remove_on_commit(self.tier_file())
+            try:
+                got = s3.download_volume(info["bucket"], info["key"], tmp)
+                faultpoints.fire("tier.download.fetched", path=tmp)
+                if got != info["size"]:
+                    raise VolumeError(f"tier download: got {got} bytes, want {info['size']}")
+                sc.commit()
+            except Exception:
+                sc.abort()
+                raise
+            self.data_backend.close()
+            self.data_backend = DiskFile(local)
+
     # -- lifecycle -----------------------------------------------------------
     def sync(self) -> None:
         with self._lock:
@@ -696,7 +809,9 @@ class Volume:
                 raise VolumeError(f"volume {self.id} is compacting")
             self.close()
             base = self.file_name()
-            for ext in (".dat", ".idx", ".vif", ".cpd", ".cpx", ".note"):
+            # .tier too: a deleted tiered volume must not load again at the
+            # next start (the JAX package's destroy leaves its descriptor)
+            for ext in (".dat", ".tier", ".idx", ".vif", ".cpd", ".cpx", ".note"):
                 try:
                     os.remove(base + ext)
                 except FileNotFoundError:

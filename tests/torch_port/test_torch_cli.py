@@ -7,9 +7,10 @@ With the default backend (``cuda``) on a machine without a card,
 device, and leaves no shard, index or staging file behind.
 
 The port-only cluster: a ``master`` and a ``volume`` process, then ``shell
--c`` lists the volume and the topology. ``master -peers``/``-mdir`` are
-refused, and a shell command the port lacks fails with exit 1, naming it as
-not ported yet. On that cluster the volume maintenance runs from the
+-c`` lists the volume and the topology. ``master -peers`` elects one
+leader of a pair and ``-mdir`` keeps the master's state across a restart; a
+shell command the port lacks fails with exit 1, naming it as not ported
+yet. On that cluster the volume maintenance runs from the
 command line: ``shell -c "volume.vacuum ..."`` compacts, ``backup`` copies
 the volume locally, ``volume.tail`` prints its appended needles and
 ``volumeServer.leave`` retires the server. The offline ``compact`` writes the
@@ -118,11 +119,11 @@ def test_default_backend_refuses_ec_without_a_card(tmp_path, master):
         _stop(proc)
 
 
-def _start_master(port):
+def _start_master(port, *flags):
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.Popen(
         [sys.executable, "-m", "seaweedfs_tpu_torch", "master", "-ip", "127.0.0.1",
-         "-port", str(port), "-volumeSizeLimitMB", "64"],
+         "-port", str(port), "-volumeSizeLimitMB", "64", *flags],
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     url = f"127.0.0.1:{port}"
     deadline = time.time() + 60
@@ -168,19 +169,62 @@ def test_port_only_cluster_master_volume_shell(tmp_path):
         _stop(mproc)
 
 
-@pytest.mark.parametrize("flag", ["-peers=127.0.0.1:9334", "-mdir=/nonexistent"])
-def test_master_refuses_unported_flags(flag):
-    r = subprocess.run(
-        [sys.executable, "-m", "seaweedfs_tpu_torch", "master", "-port",
-         str(free_port()), flag],
-        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
-        text=True, timeout=60)
-    assert r.returncode == 1
-    assert "not ported yet" in r.stderr and flag.split("=")[0] in r.stderr
+@pytest.mark.parametrize("flag", ["-peers", "-mdir"])
+def test_master_refuses_unported_flags(flag, tmp_path):
+    """Once refused as not ported, each flag now works: a ``-peers`` pair
+    elects one leader that both name, and the fid-lease journal kept under
+    ``-mdir`` survives a restart (the restarted master assigns past the
+    leased range)."""
+    if flag == "-peers":
+        ports = [free_port(), free_port()]
+        peers = ",".join(f"127.0.0.1:{p}" for p in ports)
+        procs = [_start_master(p, "-peers", peers) for p in ports]
+        try:
+            def agreed():
+                st = [http_json("GET", f"http://{url}/cluster/status") for _, url in procs]
+                return (len({s["leader"] for s in st}) == 1 and st[0]["leader"]
+                        and sum(s["is_leader"] for s in st) == 1)
+
+            deadline = time.time() + 30
+            while not agreed() and time.time() < deadline:
+                time.sleep(0.2)
+            assert agreed()
+        finally:
+            for proc, _ in procs:
+                _stop(proc)
+        return
+    port, mdir = free_port(), str(tmp_path / "meta")
+    proc, url = _start_master(port, "-mdir", mdir)
+    vproc, _ = _start(tmp_path, url, "-ec.backend=cpu")
+    try:
+        env = CommandEnv(url)
+
+        def lease():
+            if not env.data_nodes():
+                return None
+            return http_json("POST", f"http://{url}/dir/fid_lease?client=t&count=64")
+
+        deadline = time.time() + 20
+        while not (r := lease()) and time.time() < deadline:
+            time.sleep(0.2)
+        assert r and r.get("lease_id"), r
+        key = int(r["fid"].split(",")[1][:-8], 16)
+        _stop(proc)
+        assert sorted(os.listdir(mdir)) == [f"fid_leases_{port}.jsonl"]
+        proc, url = _start_master(port, "-mdir", mdir)
+        st = http_json("GET", f"http://{url}/dir/status")["fid_leases"]
+        assert st["replayed_max_key"] == key + 64
+        deadline = time.time() + 20
+        while not env.data_nodes() and time.time() < deadline:
+            time.sleep(0.2)
+        a = http_json("GET", f"http://{url}/dir/assign")
+        assert int(a["fid"].split(",")[1][:-8], 16) >= key + 64
+    finally:
+        _stop(vproc)
+        _stop(proc)
 
 
-@pytest.mark.parametrize("command", ["volume.tier.upload -volumeId=1", "fs.ls /",
-                                     "volume.fsck"])
+@pytest.mark.parametrize("command", ["query", "fs.ls /", "volume.fsck"])
 def test_shell_unported_command_fails(command):
     mproc, murl = _start_master(free_port())
     try:

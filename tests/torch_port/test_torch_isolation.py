@@ -47,7 +47,11 @@ def test_port_imports_nothing_of_jax():
                  "shell.commands", "shell.shell", "util.throttler",
                  "storage.volume_backup", "stats.metrics", "storage.turbo",
                  "server.aio", "server.status_ui", "util.aio_pipeline",
-                 "util.needle_cache", "operation"):
+                 "util.needle_cache", "operation", "util.config", "util.safe_xml",
+                 "s3api.xml_util", "s3api.s3_client", "storage.backend",
+                 "storage.backend.core", "storage.backend.s3_backend",
+                 "storage.backend.fake_s3", "storage.backend_config", "cluster.election",
+                 "cluster.fid_lease", "cluster.lifecycle"):
         assert "seaweedfs_tpu_torch." + name in walked, name
     assert lines["BAD"] == "[]", r.stdout
     assert lines["NEW_THREADS"] == "0", r.stdout

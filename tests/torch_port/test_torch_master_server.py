@@ -132,7 +132,7 @@ def test_heartbeat_ack_names_the_master_and_servers_stay(master, tmp_path):
         assert vs.master_url == master.url and url in nodes()
         st = http_json("GET", f"http://{master.url}/dir/status")
         assert set(st) == {"version", "leader", "is_leader", "term", "topology",
-                           "fleet", "assign"}
+                           "fleet", "assign", "fid_leases", "lifecycle"}
         assert st["leader"] == master.url and st["is_leader"] is True
     finally:
         vs.stop()
