@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's erasure-coding, query and cluster paths on one
-NVIDIA GPU.
+"""Drive the PyTorch port's erasure-coding, query, cluster and filer paths on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -112,8 +112,27 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    without running the EC again; every live needle reads back through the
    masters. Prints each action's seconds from its plan to done, the
    failover's seconds, the tier's MB/s both ways and its GET p50/p99.
+12. the filer path: the port's master, four port volume servers (CUDA
+   backend, the engine on) and one port filer (``weed filer`` defaults: 32
+   MiB chunks, a sqlite ``filer.db``, replication 000, four uploads and four
+   chunk fetches in flight) with a collection of its own on four volumes.
+   From 8 threads: 1 024 small files (1 KiB-1 MiB) under 16 directories,
+   two 64 MiB streaming PUTs, one 64 MiB ``?cipher=true`` object, CSV
+   objects of phase 7's schema (three of 32 MiB, one of 96 MiB in three
+   chunks, one gzip'd). Every directory listed page by page, every file read
+   back, 32 ranged GETs, a directory renamed and another deleted (its
+   chunks purged on the volume servers). Phase 7's six queries through the
+   filer's ``/_query``: pushed down to the volume server holding each
+   single-chunk CSV (its own scan count must grow by one a query), scanned
+   on the filer's card for the 3-chunk one; the probe as ``/_select``
+   (event-stream CRCs checked) on the 3-chunk and gzip'd objects; every
+   reply equal to the cpu backend's. Then ``ec.encode`` seals every volume
+   of the collection (4/4/3/3), the server with shards 1, 5, 9, 13 of the
+   first stops, every surviving file reads back through the filer and the
+   probe runs again on two sealed CSVs. The seal and the degraded reads
+   must launch the kernel.
 
-Phases 6, 8, 9 and 10 run with the JAX package's default serving stack: the
+Phases 6, 8, 9, 10 and 12 run with the JAX package's default serving stack: the
 native turbo engine (built from ``seaweedfs_tpu_torch/csrc/turbo.cpp``)
 owns each volume server's public port, the asyncio core serves the rest.
 Each of them fails if a volume server in it started without the engine, and
@@ -125,8 +144,8 @@ servers of phase 8 share the card so, and the fleet scheduler runs up to
 four generate jobs together); each result must equal the plain version's.
 
 Every phase prints one JSON line with its numbers and kernel launches.
-Phases 2-11 are the main path: the launch counts are zeroed before phase 2
-and read after phase 11, and every phase must have launched the kernel. The
+Phases 2-12 are the main path: the launch counts are zeroed before phase 2
+and read after phase 12, and every phase must have launched the kernel. The
 line before last lists each kernel with its launches, error and times; the
 last line is the device record. Any mismatch or error exits non-zero.
 """
@@ -134,7 +153,9 @@ last line is the device record. Any mismatch or error exits non-zero.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
+import gzip
 import hashlib
 import http.client
 import io
@@ -166,7 +187,9 @@ from seaweedfs_tpu_torch.ec.decoder import decode_to_volume  # noqa: E402
 from seaweedfs_tpu_torch.ec.ec_volume import EcVolume  # noqa: E402
 from seaweedfs_tpu_torch.query import execute_request, parse_sql, run_query  # noqa: E402
 from seaweedfs_tpu_torch.query import scan as query_scan  # noqa: E402
+from seaweedfs_tpu_torch.query import select as s3select  # noqa: E402
 from seaweedfs_tpu_torch.query.scan import TorchKernels, compile_plan  # noqa: E402
+from seaweedfs_tpu_torch.server.filer_server import FilerServer  # noqa: E402
 from seaweedfs_tpu_torch.server.http_util import SERVING  # noqa: E402
 from seaweedfs_tpu_torch.server.master_server import MasterServer  # noqa: E402
 from seaweedfs_tpu_torch.server.volume_server import VolumeServer  # noqa: E402
@@ -2744,6 +2767,414 @@ def phase11(state) -> None:
     emit(out)
 
 
+# -- phase 12: the filer path ------------------------------------------------
+FILER_COL = "filer12"  # the filer's own collection
+FILER_CHUNK = 32 * MiB  # weed filer -chunkSizeMB 32
+FILER_SMALL = 1024  # files of 1 KiB-1 MiB, log-uniform (phase 6's mix)
+FILER_DIRS = 16
+# streaming PUTs and a ?cipher=true object, two chunks each (160, 160 and
+# 96 MiB before a cut: PERF.md section 4)
+FILER_LARGE = (64 * MiB, 64 * MiB)
+FILER_CIPHER = 64 * MiB
+# the CSVs: single-chunk size and count (4 before a cut), the 3-chunk one;
+# the gzip'd one is the last single-chunk CSV compressed
+FILER_CSV = (32 * MiB, 3, 96 * MiB)
+FILER_RANGED = 32  # ranged GETs on the large objects (256 before a cut: PERF.md section 4)
+FILER_PAGE = 50  # listing page size (limit, lastFileName)
+FILER_THREADS = 8
+FILER_QUERY_BACKEND = None  # the filer's default: $SWEED_QUERY_BACKEND, else cuda
+FILER_PROBE_SQL = "SELECT * FROM s3object WHERE region = 'east' AND score > 995"
+
+
+def _filer_call(url: str, method: str, path: str, body=None,
+                headers=None) -> tuple[int, bytes, float]:
+    """One request on a fresh connection, the body streamed from a file-like
+    in 1 MiB pieces when it is one: (status, body, seconds)."""
+    conn = http.client.HTTPConnection(url, timeout=600, blocksize=MiB)
+    try:
+        t0 = time.perf_counter()
+        conn.request(method, path, body=body, headers=headers or {})
+        resp = conn.getresponse()
+        data = resp.read()
+        return resp.status, data, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def _select_xml(sql: str, compression: str) -> bytes:
+    """A SelectObjectContent request: CSV in (header row), JSON out."""
+    sql = sql.replace("&", "&amp;").replace("<", "&lt;").replace(">", "&gt;")
+    return ("<SelectObjectContentRequest>"
+            f"<Expression>{sql}</Expression><ExpressionType>SQL</ExpressionType>"
+            f"<InputSerialization><CompressionType>{compression}</CompressionType>"
+            "<CSV><FileHeaderInfo>USE</FileHeaderInfo></CSV></InputSerialization>"
+            "<OutputSerialization><JSON/></OutputSerialization>"
+            "</SelectObjectContentRequest>").encode()
+
+
+def phase12(state) -> None:
+    """The filer path: the port's master, four port volume servers (CUDA
+    backend, ``weed volume`` defaults, the engine on) and one port filer
+    (``weed filer`` defaults: 32 MiB chunks, a sqlite ``filer.db`` on disk,
+    replication 000, four uploads and four chunk fetches in flight), in one
+    process, with its own collection grown on four volumes. From 8 client
+    threads: 1 024 small files (1 KiB-1 MiB) under 16 directories; two 64
+    MiB streaming PUTs and one 64 MiB ``?cipher=true`` object; CSV objects
+    of phase 7's schema: three of 32 MiB (one chunk), one of 96 MiB (three),
+    and one of the 32 MiB ones again gzip'd. Phase 7 ran the same six
+    queries in this process first, so none is a first use on the card. Every directory listed page by page, every file
+    read back, 32 ranged GETs; a directory renamed and another deleted
+    recursively, its chunks purged. Phase 7's six queries through the
+    filer's ``/_query`` to each single-chunk CSV (pushed down to the volume
+    server holding it) and to the 3-chunk one (scanned on the filer's
+    card), and the probe as ``/_select`` on the 3-chunk and gzip'd objects;
+    every reply equal to the cpu backend's. Then the shell's ``ec.encode``
+    seals every volume of the collection (4/4/3/3), the server with shards
+    1, 5, 9, 13 of the first stops, every surviving file reads back through
+    the filer and the probe runs again on a sealed single-chunk CSV and the
+    3-chunk one, through gf_matmul."""
+    t_start = time.perf_counter()
+    n_servers, threads = 4, FILER_THREADS
+    out: dict = {"phase": 12, "servers": n_servers, "collection": FILER_COL,
+                 "chunk_MiB": FILER_CHUNK / MiB, "client_threads": threads}
+    steps: dict = {}
+    master = MasterServer(host="127.0.0.1", port=_free_port(), node_timeout=3.0).start()
+    servers, stopped = [], set()
+    for i in range(n_servers):
+        servers.append(VolumeServer([os.path.join(WORK, f"12srv{i}")], host="127.0.0.1",
+                                    port=_free_port(), master_url=master.url,
+                                    pulse_seconds=0.5, ec_backend=EC_BACKEND))
+    by_url = {f"127.0.0.1:{vs.port}": vs for vs in servers}
+    eng = _Engines(12, servers)
+    filer_dir = os.path.join(WORK, "12filer")
+    os.makedirs(filer_dir)
+    filer = None
+    env = CommandEnv(master.url)
+    cnt = QUERY_COUNTERS
+
+    def step(name: str, fn):
+        l0, t0 = gm.gf_matmul.launches, time.perf_counter()
+        res = fn()
+        steps[name] = {"s": time.perf_counter() - t0, "launches": gm.gf_matmul.launches - l0}
+        return res
+
+    def served() -> int:  # /_query scans the volume servers ran themselves
+        return sum(vs.queries_served for vs in servers)
+
+    def deleted() -> int:  # needles deleted from the collection's volumes
+        return sum(v.deleted_count() for vs in servers for loc in vs.store.locations
+                   for v in list(loc.volumes.values()) if v.collection == FILER_COL)
+
+    try:
+        for vs in servers:
+            vs.start()
+        eng.check()
+        if not _until(lambda: len(master.master.topo.data_nodes()) == n_servers):
+            raise SystemExit("phase 12: the volume servers did not register")
+        grown = _admin(master.url, f"/vol/grow?collection={FILER_COL}&count=4&replication=000")
+        if grown != {"count": 4}:
+            raise SystemExit(f"phase 12: /vol/grow answered {grown}")
+        filer = FilerServer(host="127.0.0.1", port=_free_port(), master_url=master.url,
+                            chunk_size=FILER_CHUNK, db_path=os.path.join(filer_dir, "filer.db"),
+                            collection=FILER_COL, replication="000", read_window=4,
+                            write_window=4, query_backend=FILER_QUERY_BACKEND).start()
+        furl = filer.url
+
+        # the data, from the seed
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(12)
+        small = {}
+        for i in range(FILER_SMALL):
+            size = int(np.exp(rng.uniform(np.log(1024), np.log(MiB))))
+            small[f"/small/d{i % FILER_DIRS:02d}/f{i:04d}.bin"] = rng.bytes(size)
+        large = {f"/large/obj{i}.bin": rng.bytes(n) for i, n in enumerate(FILER_LARGE)}
+        cipher = {"/large/secret.bin": rng.bytes(FILER_CIPHER)}
+        one_size, n_one, multi_size = FILER_CSV
+        csvs = {f"/csv/one{i}.csv": query_csv(120 + i, one_size) for i in range(n_one)}
+        gz_plain = csvs[f"/csv/one{n_one - 1}.csv"]
+        csvs["/csv/three.csv"] = query_csv(124, multi_size)
+        gz = {"/csv/gz.csv.gz": gzip.compress(gz_plain, compresslevel=1)}
+        out["data_gen_s"] = time.perf_counter() - t0
+        files = {**small, **large, **cipher, **csvs, **gz}
+
+        # 1. small files, POST from 8 threads
+        post_ms, errors = [], []
+
+        def post(path: str) -> None:
+            status, body, sec = _filer_call(furl, "POST", path, small[path])
+            post_ms.append(sec * 1e3)
+            if status != 201:
+                errors.append((path, status, body[:200]))
+
+        sec = _parallel(post, list(small), threads)
+        nbytes = sum(map(len, small.values()))
+        out["small_write"] = {"files": len(small), "bytes": nbytes, "s": sec,
+                              "MBps": nbytes / sec / 1e6, "post_ms_p50": _pct(post_ms, 50),
+                              "post_ms_p99": _pct(post_ms, 99)}
+        if errors:
+            raise SystemExit(f"phase 12: small-file POSTs failed: {errors[:5]}")
+
+        # 2. large objects by streaming PUT; 3. the CSVs
+        put = {}
+        for path, data in (*large.items(), *cipher.items(), *csvs.items(), *gz.items()):
+            q = "?cipher=true" if path in cipher else ""
+            status, body, sec = _filer_call(
+                furl, "PUT", path + q, io.BytesIO(data), {"Content-Length": str(len(data))})
+            if status != 201:
+                raise SystemExit(f"phase 12: PUT {path} answered {status}: {body[:200]!r}")
+            put[path] = {"MiB": len(data) / MiB, "s": sec, "MBps": len(data) / sec / 1e6,
+                         "chunks": json.loads(body)["chunks"]}
+        want_chunks = {**{p: -(-len(large[p]) // FILER_CHUNK) for p in large},
+                       "/large/secret.bin": -(-FILER_CIPHER // FILER_CHUNK),
+                       **{p: 1 for p in csvs}, "/csv/three.csv": 3, "/csv/gz.csv.gz": 1}
+        bad = {p: put[p]["chunks"] for p in want_chunks if put[p]["chunks"] != want_chunks[p]}
+        if bad:
+            raise SystemExit(f"phase 12: chunk counts {bad}, want {want_chunks}")
+        big = [*large, *cipher]
+        out["large_put"] = {p: put[p] for p in big}
+        out["large_put_MBps"] = sum(len(files[p]) for p in big) / sum(
+            put[p]["s"] for p in big) / 1e6
+        out["csv_put"] = {p: put[p] for p in (*csvs, *gz)}
+
+        # 4. listing, read-back, ranged GETs
+        list_ms, listed = [], 0
+        for d in sorted({p.rsplit("/", 1)[0] for p in files}):
+            last, names = "", []
+            while True:
+                status, body, sec = _filer_call(
+                    furl, "GET", f"{d}/?limit={FILER_PAGE}&lastFileName={last}")
+                list_ms.append(sec * 1e3)
+                page = json.loads(body)["entries"]
+                names += [e["name"] for e in page]
+                if len(page) < FILER_PAGE:
+                    break
+                last = page[-1]["name"]
+            want = sorted(p.rsplit("/", 1)[1] for p in files if p.rsplit("/", 1)[0] == d)
+            if names != want:
+                raise SystemExit(f"phase 12: {d} lists {len(names)} names, want {len(want)}")
+            listed += len(names)
+        out["listing"] = {"entries": listed, "pages": len(list_ms),
+                          "ms_p50": _pct(list_ms, 50), "ms_p99": _pct(list_ms, 99)}
+
+        def read_all(paths: list, what: str) -> dict:
+            ms, bad = {}, []
+
+            def get(path: str) -> None:
+                status, data, sec = _filer_call(furl, "GET", path)
+                ms[path] = sec
+                if status != 200 or data != files[path]:
+                    bad.append((path, status, len(data)))
+
+            sec = _parallel(get, paths, threads)
+            if bad:
+                raise SystemExit(f"phase 12: {len(bad)} {what} reads wrong: {bad[:5]}")
+            sm = [ms[p] * 1e3 for p in paths if p in small]
+            lg = [p for p in paths if p not in small]
+            return {"files": len(paths), "s": sec, "small_ms_p50": _pct(sm, 50),
+                    "small_ms_p99": _pct(sm, 99),
+                    "large_MBps": sum(len(files[p]) for p in lg) / sum(ms[p] for p in lg) / 1e6}
+
+        out["read_back"] = step("read_back", lambda: read_all(list(files), "read-back"))
+        rr = np.random.default_rng(1212)
+        rng_ms, bad = [], []
+        for _ in range(FILER_RANGED):
+            path = big[int(rr.integers(len(big)))]
+            n = int(rr.integers(1, MiB))
+            lo = int(rr.integers(0, len(files[path]) - n))
+            status, data, sec = _filer_call(furl, "GET", path,
+                                            headers={"Range": f"bytes={lo}-{lo + n - 1}"})
+            rng_ms.append(sec * 1e3)
+            if status != 206 or data != files[path][lo:lo + n]:
+                bad.append((path, lo, n, status))
+        out["ranged_get"] = {"n": FILER_RANGED, "ms_p50": _pct(rng_ms, 50),
+                             "ms_p99": _pct(rng_ms, 99), "bad": len(bad)}
+        if bad:
+            raise SystemExit(f"phase 12: ranged GETs wrong: {bad[:5]}")
+
+        # rename one directory, delete another recursively: its chunks purged
+        status, body, _ = _filer_call(furl, "POST", "/small/d00?mv.to=/small/renamed00")
+        if status != 200:
+            raise SystemExit(f"phase 12: rename answered {status}: {body[:200]!r}")
+        for p in [p for p in small if p.startswith("/small/d00/")]:
+            np_ = p.replace("/small/d00/", "/small/renamed00/")
+            small[np_] = files[np_] = small.pop(p)
+            files.pop(p)
+        gone = [p for p in small if p.startswith("/small/d01/")]
+        n_chunks = sum(len(filer.filer.find_entry(p).chunks) for p in gone)
+        d0 = deleted()
+        status, body, _ = _filer_call(furl, "DELETE", "/small/d01?recursive=true")
+        if status != 200 or json.loads(body)["purged_chunks"] != n_chunks:
+            raise SystemExit(f"phase 12: recursive delete answered {status}: {body[:200]!r}")
+        t0 = time.perf_counter()
+        if not _until(lambda: deleted() - d0 >= n_chunks, timeout=60):
+            raise SystemExit(f"phase 12: {deleted() - d0} of {n_chunks} chunks purged")
+        for p in gone:
+            small.pop(p)
+            files.pop(p)
+        renamed = sorted(p for p in small if "/renamed00/" in p)
+        checks = [_filer_call(furl, "GET", p) for p in renamed[:8]]
+        if any(s != 200 or d != files[p] for (s, d, _), p in zip(checks, renamed)) or \
+                _filer_call(furl, "GET", gone[0])[0] != 404:
+            raise SystemExit("phase 12: the renamed or deleted directory reads wrong")
+        out["rename_delete"] = {"renamed": len(renamed), "deleted_files": len(gone),
+                                "purged_chunks": n_chunks, "purge_s": time.perf_counter() - t0,
+                                "volume_deletes": deleted() - d0}
+
+        # 5. queries: pushdown (single chunk) and filer-side (three chunks)
+        def ask(path: str, req: dict) -> tuple[dict, float]:
+            status, body, sec = _filer_call(furl, "POST", "/_query",
+                                            json.dumps(dict(req, path=path, input="csv")).encode())
+            if status != 200:
+                raise SystemExit(f"phase 12: /_query {path} answered {status}: {body[:300]!r}")
+            return json.loads(body), sec
+
+        singles = [p for p in csvs if p != "/csv/three.csv"]
+        # the cpu backend's replies, made on three threads while the filer
+        # answers on the card
+        pool = concurrent.futures.ThreadPoolExecutor(3)
+        wants = {(name, path): pool.submit(execute_request, csvs[path],
+                                           dict(req, input="csv"), backend="cpu")
+                 for name, req in QUERIES for path in (*singles, "/csv/three.csv")}
+        pool.shutdown(wait=False)
+        q0, r0, e0 = served(), filer.query_routes(), TorchKernels.evaluations["cuda"]
+        s0 = cnt["scans"].value(backend="cuda")
+        per_query, mismatches, probe_rows = {}, [], {}
+        t0 = time.perf_counter()
+        for name, req in QUERIES:
+            lat = {"pushdown": [], "filer_side": []}
+            for path in (*singles, "/csv/three.csv"):
+                got, sec = ask(path, req)
+                lat["pushdown" if path in singles else "filer_side"].append(sec * 1e3)
+                want = wants.pop((name, path)).result()[1]
+                if got != want:
+                    mismatches.append((name, path))
+                if name == "probe":
+                    probe_rows[path] = got
+            per_query[name] = {"pushdown_ms_p50": _pct(lat["pushdown"], 50),
+                               "pushdown_ms_p99": _pct(lat["pushdown"], 99),
+                               "filer_side_ms": lat["filer_side"][0]}
+        routes = filer.query_routes()
+        out["query"] = {
+            "per_query": per_query, "s": time.perf_counter() - t0,
+            "pushdown": routes["pushdown"] - r0["pushdown"],
+            "filer_side": routes["filer_side"] - r0["filer_side"],
+            "volume_server_scans": served() - q0,
+            "evaluations_cuda": TorchKernels.evaluations["cuda"] - e0,
+            "scans_cuda": cnt["scans"].value(backend="cuda") - s0,
+            "mismatches_vs_cpu": mismatches}
+        sent = len(singles) * len(QUERIES)
+        if mismatches:
+            raise SystemExit(f"phase 12: replies differ from the cpu backend's: {mismatches}")
+        if out["query"]["pushdown"] != sent or out["query"]["volume_server_scans"] != sent \
+                or out["query"]["filer_side"] != len(QUERIES):
+            raise SystemExit(f"phase 12: the pushdown did not engage as sent: {out['query']}")
+        piece = csvs["/csv/one0.csv"][:ORACLE_BYTES]
+        piece = piece[: piece.rfind(b"\n") + 1]
+        bad_oracle = []
+        for name, req in QUERIES:
+            select, where, limit = _query_args(req)
+            want = run_query(piece, "csv", select=select, where=where, limit=limit)
+            if execute_request(piece, dict(req, input="csv"), backend="cuda")[1]["rows"] != want:
+                bad_oracle.append(name)
+        out["query"]["oracle_mismatches"] = bad_oracle
+        if bad_oracle:
+            raise SystemExit(f"phase 12: the scan differs from the engine on {bad_oracle}")
+
+        # /_select: the probe, CSV in, JSON out, on the 3-chunk and gzip'd objects
+        sel = {}
+        for path, plain, comp in (("/csv/three.csv", csvs["/csv/three.csv"], "NONE"),
+                                  ("/csv/gz.csv.gz", gz_plain, "GZIP")):
+            status, body, sec = _filer_call(furl, "POST", f"/_select?path={path}",
+                                            _select_xml(FILER_PROBE_SQL, comp))
+            if status != 200:
+                raise SystemExit(f"phase 12: /_select {path} answered {status}: {body[:300]!r}")
+            events = list(s3select.iter_events(body))  # every prelude and message CRC
+            kinds = [e["headers"][":event-type"] for e in events]
+            rows = [json.loads(x) for e in events if e["headers"][":event-type"] == "Records"
+                    for x in e["payload"].splitlines()]
+            want = execute_request(plain, {"input": "csv", "sql": FILER_PROBE_SQL},
+                                   backend="cpu")[1]["rows"]
+            sel[path] = {"ms": sec * 1e3, "MBps": len(files[path]) / sec / 1e6,
+                         "events": len(events), "rows": len(rows), "crc_ok": True}
+            if rows != want or kinds[-2:] != ["Stats", "End"]:
+                raise SystemExit(f"phase 12: /_select {path} rows differ ({len(rows)} vs "
+                                 f"{len(want)}) or ends {kinds[-2:]}")
+        out["select"] = sel
+
+        # 6. seal every volume of the collection, lose a server, read back
+        vids = sorted({FileId.parse(c.file_id).volume_id for p in files
+                       for c in filer.filer.find_entry(p).chunks})
+        encodes = {}
+        with _ShellCalls() as sc:
+            def seal():
+                for vid in vids:
+                    encodes[vid] = run_command(
+                        env, f"ec.encode -volumeId={vid} -collection={FILER_COL}")["spread"]
+            step("ec_encode", seal)
+        shapes = {vid: sorted(len(s) for s in sp.values()) for vid, sp in encodes.items()}
+        out["encode"] = {"volumes": vids, "spreads": encodes, "s": steps["ec_encode"]["s"],
+                         "generate_s": sc.seconds["/admin/ec/generate"],
+                         "copy_s": sc.seconds["/admin/ec/copy"]}
+        if any(s != [3, 3, 4, 4] for s in shapes.values()):
+            raise SystemExit(f"phase 12: the shards spread as {encodes}")
+        if not _until(lambda: all(len(env.ec_shard_locations(v)) == 14
+                                  and not master.master.topo.lookup(FILER_COL, v)
+                                  for v in vids)):
+            raise SystemExit("phase 12: the master never saw every volume's 14 shards")
+        victim = next(t for t, sids in encodes[vids[0]].items() if sids == [1, 5, 9, 13])
+        eng.stop(by_url[victim])
+        stopped.add(victim)
+
+        def dropped() -> bool:
+            return not any(victim in urls for v in vids
+                           for urls in master.master.lookup_ec_volume(v)[
+                               "shard_id_locations"].values())
+        t0 = time.perf_counter()
+        if not _until(dropped, timeout=60):
+            raise SystemExit(f"phase 12: the master still names {victim} as a shard holder")
+        out["reaped_after_s"] = time.perf_counter() - t0
+        out["victim_shards"] = {v: encodes[v].get(victim, []) for v in vids}
+        # an empty chunk cache: every read below reaches the volume servers
+        filer.chunk_cache = type(filer.chunk_cache)()
+        out["degraded_read"] = step("degraded_read",
+                                    lambda: read_all(list(files), "degraded"))
+        q0, r0 = served(), filer.query_routes()
+        ec_bad, ec_ms = [], []
+
+        sealed = (singles[0], "/csv/three.csv")  # one of each (4 + 1 before a cut)
+
+        def ec_queries():
+            for path in sealed:
+                got, sec = ask(path, QUERIES[0][1])
+                ec_ms.append(sec * 1e3)
+                if got != probe_rows[path]:
+                    ec_bad.append(path)
+        step("ec_query", ec_queries)
+        routes = filer.query_routes()
+        out["ec_query"] = {"ms": ec_ms, "pushdown": routes["pushdown"] - r0["pushdown"],
+                           "filer_side": routes["filer_side"] - r0["filer_side"],
+                           "volume_server_scans": served() - q0, "mismatches": ec_bad}
+        if ec_bad or out["ec_query"]["pushdown"] != 1 \
+                or out["ec_query"]["volume_server_scans"] != 1:
+            raise SystemExit(f"phase 12: the sealed CSVs' queries failed: {out['ec_query']}")
+        out["filer_status"] = {k: v for k, v in json.loads(
+            _filer_call(furl, "GET", "/_status")[1]).items()
+            if k in ("chunk_cache", "fid_leases", "hedge", "query_routes")}
+    finally:
+        if filer is not None:
+            filer.stop()
+        for url, vs in by_url.items():
+            if url not in stopped:
+                eng.stop(vs)
+        master.stop()
+    out.update(turbo=eng.totals(), steps=steps, wall_s=time.perf_counter() - t_start,
+               launches=gm.gf_matmul.launches - state["l_phase"], nvidia_smi=state["smi"])
+    emit(out)
+    idle = [name for name in ("ec_encode", "degraded_read") if not steps[name]["launches"]]
+    if idle:
+        raise SystemExit(f"phase 12: no kernel launch in {idle}")
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -2751,7 +3182,7 @@ def _free_port() -> int:
 
 
 MAIN_PATH = (phase2, phase3, phase4, phase5, phase6, phase7, phase8, phase9, phase10,
-             phase11)
+             phase11, phase12)
 
 
 def main() -> int:

@@ -1,5 +1,5 @@
 """Command line: ``python -m seaweedfs_tpu_torch
-master|volume|shell|backup|compact|volume.tail|benchmark ...``.
+master|volume|filer|shell|upload|download|delete|backup|compact|volume.tail|benchmark ...``.
 
 - ``master`` runs a master with the flags of ``weed master``: ``-ip -port
   -volumeSizeLimitMB -defaultReplication -peers -mdir``. ``-peers A,B,C``
@@ -13,6 +13,16 @@ master|volume|shell|backup|compact|volume.tail|benchmark ...``.
   -pulseSeconds -index``. ``-ec.backend`` is ``cuda`` (the default: the
   hand-written kernel, and EC requests fail without a card) or ``cpu`` (the
   kernel's plain PyTorch version).
+- ``filer`` runs a filer with the flags of ``weed filer``: ``-ip -port
+  -master -chunkSizeMB -db -collection -replication -encryptVolumeData
+  -peers -metaLogDir``. Its store is ``-db`` (a sqlite file, or
+  ``:memory:``); with ``-db`` unset, ``filer.toml``'s ``[sqlite]`` or
+  ``./filer.db``. A ``filer.toml`` that enables another store, or a
+  ``notification.toml`` that enables a queue, stops the command with a
+  message naming it: those are not ported yet. Filer-side queries run on
+  the card; ``SWEED_QUERY_BACKEND=cpu`` runs them on the CPU.
+- ``upload -master [-maxMB] FILE...``, ``download -master [-o] FID`` and
+  ``delete -master FID...`` are the object-store client of ``operation.py``.
 - ``shell`` runs the admin shell against ``-master``; ``-c "cmd; cmd"``
   runs the commands and exits 1 if one failed.
 - ``backup -master -volume -dir [-collection]`` makes or brings up to date
@@ -427,6 +437,107 @@ def _report(op, args, latencies, wall, failures=0):
     print(f"failed: {failures} / {total + failures}")
 
 
+# filer.toml stores and notification.toml queues the port does not have
+_UNPORTED_STORES = ("redis", "sql", "cassandra", "mongodb", "etcd", "elastic7")
+_QUEUES = ("log", "file", "webhook", "aws_sqs", "kafka", "google_pub_sub")
+
+
+def _filer_store_from_conf(db_path: str) -> str:
+    """filer.toml store selection: an explicit ``-db`` beats the config
+    file, then ``[sqlite] dbFile``; an unset ``-db`` with no config lands on
+    a persistent ``./filer.db`` (``:memory:`` when the cwd is read-only).
+    A store the port lacks raises SystemExit naming it."""
+    import os
+    import sys
+
+    from .util.config import load_configuration
+
+    if db_path:
+        return db_path
+    conf = load_configuration("filer")
+    for name in _UNPORTED_STORES:
+        if conf.get_bool(f"{name}.enabled"):
+            raise SystemExit(f"filer.toml enables the {name} store, which is "
+                             "not ported yet (use [sqlite] or -db)")
+    if conf.get_bool("sqlite.enabled"):
+        return conf.get("sqlite.dbFile", "./filer.db")
+    if not os.access(os.path.dirname(os.path.abspath("./filer.db")), os.W_OK):
+        print("WARNING: cwd not writable; filer metadata is IN-MEMORY and will "
+              "not survive a restart (pass -db or mount a writable dir)",
+              file=sys.stderr)
+        return ":memory:"
+    return "./filer.db"
+
+
+def _refuse_notifications() -> None:
+    from .util.config import load_configuration
+
+    conf = load_configuration("notification")
+    if not conf.get_bool("notification.enabled", True):
+        return
+    for q in _QUEUES:
+        if conf.get_bool(f"notification.{q}.enabled"):
+            raise SystemExit(f"notification.toml enables the {q} queue; "
+                             "notifications are not ported yet")
+
+
+def cmd_filer(args) -> None:
+    from .server.filer_server import FilerServer
+
+    db_path = _filer_store_from_conf(args.db)
+    _refuse_notifications()
+    fs = FilerServer(
+        host=args.ip,
+        port=args.port,
+        master_url=args.master,
+        chunk_size=args.chunk_size_mb * 1024 * 1024,
+        db_path=db_path,
+        collection=args.collection,
+        replication=args.replication,
+        cipher=args.encrypt_volume_data,
+        peers=[p for p in args.peers.split(",") if p],
+        meta_log_dir=args.meta_log_dir,
+    ).start()
+    print(f"filer on {fs.url} -> master {args.master} (store {db_path})", flush=True)
+    _serve_until_signalled(fs)
+
+
+def cmd_upload(args) -> None:
+    import os
+
+    from . import operation
+
+    for path in args.files:
+        with open(path, "rb") as f:
+            data = f.read()
+        fid = operation.submit(args.master, data, name=os.path.basename(path),
+                               replication=args.replication,
+                               collection=args.collection, ttl=args.ttl,
+                               max_mb=args.max_mb)
+        print(f"{path}\t{fid}")
+
+
+def cmd_download(args) -> None:
+    import sys
+
+    from . import operation
+
+    data = operation.download(args.master, args.fid)
+    if args.output == "-":
+        sys.stdout.buffer.write(data)
+    else:
+        with open(args.output, "wb") as f:
+            f.write(data)
+        print(f"{args.fid} -> {args.output} ({len(data)} bytes)")
+
+
+def cmd_delete(args) -> None:
+    from . import operation
+
+    n = operation.delete_files(args.master, args.fids)
+    print(f"deleted {n}/{len(args.fids)}")
+
+
 def cmd_volume(args) -> None:
     from .server.volume_server import VolumeServer
 
@@ -484,6 +595,46 @@ def main(argv=None) -> None:
                    choices=["cuda", "cpu"],
                    help="cuda: the hand-written GPU kernel; cpu: its plain version")
     v.set_defaults(fn=cmd_volume)
+
+    f = sub.add_parser("filer", help="run a filer server")
+    f.add_argument("-ip", default="127.0.0.1")
+    f.add_argument("-port", type=int, default=8888)
+    f.add_argument("-master", default="127.0.0.1:9333")
+    f.add_argument("-chunkSizeMB", dest="chunk_size_mb", type=int, default=32)
+    f.add_argument("-db", default="",
+                   help="sqlite path (default ./filer.db; ':memory:' for "
+                        "ephemeral; filer.toml's [sqlite] when unset)")
+    f.add_argument("-collection", default="")
+    f.add_argument("-replication", default="")
+    f.add_argument("-encryptVolumeData", dest="encrypt_volume_data",
+                   action="store_true",
+                   help="AES-256-GCM encrypt chunk data (weed filer -encryptVolumeData)")
+    f.add_argument("-peers", default="",
+                   help="comma-separated peer filer host:port list (weed filer -peers)")
+    f.add_argument("-metaLogDir", dest="meta_log_dir", default="",
+                   help="directory for persisted meta-log segments (default: beside -db)")
+    f.set_defaults(fn=cmd_filer)
+
+    u = sub.add_parser("upload", help="upload files")
+    u.add_argument("-master", default="127.0.0.1:9333")
+    u.add_argument("-replication", default="")
+    u.add_argument("-collection", default="")
+    u.add_argument("-ttl", default="")
+    u.add_argument("-maxMB", dest="max_mb", type=int, default=32,
+                   help="split larger files into chunks + manifest needle")
+    u.add_argument("files", nargs="+")
+    u.set_defaults(fn=cmd_upload)
+
+    d = sub.add_parser("download", help="download by fid")
+    d.add_argument("-master", default="127.0.0.1:9333")
+    d.add_argument("-o", dest="output", default="-")
+    d.add_argument("fid")
+    d.set_defaults(fn=cmd_download)
+
+    de = sub.add_parser("delete", help="delete fids")
+    de.add_argument("-master", default="127.0.0.1:9333")
+    de.add_argument("fids", nargs="+")
+    de.set_defaults(fn=cmd_delete)
 
     sh = sub.add_parser("shell", help="run the admin shell")
     sh.add_argument("-master", default="127.0.0.1:9333")

@@ -294,6 +294,14 @@ class AsyncStreamBody:
 NATIVE_FALLBACK = object()
 
 
+def has_dot_segments(path: str) -> bool:
+    """True when any "/"-separated segment is literally "." or "..". The
+    filer stores segments literally (no traversal), but a stored ".." entry
+    is unrepresentable through a FUSE mount and poisons POSIX listings, so
+    the filer refuses such writes."""
+    return any(seg in (".", "..") for seg in path.split("/"))
+
+
 def parse_content_length(headers) -> int:
     """Content-Length as a non-negative int, or -1 when it is garbage (a
     naive ``int`` of '-5' would make ``rfile.read`` block)."""

@@ -200,6 +200,8 @@ class VolumeServer:
             "volume_server_request_total", "volume server requests")
         self.jwt_signing_key = jwt_signing_key
         self.jwt_read_key = jwt_read_key
+        self.queries_served = 0  # /_query scans this server ran
+        self._query_lock = threading.Lock()
         self.guard = Guard(whitelist)
         self.host, self.port = host, port
         # comma-separated seed list (weed volume -mserver=a,b,c); the live
@@ -550,6 +552,10 @@ class VolumeServer:
         status, data = self._fetch_fid(fid)
         if status != 200:
             return status, {"error": f"needle {fid}: HTTP {status}"}
+        with self._query_lock:
+            # this server's own scans: the filer's pushdown is told apart by
+            # them where several servers share a process (and its counters)
+            self.queries_served += 1
         return execute_request(data, req, backend=self.store.ec_backend)
 
     def _h_post(self, h, path, q, body):
@@ -1010,6 +1016,7 @@ class VolumeServer:
                                  "put": self._req_hist.summary(op="put")}
         hb["turbo"] = self.turbo_status()
         hb["serving"] = SERVING.snapshot()
+        hb["queries_served"] = self.queries_served
         return 200, hb
 
     def turbo_status(self) -> dict:

@@ -6,8 +6,11 @@ rides (``server/aio.py``). Handler code, running in a worker thread and
 byte for byte the threads-mode code, writes; the loop drains to the socket.
 The window bounds resident bytes, so a slow client backpressures the
 producing thread instead of buffering the body. The module's awaitable
-read-ahead and executor (``aprefetch_iter``, ``AioBoundedExecutor``) serve
-the filer and S3 gateways and are not ported yet.
+read-ahead ``aprefetch_iter`` (ordered, at most ``window`` fetches in
+flight, single-flight by key, close-without-wait; the awaitable mirror of
+``util/pipeline.prefetch_iter``) drives the filer's native GET. The
+awaitable executor (``AioBoundedExecutor``) serves the S3 gateway and is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -15,7 +18,82 @@ from __future__ import annotations
 import asyncio
 import threading
 from collections import deque
-from typing import Optional
+from typing import AsyncIterable, Callable, Iterable, Optional, Union
+
+
+async def _aiter(items: Union[Iterable, AsyncIterable]):
+    """Uniform async view over a sync or async iterable."""
+    if hasattr(items, "__aiter__"):
+        async for item in items:
+            yield item
+    else:
+        for item in items:
+            yield item
+
+
+async def aprefetch_iter(
+    items: Union[Iterable, AsyncIterable],
+    fetch: Callable,
+    window: int,
+    key: Optional[Callable] = None,
+):
+    """Async generator of ``(item, await fetch(item))`` pairs in input
+    order with at most ``window`` fetches in flight — the awaitable
+    mirror of ``util.pipeline.prefetch_iter`` (same ordering,
+    single-flight-by-key, eager-first-error, and close semantics; see
+    that docstring for the contract prose).
+
+    ``fetch`` is a coroutine function. Closing the generator cancels
+    fetches that nothing else references; ``window <= 1`` degenerates to
+    the serial awaited map.
+    """
+    if window <= 1:
+        async for item in _aiter(items):
+            yield item, await fetch(item)
+        return
+    key = key or (lambda item: item)
+    it = _aiter(items)
+    pending: deque = deque()  # (item, k, task) in input order
+    by_key: dict = {}  # key → [task, refcount] for single-flight dedup
+    try:
+        exhausted = False
+        while True:
+            while not exhausted and len(pending) < window:
+                try:
+                    item = await it.__anext__()
+                except StopAsyncIteration:
+                    exhausted = True
+                    break
+                k = key(item)
+                ent = by_key.get(k)
+                if ent is None:
+                    ent = by_key[k] = [
+                        asyncio.ensure_future(fetch(item)), 0
+                    ]
+                ent[1] += 1
+                pending.append((item, k, ent[0]))
+            if not pending:
+                return
+            item, k, task = pending.popleft()
+            try:
+                result = await asyncio.shield(task)
+            finally:
+                ent = by_key[k]
+                ent[1] -= 1
+                if ent[1] == 0:
+                    del by_key[k]
+            yield item, result
+    finally:
+        # close-without-wait: cancel every fetch no consumer will see;
+        # shield above keeps a shared (deduped) task alive for the
+        # earlier position still holding a reference
+        for _item, _k, task in pending:
+            task.cancel()
+            # retrieve the (cancelled or failed) result so the loop does
+            # not log "exception was never retrieved" for abandoned work
+            task.add_done_callback(
+                lambda t: t.cancelled() or t.exception()
+            )
 
 
 class ThreadFlumeClosed(Exception):

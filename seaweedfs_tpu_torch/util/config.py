@@ -9,8 +9,9 @@ The search path is the reference's: ``.``, ``$HOME/.seaweedfs_tpu``,
 2. the TOML file ``<name>.toml`` from the first directory that has one;
 3. the caller's default.
 
-The port reads one configuration so far, ``backend.toml`` (the named remote
-tiers of ``storage/backend_config.py``).
+The port reads ``backend.toml`` (the named remote tiers of
+``storage/backend_config.py``) and, for the ``filer`` command,
+``filer.toml`` and ``notification.toml``.
 """
 
 from __future__ import annotations
@@ -41,6 +42,12 @@ class Configuration:
                 return default
             node = node[part]
         return node
+
+    def get_bool(self, key: str, default: bool = False) -> bool:
+        v = self.get(key, default)
+        if isinstance(v, str):
+            return v.lower() in ("1", "true", "yes", "on")
+        return bool(v)
 
 
 def load_configuration(name: str) -> Configuration:

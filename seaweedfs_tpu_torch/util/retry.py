@@ -13,7 +13,7 @@ import random
 import time
 import urllib.error
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, Iterator, Optional
 
 TRANSIENT = "transient"
 POISON = "poison"
@@ -72,6 +72,13 @@ def classify_error(exc: BaseException) -> str:
     if isinstance(exc, (urllib.error.URLError, OSError)):
         return TRANSIENT
     return POISON
+
+
+def backoff_delays(policy: RetryPolicy) -> Iterator[float]:
+    """The sleep schedule between attempts: yields ``attempts - 1`` delays
+    (a generator per burst; make a fresh one to reset after success)."""
+    for attempt in range(max(0, policy.attempts - 1)):
+        yield policy.delay(attempt)
 
 
 def retry_call(

@@ -51,7 +51,12 @@ def test_port_imports_nothing_of_jax():
                  "s3api.xml_util", "s3api.s3_client", "storage.backend",
                  "storage.backend.core", "storage.backend.s3_backend",
                  "storage.backend.fake_s3", "storage.backend_config", "cluster.election",
-                 "cluster.fid_lease", "cluster.lifecycle"):
+                 "cluster.fid_lease", "cluster.lifecycle", "filer", "filer.entry",
+                 "filer.filechunks", "filer.filechunk_manifest", "filer.filerstore",
+                 "filer.abstract_sql", "filer.meta_log", "filer.filer_conf", "filer.filer",
+                 "filer.meta_aggregator", "util.pipeline", "util.chunk_cache",
+                 "util.cipher", "util.hedge", "util.compression", "query.select",
+                 "server.aio_transport", "server.filer_server"):
         assert "seaweedfs_tpu_torch." + name in walked, name
     assert lines["BAD"] == "[]", r.stdout
     assert lines["NEW_THREADS"] == "0", r.stdout
