@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's erasure-coding, query, cluster and filer paths on
-one NVIDIA GPU.
+"""Drive the PyTorch port's erasure-coding, query, cluster, filer and S3 paths
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -131,8 +131,27 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    first stops, every surviving file reads back through the filer and the
    probe runs again on two sealed CSVs. The seal and the degraded reads
    must launch the kernel.
+13. the S3 gateway: the port's master, four port volume servers (CUDA
+   backend, the engine on), one port filer (``weed filer`` defaults) and the
+   port's gateway (``weed s3`` defaults, an ``s3.json`` of two identities:
+   full access, and read and list of one bucket). Through the port's
+   ``S3Client`` with SigV4, from 8 threads: 512 objects (1 KiB-1 MiB), a 64
+   MiB multipart upload of 8 MiB parts whose last part is an
+   UploadPartCopy, a 64 MiB aws-chunked streaming upload, phase 12's schema
+   as CSVs of 32 and 96 MiB. ListObjectsV2 by pages of 100, every object
+   read back, 32 ranged GETs, a presigned GET, a POST-policy upload; the
+   read-only identity's PUT (403 AccessDenied) and a bad signature (403
+   SignatureDoesNotMatch) refused; SelectObjectContent with the probe on
+   both CSVs equal to the cpu backend's rows. Then ``ec.encode`` seals the
+   volumes, the server with shards 1, 5, 9, 13 of the first stops, and a
+   seeded 64 of the small objects read back equal and the sealed 32 MiB
+   CSV's Select gives the same rows, through the kernel; that Select's
+   trace id leads, through the daemons' ``/debug/traces`` and
+   ``/_debug/traces``, to one tree of the gateway's, the filer's and a
+   volume server's spans. The seal, the degraded reads and the sealed
+   Select must launch the kernel.
 
-Phases 6, 8, 9, 10 and 12 run with the JAX package's default serving stack: the
+Phases 6, 8, 9, 10, 12 and 13 run with the JAX package's default serving stack: the
 native turbo engine (built from ``seaweedfs_tpu_torch/csrc/turbo.cpp``)
 owns each volume server's public port, the asyncio core serves the rest.
 Each of them fails if a volume server in it started without the engine, and
@@ -144,8 +163,8 @@ servers of phase 8 share the card so, and the fleet scheduler runs up to
 four generate jobs together); each result must equal the plain version's.
 
 Every phase prints one JSON line with its numbers and kernel launches.
-Phases 2-12 are the main path: the launch counts are zeroed before phase 2
-and read after phase 12, and every phase must have launched the kernel. The
+Phases 2-13 are the main path: the launch counts are zeroed before phase 2
+and read after phase 13, and every phase must have launched the kernel. The
 line before last lists each kernel with its launches, error and times; the
 last line is the device record. Any mismatch or error exits non-zero.
 """
@@ -3175,6 +3194,417 @@ def phase12(state) -> None:
         raise SystemExit(f"phase 12: no kernel launch in {idle}")
 
 
+S3_BUCKET = "bucket13"  # the read-only identity may read and list this one only
+S3_OBJECTS = 512  # objects of 1 KiB-1 MiB, log-uniform (phase 6's mix)
+S3_PART = 8 * MiB  # the AWS CLI's multipart_chunksize and multipart_threshold
+S3_MULTIPART = 64 * MiB  # eight parts, the last one an UploadPartCopy
+S3_STREAM = 64 * MiB  # put_object_streaming (aws-chunked, signed chunks)
+S3_STREAM_CHUNK = MiB  # the aws-chunked frame size
+S3_CSV = (32 * MiB, 96 * MiB)  # phase 12's schema: one chunk and three
+S3_PAGE = 100  # ListObjectsV2 max-keys
+S3_RANGED = 32
+S3_SEALED_READS = 64  # small objects read back after the seal (a seeded sample)
+S3_THREADS = 8
+S3_IDENTITIES = {"identities": [
+    {"name": "admin", "credentials": [{"accessKey": "AKIA13ADMIN", "secretKey": "admin13secret"}],
+     "actions": ["Admin"]},
+    {"name": "reader", "credentials": [{"accessKey": "AKIA13READ", "secretKey": "read13secret"}],
+     "actions": [f"Read:{S3_BUCKET}", f"List:{S3_BUCKET}"]},
+]}
+
+
+def _post_policy_form(bucket: str, key: str, data: bytes, access_key: str,
+                      secret: str) -> tuple[bytes, str]:
+    """A browser POST upload: a SigV4-signed POST policy and the
+    multipart/form-data body that carries it."""
+    import base64
+    import hmac
+    from datetime import datetime, timedelta, timezone
+
+    from seaweedfs_tpu_torch.s3api.auth import IAM
+
+    now = datetime.now(timezone.utc)
+    policy = base64.b64encode(json.dumps({
+        "expiration": (now + timedelta(minutes=10)).strftime("%Y-%m-%dT%H:%M:%S.000Z"),
+        "conditions": [{"bucket": bucket}, ["starts-with", "$key", "forms/"],
+                       ["content-length-range", 1, 1 << 20]],
+    }).encode()).decode()
+    date = now.strftime("%Y%m%d")
+    sig = hmac.new(IAM.signing_key(secret, date, "us-east-1", "s3"), policy.encode(),
+                   hashlib.sha256).hexdigest()
+    fields = {"key": key, "policy": policy, "x-amz-algorithm": "AWS4-HMAC-SHA256",
+              "x-amz-credential": f"{access_key}/{date}/us-east-1/s3/aws4_request",
+              "x-amz-date": date + "T000000Z", "x-amz-signature": sig}
+    boundary = "phase13boundary"
+    body = b"".join(f"--{boundary}\r\nContent-Disposition: form-data; name=\"{k}\"\r\n\r\n"
+                    f"{v}\r\n".encode() for k, v in fields.items())
+    body += (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
+             f"filename=\"f.bin\"\r\nContent-Type: application/octet-stream\r\n\r\n"
+             ).encode() + data + f"\r\n--{boundary}--\r\n".encode()
+    return body, f"multipart/form-data; boundary={boundary}"
+
+
+def phase13(state) -> None:
+    """The S3 gateway: the port's master, four port volume servers (CUDA
+    backend, ``weed volume`` defaults, the engine on), one port filer
+    (``weed filer`` defaults: 32 MiB chunks, a sqlite ``filer.db``) and the
+    port's S3 gateway on ``weed s3`` defaults, with an ``s3.json`` of two
+    identities (full access; read and list of one bucket), in one process.
+    Through the port's ``S3Client`` with SigV4, from 8 threads: a bucket,
+    512 objects of 1 KiB-1 MiB; one 64 MiB multipart upload of 8 MiB parts,
+    the last an UploadPartCopy; one 64 MiB ``put_object_streaming``; phase
+    12's schema as CSVs of 32 MiB (one chunk) and 96 MiB (three). Then
+    ListObjectsV2 by pages of 100, every object read back, 32 ranged GETs,
+    a presigned GET and a POST-policy upload; the read-only identity's PUT
+    is refused (403 AccessDenied) and so is a bad signature (403
+    SignatureDoesNotMatch); SelectObjectContent with phase 7's probe on both
+    CSVs, its rows equal to the cpu backend's. Then the shell's
+    ``ec.encode`` seals the volumes, the server with shards 1, 5, 9, 13 of
+    the first stops, and a seeded 64 of the small objects read back equal,
+    and SelectObjectContent on the sealed 32 MiB CSV gives the same rows,
+    both through gf_matmul; that Select's ``X-Sweed-Trace-Id`` leads,
+    through the daemons' ``/debug/traces`` and ``/_debug/traces``, to one
+    tree with the gateway's, the filer's and a volume server's spans."""
+    from seaweedfs_tpu_torch.s3api import IAM, S3ApiServer
+    from seaweedfs_tpu_torch.s3api.s3_client import S3Client
+    from seaweedfs_tpu_torch.s3api.xml_util import find_text, findall, parse_xml
+    from seaweedfs_tpu_torch.stats import trace as trace_mod
+
+    t_start = time.perf_counter()
+    n_servers, threads, bucket = 4, S3_THREADS, S3_BUCKET
+    out: dict = {"phase": 13, "servers": n_servers, "chunk_MiB": FILER_CHUNK / MiB,
+                 "client_threads": threads}
+    steps: dict = {}
+    master = MasterServer(host="127.0.0.1", port=_free_port(), node_timeout=3.0).start()
+    servers, stopped = [], set()
+    for i in range(n_servers):
+        servers.append(VolumeServer([os.path.join(WORK, f"13srv{i}")], host="127.0.0.1",
+                                    port=_free_port(), master_url=master.url,
+                                    pulse_seconds=0.5, ec_backend=EC_BACKEND))
+    by_url = {f"127.0.0.1:{vs.port}": vs for vs in servers}
+    eng = _Engines(13, servers)
+    s3_dir = os.path.join(WORK, "13s3")
+    os.makedirs(s3_dir)
+    filer = api = None
+    env = CommandEnv(master.url)
+
+    def step(name: str, fn):
+        l0, t0 = gm.gf_matmul.launches, time.perf_counter()
+        res = fn()
+        steps[name] = {"s": time.perf_counter() - t0, "launches": gm.gf_matmul.launches - l0}
+        return res
+
+    try:
+        for vs in servers:
+            vs.start()
+        eng.check()
+        if not _until(lambda: len(master.master.topo.data_nodes()) == n_servers):
+            raise SystemExit("phase 13: the volume servers did not register")
+        grown = _admin(master.url, "/vol/grow?count=4&replication=000")
+        if grown != {"count": 4}:
+            raise SystemExit(f"phase 13: /vol/grow answered {grown}")
+        filer = FilerServer(host="127.0.0.1", port=_free_port(), master_url=master.url,
+                            chunk_size=FILER_CHUNK, db_path=os.path.join(s3_dir, "filer.db"),
+                            query_backend=FILER_QUERY_BACKEND).start()
+        conf = os.path.join(s3_dir, "s3.json")
+        with open(conf, "w") as f:
+            json.dump(S3_IDENTITIES, f)
+        with open(conf) as f:  # as `s3 -config s3.json` loads it
+            iam = IAM.from_config(json.load(f))
+        api = S3ApiServer(host="127.0.0.1", port=_free_port(), filer_url=filer.url,
+                          iam=iam).start()
+        endpoint = f"http://{api.url}"
+        admin = S3Client(endpoint, "AKIA13ADMIN", "admin13secret")
+        reader = S3Client(endpoint, "AKIA13READ", "read13secret")
+
+        # the data, from the seed
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(13)
+        small = {}
+        for i in range(S3_OBJECTS):
+            size = int(np.exp(rng.uniform(np.log(1024), np.log(MiB))))
+            small[f"obj/{i % 16:02d}/o{i:04d}.bin"] = rng.bytes(size)
+        streamed = rng.bytes(S3_STREAM)
+        parts = [rng.bytes(S3_PART) for _ in range(S3_MULTIPART // S3_PART - 1)]
+        csvs = {"csv/one.csv": query_csv(130, S3_CSV[0]),
+                "csv/three.csv": query_csv(131, S3_CSV[1])}
+        out["data_gen_s"] = time.perf_counter() - t0
+        status, body, _ = admin.create_bucket(bucket)
+        if status != 200:
+            raise SystemExit(f"phase 13: CreateBucket answered {status}: {body[:200]!r}")
+
+        # 1. PutObject from 8 threads
+        put_ms, errors = [], []
+
+        def put(key: str) -> None:
+            t0 = time.perf_counter()
+            status, body, _ = admin.put_object(bucket, key, small[key])
+            put_ms.append((time.perf_counter() - t0) * 1e3)
+            if status != 200:
+                errors.append((key, status, body[:200]))
+
+        sec = _parallel(put, list(small), threads)
+        nbytes = sum(map(len, small.values()))
+        out["put"] = {"objects": len(small), "bytes": nbytes, "s": sec,
+                      "MBps": nbytes / sec / 1e6, "ms_p50": _pct(put_ms, 50),
+                      "ms_p99": _pct(put_ms, 99)}
+        if errors:
+            raise SystemExit(f"phase 13: PUTs failed: {errors[:5]}")
+
+        # 2. the streaming (aws-chunked) upload, then the multipart upload whose
+        # last part is copied from it
+        t0 = time.perf_counter()
+        frames = [streamed[i:i + S3_STREAM_CHUNK] for i in range(0, S3_STREAM, S3_STREAM_CHUNK)]
+        status, body, _ = admin.put_object_streaming(bucket, "large/streamed.bin", frames)
+        if status != 200:
+            raise SystemExit(f"phase 13: streaming PUT answered {status}: {body[:200]!r}")
+        sec = time.perf_counter() - t0
+        out["streaming_put"] = {"MiB": S3_STREAM / MiB, "frames": len(frames), "s": sec,
+                                "MBps": S3_STREAM / sec / 1e6}
+        t0 = time.perf_counter()
+        uid = admin.initiate_multipart(bucket, "large/multi.bin")
+        etags = [None] * (len(parts) + 1)
+
+        def upload(i: int) -> None:
+            etags[i] = (i + 1, admin.upload_part(bucket, "large/multi.bin", uid, i + 1, parts[i]))
+
+        _parallel(upload, list(range(len(parts))), threads)
+        lo = (S3_STREAM - S3_PART) // 2  # a part from the streamed object's middle
+        copy_range = (lo, lo + S3_PART - 1)
+        status, body, _ = admin.request(
+            "PUT", f"/{bucket}/large/multi.bin",
+            query={"partNumber": str(len(parts) + 1), "uploadId": uid},
+            headers={"X-Amz-Copy-Source": f"/{bucket}/large/streamed.bin",
+                     "X-Amz-Copy-Source-Range": "bytes=%d-%d" % copy_range})
+        if status != 200:
+            raise SystemExit(f"phase 13: UploadPartCopy answered {status}: {body[:200]!r}")
+        etags[-1] = (len(parts) + 1, find_text(parse_xml(body), "ETag").strip('"'))
+        status, body, _ = admin.complete_multipart(bucket, "large/multi.bin", uid, etags)
+        if status != 200:
+            raise SystemExit(f"phase 13: CompleteMultipartUpload answered {status}: "
+                             f"{body[:200]!r}")
+        sec = time.perf_counter() - t0
+        multi = b"".join(parts) + streamed[copy_range[0]:copy_range[1] + 1]
+        out["multipart"] = {"MiB": len(multi) / MiB, "parts": len(etags),
+                            "part_MiB": S3_PART / MiB, "copied_parts": 1, "s": sec,
+                            "MBps": len(multi) / sec / 1e6}
+
+        # 3. the CSVs
+        for key, data in csvs.items():
+            status, body, _ = admin.put_object(bucket, key, data)
+            if status != 200:
+                raise SystemExit(f"phase 13: PUT {key} answered {status}: {body[:200]!r}")
+        objects = {**small, "large/streamed.bin": streamed, "large/multi.bin": multi, **csvs}
+        chunks = {k: len(filer.filer.find_entry(f"/buckets/{bucket}/{k}").chunks)
+                  for k in csvs}
+        if chunks != {"csv/one.csv": 1, "csv/three.csv": 3}:
+            raise SystemExit(f"phase 13: the CSVs have {chunks} chunks")
+
+        # 4. ListObjectsV2 by pages of 100
+        list_ms, listed, token = [], [], ""
+        while True:
+            q = {"max-keys": str(S3_PAGE), **({"continuation-token": token} if token else {})}
+            t0 = time.perf_counter()
+            status, body, _ = admin.list_objects(bucket, v2=True, **q)
+            list_ms.append((time.perf_counter() - t0) * 1e3)
+            if status != 200:
+                raise SystemExit(f"phase 13: ListObjectsV2 answered {status}")
+            x = parse_xml(body)
+            listed += [find_text(c, "Key") for c in findall(x, "Contents")]
+            token = find_text(x, "NextContinuationToken")
+            if find_text(x, "IsTruncated") != "true":
+                break
+        if sorted(listed) != sorted(objects):
+            raise SystemExit(f"phase 13: the listing has {len(listed)} keys, "
+                             f"want {len(objects)}")
+        out["list"] = {"keys": len(listed), "pages": len(list_ms),
+                       "ms_p50": _pct(list_ms, 50), "ms_p99": _pct(list_ms, 99)}
+
+        # 5. every object read back, ranged GETs, a presigned GET, a POST upload
+        def read_all(keys: list, what: str) -> dict:
+            ms, bad = {}, []
+
+            def get(key: str) -> None:
+                t0 = time.perf_counter()
+                status, data, _ = admin.get_object(bucket, key)
+                ms[key] = time.perf_counter() - t0
+                if status != 200 or data != objects[key]:
+                    bad.append((key, status, len(data)))
+
+            sec = _parallel(get, keys, threads)
+            if bad:
+                raise SystemExit(f"phase 13: {len(bad)} {what} reads wrong: {bad[:5]}")
+            sm = [ms[k] * 1e3 for k in keys if k in small]
+            lg = [k for k in keys if k not in small]
+            res = {"objects": len(keys), "s": sec, "ms_p50": _pct(sm, 50),
+                   "ms_p99": _pct(sm, 99)}
+            if lg:
+                res["large_MBps"] = sum(len(objects[k]) for k in lg) / sum(
+                    ms[k] for k in lg) / 1e6
+            return res
+
+        out["get"] = step("read_back", lambda: read_all(list(objects), "read-back"))
+        rr = np.random.default_rng(1313)
+        big = ["large/streamed.bin", "large/multi.bin", "csv/three.csv"]
+        rng_ms, bad = [], []
+        for _ in range(S3_RANGED):
+            key = big[int(rr.integers(len(big)))]
+            n = int(rr.integers(1, MiB))
+            lo = int(rr.integers(0, len(objects[key]) - n))
+            t0 = time.perf_counter()
+            status, data, _ = admin.get_object(bucket, key, rng=f"bytes={lo}-{lo + n - 1}")
+            rng_ms.append((time.perf_counter() - t0) * 1e3)
+            if status != 206 or data != objects[key][lo:lo + n]:
+                bad.append((key, lo, n, status))
+        out["ranged_get"] = {"n": S3_RANGED, "ms_p50": _pct(rng_ms, 50),
+                             "ms_p99": _pct(rng_ms, 99), "bad": len(bad)}
+        if bad:
+            raise SystemExit(f"phase 13: ranged GETs wrong: {bad[:5]}")
+        url = urllib.parse.urlsplit(admin.presign("GET", f"/{bucket}/obj/00/o0000.bin"))
+        status, data, _ = _call(url.netloc, "GET", f"{url.path}?{url.query}")
+        if status != 200 or data != small["obj/00/o0000.bin"]:
+            raise SystemExit(f"phase 13: the presigned GET answered {status}")
+        form_data = rng.bytes(64 * 1024)
+        form, ctype = _post_policy_form(bucket, "forms/upload.bin", form_data,
+                                        "AKIA13ADMIN", "admin13secret")
+        status, body, _ = _filer_call(api.url, "POST", f"/{bucket}", form,
+                                      {"Content-Type": ctype})
+        if status not in (200, 204) or admin.get_object(bucket, "forms/upload.bin")[1] != \
+                form_data:
+            raise SystemExit(f"phase 13: the POST-policy upload answered {status}: "
+                             f"{body[:200]!r}")
+        out["presigned_get"], out["post_policy"] = "ok", status
+
+        # 6. the refusals: the read-only identity's write, a bad signature
+        status, body, _ = reader.put_object(bucket, "denied.bin", b"nope")
+        code = find_text(parse_xml(body), "Code")
+        if (status, code) != (403, "AccessDenied"):
+            raise SystemExit(f"phase 13: the read-only PUT answered {status} {code}")
+        if reader.get_object(bucket, "obj/00/o0000.bin")[0] != 200:
+            raise SystemExit("phase 13: the read-only identity could not read its bucket")
+        status, body, _ = S3Client(endpoint, "AKIA13ADMIN", "not-the-secret").get_object(
+            bucket, "obj/00/o0000.bin")
+        bad_sig = find_text(parse_xml(body), "Code")
+        if (status, bad_sig) != (403, "SignatureDoesNotMatch"):
+            raise SystemExit(f"phase 13: the bad signature answered {status} {bad_sig}")
+        out["refused"] = {"read_only_put": [403, code], "bad_signature": [status, bad_sig]}
+
+        # 7. SelectObjectContent: phase 7's probe on both CSVs
+        wants = {k: execute_request(v, {"input": "csv", "sql": FILER_PROBE_SQL},
+                                    backend="cpu")[1]["rows"] for k, v in csvs.items()}
+
+        def select(key: str) -> tuple[list, float, dict]:
+            t0 = time.perf_counter()
+            records, stats = admin.select_object_content(bucket, key, FILER_PROBE_SQL,
+                                                         output_format="json")
+            sec = time.perf_counter() - t0
+            return [json.loads(x) for x in records.splitlines()], sec, stats
+
+        sel = {}
+        for key in csvs:
+            rows, sec, stats = select(key)
+            if rows != wants[key]:
+                raise SystemExit(f"phase 13: Select on {key}: {len(rows)} rows, want "
+                                 f"{len(wants[key])}")
+            sel[key] = {"ms": sec * 1e3, "MBps": len(csvs[key]) / sec / 1e6,
+                        "rows": len(rows), "bytes_scanned": stats.get("BytesScanned")}
+        out["select"] = sel
+
+        # 8. seal the volumes, lose a server, read back a seeded sample
+        vids = sorted({FileId.parse(c.file_id).volume_id
+                       for k in objects for c in filer.filer.find_entry(
+                           f"/buckets/{bucket}/{k}").chunks})
+        encodes = {}
+        with _ShellCalls() as sc:
+            def seal():
+                for vid in vids:
+                    encodes[vid] = run_command(env, f"ec.encode -volumeId={vid}")["spread"]
+            step("ec_encode", seal)
+        out["encode"] = {"volumes": vids, "s": steps["ec_encode"]["s"],
+                         "generate_s": sc.seconds["/admin/ec/generate"],
+                         "copy_s": sc.seconds["/admin/ec/copy"]}
+        if any(sorted(len(x) for x in sp.values()) != [3, 3, 4, 4] for sp in encodes.values()):
+            raise SystemExit(f"phase 13: the shards spread as {encodes}")
+        if not _until(lambda: all(len(env.ec_shard_locations(v)) == 14
+                                  and not master.master.topo.lookup("", v) for v in vids)):
+            raise SystemExit("phase 13: the master never saw every volume's 14 shards")
+        victim = next(t for t, sids in encodes[vids[0]].items() if sids == [1, 5, 9, 13])
+        eng.stop(by_url[victim])
+        stopped.add(victim)
+        if not _until(lambda: not any(victim in urls for v in vids for urls in
+                                      master.master.lookup_ec_volume(v)[
+                                          "shard_id_locations"].values()), timeout=60):
+            raise SystemExit(f"phase 13: the master still names {victim} as a shard holder")
+        filer.chunk_cache = type(filer.chunk_cache)()  # every read reaches the volumes
+        sample = [list(small)[int(i)] for i in np.random.default_rng(13013).choice(
+            len(small), S3_SEALED_READS, replace=False)]
+        out["degraded_read"] = step("degraded_read", lambda: read_all(sample, "degraded"))
+        out["degraded_read"]["launches"] = steps["degraded_read"]["launches"]
+
+        # 9. the sealed Select, traced through the gateway, the filer, a volume
+        def sealed_select():
+            t0 = time.perf_counter()
+            status, body, hdrs = admin.request(
+                "POST", f"/{bucket}/csv/one.csv", query={"select": "", "select-type": "2"},
+                body=_select_xml(FILER_PROBE_SQL, "NONE"),
+                headers={"Content-Type": "application/xml"})
+            sec = time.perf_counter() - t0
+            if status != 200:
+                raise SystemExit(f"phase 13: the sealed Select answered {status}: "
+                                 f"{body[:300]!r}")
+            rows = [json.loads(x) for e in s3select.iter_events(body)
+                    if e["headers"][":event-type"] == "Records"
+                    for x in e["payload"].splitlines()]
+            return rows, sec, {k.lower(): v for k, v in hdrs.items()}.get("x-sweed-trace-id", "")
+
+        rows, sec, tid = step("sealed_select", sealed_select)
+        out["sealed_select"] = {"ms": sec * 1e3, "MBps": len(csvs["csv/one.csv"]) / sec / 1e6,
+                                "rows": len(rows), "launches": steps["sealed_select"]["launches"]}
+        if rows != wants["csv/one.csv"]:
+            raise SystemExit(f"phase 13: the sealed Select gave {len(rows)} rows, want "
+                             f"{len(wants['csv/one.csv'])}")
+        daemons = [(master.url, "/debug/traces"), (filer.url, "/_debug/traces")] + [
+            (u, "/debug/traces") for u in by_url if u not in stopped]
+
+        def collect() -> list:
+            spans = []
+            for u, route in daemons:
+                spans += json.loads(_call(u, "GET", f"{route}?trace={tid}")[1])["spans"]
+            return spans
+
+        # a span reaches the ring when its request ends: hops still running
+        # (a hedge's losing leg in its retry wait) leave their children
+        # parentless until they end
+        t0 = time.perf_counter()
+        _until(lambda: len(trace_mod.assemble_tree(collect())) == 1, timeout=60)
+        spans = collect()
+        roots = trace_mod.assemble_tree(spans)
+        uniq = {s["span_id"]: s for s in spans}
+        services = sorted({s["service"] for s in uniq.values()})
+        out["trace"] = {"trace_id": tid, "spans": len(uniq), "services": services,
+                        "roots": len(roots), "settle_s": time.perf_counter() - t0}
+        if not tid or len(roots) != 1 or roots[0]["service"] != "s3" \
+                or not {"s3", "filer", "volume"} <= set(services):
+            raise SystemExit(f"phase 13: the Select's trace is not one tree over the gateway, "
+                             f"the filer and a volume server: {out['trace']}")
+    finally:
+        if api is not None:
+            api.stop()
+        if filer is not None:
+            filer.stop()
+        for url, vs in by_url.items():
+            if url not in stopped:
+                eng.stop(vs)
+        master.stop()
+    out.update(turbo=eng.totals(), steps=steps, wall_s=time.perf_counter() - t_start,
+               launches=gm.gf_matmul.launches - state["l_phase"], nvidia_smi=state["smi"])
+    emit(out)
+    idle = [name for name in ("ec_encode", "degraded_read", "sealed_select")
+            if not steps[name]["launches"]]
+    if idle:
+        raise SystemExit(f"phase 13: no kernel launch in {idle}")
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -3182,7 +3612,7 @@ def _free_port() -> int:
 
 
 MAIN_PATH = (phase2, phase3, phase4, phase5, phase6, phase7, phase8, phase9, phase10,
-             phase11, phase12)
+             phase11, phase12, phase13)
 
 
 def main() -> int:

@@ -1,5 +1,5 @@
 """Command line: ``python -m seaweedfs_tpu_torch
-master|volume|filer|shell|upload|download|delete|backup|compact|volume.tail|benchmark ...``.
+master|volume|filer|s3|shell|upload|download|delete|backup|compact|volume.tail|benchmark ...``.
 
 - ``master`` runs a master with the flags of ``weed master``: ``-ip -port
   -volumeSizeLimitMB -defaultReplication -peers -mdir``. ``-peers A,B,C``
@@ -21,6 +21,12 @@ master|volume|filer|shell|upload|download|delete|backup|compact|volume.tail|benc
   ``notification.toml`` that enables a queue, stops the command with a
   message naming it: those are not ported yet. Filer-side queries run on
   the card; ``SWEED_QUERY_BACKEND=cpu`` runs them on the CPU.
+- ``s3`` runs the S3 gateway over a filer with the flags of ``weed s3``:
+  ``-ip -port -filer -config`` (the identities' ``s3.json``; none: every
+  request is allowed) and ``-cert.file -key.file -caCert.file`` (https,
+  and with a CA mutual TLS; ``security.toml``'s ``[tls.s3]`` and
+  ``tls.ca`` are the fallback). ``-filer`` takes one address: the
+  multi-filer ring is not ported yet.
 - ``upload -master [-maxMB] FILE...``, ``download -master [-o] FID`` and
   ``delete -master FID...`` are the object-store client of ``operation.py``.
 - ``shell`` runs the admin shell against ``-master``; ``-c "cmd; cmd"``
@@ -502,6 +508,43 @@ def cmd_filer(args) -> None:
     _serve_until_signalled(fs)
 
 
+def cmd_s3(args) -> None:
+    import json
+
+    from .s3api import IAM, S3ApiServer
+
+    iam = IAM()
+    if args.config:
+        with open(args.config) as f:
+            iam = IAM.from_config(json.load(f))
+    cert, key, ca = _tls_triplet(args, "s3")
+    api = S3ApiServer(host=args.ip, port=args.port, filer_url=args.filer, iam=iam,
+                      tls_cert=cert, tls_key=key, tls_ca=ca).start()
+    scheme = "https" if cert else "http"
+    print(f"s3 gateway on {scheme}://{api.url} -> filer {args.filer}", flush=True)
+    _serve_until_signalled(api)
+
+
+def _add_tls_flags(parser) -> None:
+    parser.add_argument("-cert.file", dest="cert", default="",
+                        help="TLS certificate (enables https)")
+    parser.add_argument("-key.file", dest="key", default="",
+                        help="private key; empty = combined PEM in cert.file")
+    parser.add_argument("-caCert.file", dest="ca_cert", default="",
+                        help="require CA-signed client certs (mTLS)")
+
+
+def _tls_triplet(args, component: str) -> tuple[str, str, str]:
+    """The flags win; ``security.toml``'s ``[tls.<component>]`` and
+    ``tls.ca`` are the fallback (as `security/tls.go` loads them)."""
+    from .util.config import load_configuration
+
+    sec = load_configuration("security")
+    return (args.cert or sec.get(f"tls.{component}.cert", "") or "",
+            args.key or sec.get(f"tls.{component}.key", "") or "",
+            args.ca_cert or sec.get("tls.ca", "") or "")
+
+
 def cmd_upload(args) -> None:
     import os
 
@@ -614,6 +657,14 @@ def main(argv=None) -> None:
     f.add_argument("-metaLogDir", dest="meta_log_dir", default="",
                    help="directory for persisted meta-log segments (default: beside -db)")
     f.set_defaults(fn=cmd_filer)
+
+    s3 = sub.add_parser("s3", help="run the S3 gateway over a filer")
+    s3.add_argument("-ip", default="127.0.0.1")
+    s3.add_argument("-port", type=int, default=8333)
+    s3.add_argument("-filer", default="127.0.0.1:8888")
+    s3.add_argument("-config", default="", help="identities json (s3.json)")
+    _add_tls_flags(s3)
+    s3.set_defaults(fn=cmd_s3)
 
     u = sub.add_parser("upload", help="upload files")
     u.add_argument("-master", default="127.0.0.1:9333")

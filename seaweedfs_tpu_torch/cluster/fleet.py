@@ -29,7 +29,9 @@ Locking discipline: job-state mutation happens under the scheduler lock;
 every HTTP dispatch and every topology lookup happens OUTSIDE it.
 
 Workers start on the first ``submit``: importing the module or building a
-scheduler starts no thread. Tracing spans are not ported yet.
+scheduler starts no thread. Each dispatch roots a trace of its own (the
+scheduler's workers run outside any request), so the member's
+``/admin/ec/*`` span nests under it.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 from ..server.http_util import http_json
+from ..stats import trace as _trace
 from ..stats.metrics import default_registry
 from ..util import glog
 from ..util.retry import RetryPolicy
@@ -288,7 +291,8 @@ class EcJobScheduler:
         path = "generate" if job.kind == "encode" else "rebuild"
         t0 = time.monotonic()
         try:
-            with JOB_HIST.time(kind=job.kind):
+            with _trace.start_span(f"ec_{job.kind}", service="fleet", vid=job.vid,
+                                   member=target), JOB_HIST.time(kind=job.kind):
                 r = http_json(
                     "POST",
                     f"http://{target}/admin/ec/{path}?volume={job.vid}"

@@ -39,7 +39,7 @@ def seed_placement(seed=None) -> None:
 
 
 # -- lifecycle heat thresholds (f4's hot→warm→cold bands) ---------------------
-# The lifecycle controller (not ported yet) classifies every volume by its
+# The lifecycle controller (cluster/lifecycle.py) classifies every volume by its
 # EWMA heat against three thresholds, env-tunable so probes and small
 # clusters can shrink the bands:
 #   heat >  ceiling                         hot   — un-EC / replica-boost

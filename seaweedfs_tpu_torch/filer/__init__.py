@@ -6,7 +6,7 @@ every mutation feeds a meta log with subscribe/replay.
 
 The port's copy of the JAX package's ``filer/`` for one filer: entries,
 chunk math and manifests, the memory and sqlite stores, the meta log,
-path rules, the filer core and the peer meta aggregator. The multi-filer
-ring and reshard, the filer client and the other stores are not ported
-yet.
+path rules, the filer core, the peer meta aggregator, and the HTTP client
+(``client.FilerClient``; ``ring.make_client`` for one address). The
+multi-filer ring and reshard and the other stores are not ported yet.
 """

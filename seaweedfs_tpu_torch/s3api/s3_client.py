@@ -1,11 +1,10 @@
 """Minimal S3 client with AWS SigV4 signing: what the remote tier uploads,
-ranges and deletes with.
+ranges and deletes with, and what drives the S3 gateway (presigned URLs,
+streaming aws-chunked uploads, listings, SelectObjectContent).
 
 The signing is an independent implementation of the SigV4 spec (canonical
 request, string to sign, HMAC chain), the JAX package's byte for byte: on
-the same inputs and the same clock both clients sign the same. Only the
-calls the tier makes are here; presigned URLs, streaming (aws-chunked)
-uploads, listings and ``select_object_content`` come with the S3 gateway.
+the same inputs and the same clock both clients sign the same.
 """
 
 from __future__ import annotations
@@ -19,6 +18,7 @@ import urllib.request
 from datetime import datetime, timezone
 from typing import Optional
 
+from ..query.select import iter_events
 from ..server.http_util import http_bytes_headers
 from ..util.parsers import tolerant_uint
 from .xml_util import find_text, parse_xml, to_xml
@@ -83,6 +83,30 @@ class S3Client:
             f"SignedHeaders={';'.join(signed)}, Signature={sig}")
         return headers
 
+    def presign(self, method: str, path: str, expires: int = 3600) -> str:
+        """A presigned URL (query-string auth, unsigned payload)."""
+        now = datetime.now(tz=timezone.utc)
+        amz_date = now.strftime("%Y%m%dT%H%M%SZ")
+        datestamp = now.strftime("%Y%m%d")
+        host = urllib.parse.urlparse(self.endpoint).netloc
+        scope = f"{datestamp}/{self.region}/s3/aws4_request"
+        canonical_query = _canonical_query({
+            "X-Amz-Algorithm": "AWS4-HMAC-SHA256",
+            "X-Amz-Credential": f"{self.access_key}/{scope}",
+            "X-Amz-Date": amz_date,
+            "X-Amz-Expires": str(expires),
+            "X-Amz-SignedHeaders": "host",
+        })
+        canonical = "\n".join([
+            method, urllib.parse.quote(path, safe=_SAFE_PATH), canonical_query,
+            f"host:{host}\n", "host", "UNSIGNED-PAYLOAD"])
+        sts = "\n".join(["AWS4-HMAC-SHA256", amz_date, scope,
+                         hashlib.sha256(canonical.encode()).hexdigest()])
+        key = _signing_key(self.secret_key, datestamp, self.region)
+        sig = hmac.new(key, sts.encode(), hashlib.sha256).hexdigest()
+        return (f"{self.endpoint}{urllib.parse.quote(path, safe=_SAFE_PATH)}"
+                f"?{canonical_query}&X-Amz-Signature={sig}")
+
     # -- transport -----------------------------------------------------------
     def _send(self, method: str, url: str, body: bytes, headers: dict) -> tuple[int, bytes, dict]:
         if url.startswith("http://"):
@@ -103,6 +127,32 @@ class S3Client:
         qs = urllib.parse.urlencode(query)
         url = self.endpoint + urllib.parse.quote(path, safe=_SAFE_PATH) + ("?" + qs if qs else "")
         return self._send(method, url, body, headers)
+
+    def put_object_streaming(self, bucket: str, key: str,
+                             chunks: list[bytes]) -> tuple[int, bytes, dict]:
+        """A streaming SigV4 upload: the aws-chunked framing, with the
+        per-chunk signature chain seeded by the header's signature."""
+        path = f"/{bucket}/{key}"
+        total = sum(len(c) for c in chunks)
+        headers = self._sign("PUT", path, {}, {
+            "X-Amz-Content-Sha256": "STREAMING-AWS4-HMAC-SHA256-PAYLOAD",
+            "X-Amz-Decoded-Content-Length": str(total),
+        }, b"")
+        auth = headers["Authorization"]
+        prev = auth.rsplit("Signature=", 1)[1]
+        scope = auth.split("Credential=")[1].split(",")[0].split("/", 1)[1]
+        date, region = scope.split("/")[:2]
+        key_b = _signing_key(self.secret_key, date, region)
+        empty = hashlib.sha256(b"").hexdigest()
+        framed = bytearray()
+        for c in list(chunks) + [b""]:
+            sts = "\n".join(["AWS4-HMAC-SHA256-PAYLOAD", headers["X-Amz-Date"], scope,
+                             prev, empty, hashlib.sha256(c).hexdigest()])
+            prev = hmac.new(key_b, sts.encode(), hashlib.sha256).hexdigest()
+            framed += f"{len(c):x};chunk-signature={prev}\r\n".encode()
+            framed += c + b"\r\n"
+        url = self.endpoint + urllib.parse.quote(path, safe=_SAFE_PATH)
+        return self._send("PUT", url, bytes(framed), headers)
 
     # -- multipart upload: large objects with bounded memory ----------------
     def initiate_multipart(self, bucket: str, key: str) -> str:
@@ -181,6 +231,12 @@ class S3Client:
     def create_bucket(self, bucket: str):
         return self.request("PUT", f"/{bucket}")
 
+    def delete_bucket(self, bucket: str):
+        return self.request("DELETE", f"/{bucket}")
+
+    def list_buckets(self):
+        return self.request("GET", "/")
+
     def put_object(self, bucket: str, key: str, body: bytes, **headers):
         return self.request("PUT", f"/{bucket}/{key}", body=body, headers=headers)
 
@@ -192,3 +248,47 @@ class S3Client:
 
     def delete_object(self, bucket: str, key: str):
         return self.request("DELETE", f"/{bucket}/{key}")
+
+    def list_objects(self, bucket: str, v2: bool = False, **params):
+        if v2:
+            params["list-type"] = "2"
+        return self.request("GET", f"/{bucket}", query=params)
+
+    def select_object_content(self, bucket: str, key: str, expression: str,
+                              input_format: str = "csv", compression: str = "NONE",
+                              output_format: str = "",
+                              request_progress: bool = False) -> tuple[bytes, dict]:
+        """SelectObjectContent: ``POST ?select&select-type=2``, the event
+        stream decoded (CRCs checked) into (records' bytes, stats). An S3
+        error raises IOError naming its code."""
+        in_ser: dict = {"CompressionType": compression}
+        if input_format == "csv":
+            in_ser["CSV"] = {"FileHeaderInfo": "USE"}
+        else:
+            in_ser["JSON"] = {"Type": "LINES"}
+        out_fmt = output_format or input_format
+        req: dict = {
+            "Expression": expression,
+            "ExpressionType": "SQL",
+            "InputSerialization": in_ser,
+            "OutputSerialization": {"CSV": {}} if out_fmt == "csv" else {"JSON": {}},
+        }
+        if request_progress:
+            req["RequestProgress"] = {"Enabled": True}
+        status, data, _ = self.request(
+            "POST", f"/{bucket}/{key}", query={"select": "", "select-type": "2"},
+            body=to_xml("SelectObjectContentRequest", req, xmlns=""),
+            headers={"Content-Type": "application/xml"})
+        if status != 200:
+            code = find_text(parse_xml(data), "Code", "InternalError")
+            raise IOError(f"select {bucket}/{key}: {code} (HTTP {status})")
+        records, stats = [], {}
+        for ev in iter_events(data):
+            etype = ev["headers"].get(":event-type", "")
+            if etype == "Records":
+                records.append(ev["payload"])
+            elif etype == "Stats":
+                sx = parse_xml(ev["payload"])
+                stats = {t: tolerant_uint(find_text(sx, t, "0"), 0)
+                         for t in ("BytesScanned", "BytesProcessed", "BytesReturned")}
+        return b"".join(records), stats

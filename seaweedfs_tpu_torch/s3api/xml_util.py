@@ -34,12 +34,21 @@ def to_xml(root_tag: str, value: Any, xmlns: str = S3_XMLNS) -> bytes:
     return b'<?xml version="1.0" encoding="UTF-8"?>' + ET.tostring(root)
 
 
+def error_xml(code: str, message: str, resource: str = "") -> bytes:
+    return to_xml("Error", {"Code": code, "Message": message, "Resource": resource},
+                  xmlns="")
+
+
 def strip_ns(tag: str) -> str:
     return tag.rsplit("}", 1)[-1]
 
 
 def parse_xml(body: bytes) -> ET.Element:
     return safe_fromstring(body)
+
+
+def findall(el: ET.Element, tag: str) -> list[ET.Element]:
+    return [c for c in el.iter() if strip_ns(c.tag) == tag]
 
 
 def find_text(el: ET.Element, tag: str, default: str = "") -> str:

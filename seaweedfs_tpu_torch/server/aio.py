@@ -26,7 +26,16 @@ shape:
 - An idle-connection reaper closes peers that owe a request head longer
   than ``SWEED_IDLE_TIMEOUT`` (the slow-loris defence).
 
-Not ported: TLS, the QoS tenant governor, tracing spans and deadlines.
+- TLS: with an ``ssl_context`` the listener wraps each connection
+  (``asyncio.start_server(ssl=...)``; handshakes run on the loop, one per
+  connection, never blocking the accept).
+- The request choke point of ``http_util`` holds on the native path too:
+  the tenant governor admits first (its shed is a 503 with ``Retry-After``
+  on a kept-alive connection), a spent ``X-Sweed-Deadline`` bridges to the
+  worker path for the one canonical 504, and the route runs inside a server
+  span. Bridged requests carry the loop task's context into the worker
+  pool, so tracing and deadlines cross the bridge.
+
 The lifecycle mirrors the socketserver surface (``start``/``shutdown``/
 ``server_close``/``server_address``).
 """
@@ -35,6 +44,7 @@ from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import contextvars
 import email.utils
 import io
 import json
@@ -47,14 +57,21 @@ from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler
 from typing import Optional
 
+from ..stats import trace as _trace
+from ..util import deadline as _deadline
 from ..util import faultpoints, glog
 from ..util.aio_pipeline import ThreadFlume, ThreadFlumeClosed
+from ..util.throttler import GOVERNOR, INTERNAL_TENANT
 from .http_util import (
     NATIVE_FALLBACK,
     SERVING,
     AsyncStreamBody,
     SendfileBody,
     admission_reject_response,
+    count_qos_decision,
+    dynamic_retry_after,
+    observe_tenant_request,
+    request_tenant,
     serving_watermark,
 )
 
@@ -262,7 +279,7 @@ class _ShimConn:
 class _HeaderView:
     """Case-insensitive read-only view over parsed request headers — the
     subset of the email.message surface the reused handler helpers
-    (_auth_ok, range parsing) actually touch."""
+    (_auth_ok, classify_tenant, range parsing) actually touch."""
 
     __slots__ = ("_d",)
 
@@ -400,9 +417,10 @@ class AioHTTPServer:
     is bound (raising bind errors in the caller, like ThreadingHTTPServer
     does) and fills in `server_address` — port 0 works."""
 
-    def __init__(self, handler_cls, host: str, port: int):
+    def __init__(self, handler_cls, host: str, port: int, ssl_context=None):
         self.handler_cls = handler_cls
         self.host, self.port = host, port
+        self._ssl = ssl_context
         self.server_address = (host, port)
         self._pool = ThreadPoolExecutor(
             max_workers=_aio_workers(), thread_name_prefix="aio-worker"
@@ -489,7 +507,7 @@ class AioHTTPServer:
         try:
             server = await asyncio.start_server(
                 self._client, self.host, self.port,
-                limit=1 << 20, backlog=2048,
+                ssl=self._ssl, limit=1 << 20, backlog=2048,
             )
         except BaseException as e:
             self._startup_error = e
@@ -509,6 +527,11 @@ class AioHTTPServer:
         # comes before wait_closed(), which (Python 3.12+) waits for every
         # connection to close: an idle pooled keep-alive peer would hold it
         # until the join in shutdown() timed out
+        if self._ssl is not None:
+            # a closed TLS transport waits for the peer's close_notify
+            # (ssl_shutdown_timeout, 30 s): abort instead
+            for writer in list(self._conns):
+                writer.transport.abort()
         for task in list(self._conn_tasks):
             task.cancel()
         if self._conn_tasks:
@@ -648,9 +671,13 @@ class AioHTTPServer:
                     if native_close:
                         break
                     continue
+                # run_in_executor does not carry contextvars (only task
+                # creation copies them): copy the loop task's context, so
+                # the trace and deadline cross the bridge
+                ctx = contextvars.copy_context()
                 try:
                     close = await self._loop.run_in_executor(
-                        self._pool, _run_request,
+                        self._pool, ctx.run, _run_request,
                         self.handler_cls, self, conn, rfile, wfile,
                         client_address, raw_requestline,
                     )
@@ -742,41 +769,85 @@ class AioHTTPServer:
     async def _native_dispatch(self, fn, prefix: str, method: str,
                                parsed, headers, client_address: tuple,
                                flume, pump):
+        tenant = request_tenant(headers, client_address[0])
+        decision, wait = GOVERNOR.admit(tenant)
+        if decision == "shed":
+            # the connection survives a shed: a forced close turns every
+            # over-rate request into accept and task churn on this loop
+            count_qos_decision(tenant, "shed")
+            body = json.dumps({"error": "tenant over rate"}).encode()
+            head = _native_response_head(self.handler_cls, 503, [
+                ("Content-Type", "application/json"),
+                ("Content-Length", str(len(body))),
+                ("Retry-After", str(dynamic_retry_after())),
+            ])
+            try:
+                await flume.aput(head + body)
+            except ThreadFlumeClosed:
+                pass
+            return False
+        if decision == "delay":
+            count_qos_decision(tenant, "delay")
+            await asyncio.sleep(wait)
+        elif GOVERNOR.enabled() and tenant != INTERNAL_TENANT:
+            count_qos_decision(tenant, "ok")
         t0 = time.monotonic()
         query = {
             k: v[0]
             for k, v in urllib.parse.parse_qs(parsed.query).items()
         }
+        # a spent budget bridges to the worker path, which renders the one
+        # canonical 504 and cancelled span
+        ddl = (_deadline.parse_header(headers.get(_deadline.DEADLINE_HEADER))
+               if _deadline.enabled() else None)
+        if ddl is not None and ddl <= time.time():
+            SERVING.note_native_fallback()
+            return NATIVE_FALLBACK
         req = NativeRequest(method, parsed.path, headers,
                             client_address, self)
-        try:
-            result = await fn(req, parsed.path, query)
-        except asyncio.CancelledError:
-            raise
-        except Exception:
-            # nothing has been written yet: the bridged path re-runs the
-            # request and produces its canonical error bytes
-            glog.exception("native %s %s failed; bridging",
-                           method, parsed.path)
-            SERVING.note_native_fallback()
-            return NATIVE_FALLBACK
-        if result is NATIVE_FALLBACK:
-            SERVING.note_native_fallback()
-            return NATIVE_FALLBACK
-        status, payload = result[0], result[1]
-        extra = dict(req.extra_headers or {})
-        if len(result) > 2 and result[2]:
-            extra.update(result[2])
-        close = (
-            req.close_connection
-            or (headers.get("Connection") or "").lower() == "close"
-        )
-        close = await self._write_native(
-            status, payload, extra, flume, pump,
-            head_only=(method == "HEAD"), close=close,
-        )
+        # the span's contextvar window is task-scoped: safe in a coroutine
+        with _trace.start_span(
+            f"{method} {prefix}",
+            service=getattr(self.handler_cls, "trace_service", "http"),
+            parent_header=headers.get(_trace.TRACE_HEADER),
+            path=parsed.path,
+        ) as span:
+            try:
+                with _deadline.scope(ddl):
+                    result = await fn(req, parsed.path, query)
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                # nothing has been written yet: the bridged path re-runs the
+                # request and produces its canonical error bytes
+                glog.exception("native %s %s failed; bridging",
+                               method, parsed.path)
+                SERVING.note_native_fallback()
+                return NATIVE_FALLBACK
+            if result is NATIVE_FALLBACK:
+                SERVING.note_native_fallback()
+                return NATIVE_FALLBACK
+            status, payload = result[0], result[1]
+            extra = dict(req.extra_headers or {})
+            if len(result) > 2 and result[2]:
+                extra.update(result[2])
+            if span is not None:
+                span.tags["status"] = status
+                if status >= 500:
+                    span.status = "error"
+                extra.setdefault(_trace.TRACE_ID_HEADER, span.trace_id)
+            close = (
+                req.close_connection
+                or (headers.get("Connection") or "").lower() == "close"
+            )
+            close = await self._write_native(
+                status, payload, extra, flume, pump,
+                head_only=(method == "HEAD"), close=close,
+            )
+        dt = time.monotonic() - t0
         SERVING.note_native()
-        SERVING.note_request_seconds(time.monotonic() - t0)
+        SERVING.note_request_seconds(dt)
+        observe_tenant_request(tenant, dt)
         glog.V(2).info("%s %s -> %d (native)", method, parsed.path,
                        status)
         return close

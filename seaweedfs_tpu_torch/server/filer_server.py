@@ -34,9 +34,10 @@ stream). The filer's own scans run on ``query_backend`` (``cuda`` unless
 ``$SWEED_QUERY_BACKEND`` or the caller says ``cpu``); without a card they
 fail naming the device, and never scan on the CPU.
 
-One filer: the multi-filer ring (``/_ring`` answers a ring of one) and its
-``/_reshard`` are not ported yet, nor is request tracing
-(``/_debug/traces``).
+``/_debug/traces`` serves the process's span ring (``stats/trace.py``), and
+``/_status`` carries its ``trace`` and ``deadline`` sections. One filer: the
+multi-filer ring (``/_ring`` answers a ring of one) and its ``/_reshard``
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -55,6 +56,8 @@ from ..filer.entry import Entry, FileChunk
 from ..filer.filechunks import view_from_chunks
 from ..filer.filer import Filer
 from ..filer.filerstore import NotFoundError, SqliteStore
+from ..stats import trace as _trace
+from ..util import deadline as _deadline
 from ..util import faultpoints, glog
 from ..util import hedge as _hedge
 from ..util.parsers import tolerant_ufloat, tolerant_uint
@@ -277,6 +280,13 @@ class _AssignCoalescer:
                 return
             nxt[0]["promote"] = True
             nxt[0]["evt"].set()
+
+
+def _tag_hedge_won() -> None:
+    """Tag the request's span: the hedge leg answered first."""
+    span = _trace.current_span()
+    if span is not None:
+        span.tags["hedge"] = "won"
 
 
 class FilerServer:
@@ -619,6 +629,8 @@ class FilerServer:
             "ring": self._ring_plan(),
             "hedge": _hedge.STATS.snapshot(),
             "fid_leases": self._fid_leases.stats(),
+            "deadline": _deadline.counts(),
+            "trace": _trace.trace_stats(),
         }
 
     def _h_metrics(self, h, path, q, body):
@@ -1070,6 +1082,8 @@ class FilerServer:
                     data, winner = _hedge.hedged_call(
                         leg(locs[0]["url"]), hedge_leg, delay
                     )
+                if winner == "hedge":
+                    _tag_hedge_won()
             except Exception:  # remaining replicas + master re-lookup still serve
                 data = None
             if data is None:
@@ -1236,6 +1250,8 @@ class FilerServer:
                 body, winner = await _hedge.ahedged_call(
                     lambda: leg(url), lambda: leg(hedge_url), delay
                 )
+                if winner == "hedge":
+                    _tag_hedge_won()
         finally:
             self._chunk_hist.observe(time.perf_counter() - t0)
         self.chunk_cache.put(file_id, body)
@@ -1449,7 +1465,9 @@ class FilerServer:
         fs = self
 
         class Handler(JsonHandler):
+            trace_service = "filer"
             routes = [
+                ("GET", "/_debug/traces", _trace.h_debug_traces),
                 ("GET", "/_assign", fs._h_assign),
                 ("GET", "/_meta/events", fs._h_meta_events),
                 ("GET", "/_meta/watch", fs._h_meta_watch),

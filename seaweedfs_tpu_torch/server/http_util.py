@@ -1,26 +1,34 @@
 """HTTP plumbing for the daemons: the route-table request handler, the two
 serving cores with admission control, and the pooled keep-alive client.
 
-The port of the JAX package's ``server/http_util.py``, minus what serves
-features the port does not have yet (the QoS tenant governor, tracing,
-deadlines, TLS serving):
+The port of the JAX package's ``server/http_util.py``:
 
 - ``JsonHandler``: routes by method and path prefix; a handler returns
   ``(status, payload)``, where bytes go out as they are, a ``StreamBody``
   piece by piece, a ``SendfileBody`` by sendfile(2), and anything else as
   JSON. ``BadRequest`` answers 400 and any other error 500. A handler tagged
-  with ``mark_streaming`` reads its own body from ``rfile``.
+  with ``mark_streaming`` reads its own body from ``rfile``. Every request
+  passes the request choke point first: the tenant governor
+  (``util/throttler.GOVERNOR``, off unless ``SWEED_QOS_RPS`` > 0) paces or
+  sheds it with a 503, ``X-Sweed-Deadline`` sets its budget
+  (``util/deadline.py``; a spent one answers 504), and it runs inside a
+  server span (``stats/trace.py``) whose trace id goes back as
+  ``X-Sweed-Trace-Id``.
 - ``start_server``: the asyncio reactor (``server/aio.py``, the default) or,
-  with ``SWEED_SERVING=threads``, a ``ThreadingHTTPServer``. Both shed new
-  connections past ``SWEED_MAX_INFLIGHT`` (default 8192) with a canned 503
-  and a load-scaled ``Retry-After``, answer keep-alive peers with
-  ``Connection: close`` while overloaded, and sever their live connections
-  on shutdown.
+  with ``SWEED_SERVING=threads``, a ``ThreadingHTTPServer``; either over TLS
+  when given an ``ssl_context`` (the handshake runs per connection, under a
+  deadline, never in the accept loop). Both shed new connections past
+  ``SWEED_MAX_INFLIGHT`` (default 8192) with a canned 503 and a load-scaled
+  ``Retry-After``, answer keep-alive peers with ``Connection: close`` while
+  overloaded, and sever their live connections on shutdown.
 - ``SERVING``: the serving-core counters behind ``/metrics`` and ``/status``.
 - ``http_json`` / ``http_bytes`` / ``http_bytes_headers`` /
-  ``http_stream_request``: requests over per-thread pooled keep-alive
-  connections (re-dialled once when a reused socket went stale, for
-  idempotent methods only).
+  ``http_stream_request`` / ``http_stream_response``: requests over
+  per-thread pooled keep-alive connections (re-dialled once when a reused
+  socket went stale, for idempotent methods only); ``https://`` goes through
+  urllib. Every outbound request carries the active span and deadline
+  (``_trace_headers``), and a serving process marks its hops internal.
+- ``relay_stream``: a file-like body relayed to a handler's socket.
 - ``parse_byte_range`` / ``range_headers``: single-range ``Range`` support.
 """
 
@@ -30,15 +38,53 @@ import http.client
 import json
 import os
 import socket
+import ssl
 import threading
 import time
+import urllib.error
 import urllib.parse
+import urllib.request
 import weakref
 from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Optional
 
+from ..stats import trace as _trace
+from ..util import deadline as _deadline
 from ..util import glog
+from ..util.throttler import GOVERNOR, INTERNAL_HEADER, INTERNAL_TENANT, classify_tenant
+
+# Set by start_server(): a process that serves cluster traffic marks its
+# outbound pooled requests with X-Sweed-Internal, so intra-cluster hops
+# (filer -> volume chunk fetches, heartbeats, replication) bypass the tenant
+# governor. The header is trusted as far as the cluster's JWT-less internal
+# auth is: a private network.
+_cluster_process = False
+
+
+def mark_cluster_process() -> None:
+    global _cluster_process
+    _cluster_process = True
+
+
+def _trace_headers(headers: Optional[dict]) -> Optional[dict]:
+    """Outbound headers of every internal HTTP call: the active span as
+    ``X-Sweed-Trace: <trace_id>:<span_id>`` (the receiver's server span joins
+    the caller's tree), the ambient deadline as ``X-Sweed-Deadline``, and in
+    a serving process ``X-Sweed-Internal``. The caller's dict is never
+    mutated, and headers it set explicitly win."""
+    hv = _trace.inject_header()
+    dv = _deadline.inject_header()
+    if hv is None and dv is None and not _cluster_process:
+        return headers
+    out = dict(headers or {})
+    if hv is not None:
+        out.setdefault(_trace.TRACE_HEADER, hv)
+    if dv is not None:
+        out.setdefault(_deadline.DEADLINE_HEADER, dv)
+    if _cluster_process:
+        out.setdefault(INTERNAL_HEADER, "1")
+    return out
 
 
 # -- serving-core settings -----------------------------------------------------
@@ -117,6 +163,7 @@ class _ServingState:
         self._reaped = {"idle": 0, "deadline": 0}
         self._native_hits = 0
         self._native_fallbacks = 0
+        self._qos = {"ok": 0, "delay": 0, "shed": 0}
 
     def register_server(self, srv) -> None:
         with self._lock:
@@ -173,6 +220,10 @@ class _ServingState:
         with self._lock:
             self._native_fallbacks += 1
 
+    def note_qos(self, outcome: str) -> None:
+        with self._lock:
+            self._qos[outcome] = self._qos.get(outcome, 0) + 1
+
     def snapshot(self) -> dict:
         inflight = self.inflight()
         with self._lock:
@@ -189,6 +240,9 @@ class _ServingState:
                 "reaped_deadline": self._reaped.get("deadline", 0),
                 "native_hits": self._native_hits,
                 "native_fallbacks": self._native_fallbacks,
+                "qos_ok": self._qos.get("ok", 0),
+                "qos_delayed": self._qos.get("delay", 0),
+                "qos_shed": self._qos.get("shed", 0),
             }
 
 
@@ -199,6 +253,33 @@ def serving_overloaded(handler) -> bool:
     """True when the handler's server is past its admission watermark."""
     fn = getattr(getattr(handler, "server", None), "overloaded", None)
     return bool(fn()) if fn is not None else False
+
+
+def relay_stream(handler, payload, declared_len: Optional[int] = None) -> None:
+    """Pipe a file-like body to ``handler.wfile`` in 1 MiB pieces. The
+    headers are gone already, so a peer that left or an upstream that failed
+    closes the payload and drops the connection: a short body and a closed
+    socket are the only honest signal."""
+    sent = 0
+    try:
+        while piece := payload.read(1 << 20):
+            handler.wfile.write(piece)
+            sent += len(piece)
+    except (BrokenPipeError, ConnectionResetError):
+        handler.close_connection = True
+        return
+    except Exception:  # noqa: BLE001 — the headers are gone: a short body
+        glog.exception("stream relay failed after %d bytes", sent)
+        handler.close_connection = True
+        return
+    finally:
+        try:
+            payload.close()
+        except Exception:  # noqa: BLE001 — closing a failed upstream body
+            pass
+    if declared_len is not None and sent != declared_len:
+        glog.error("stream relay produced %d of %d bytes", sent, declared_len)
+        handler.close_connection = True
 
 
 class CountedReader:
@@ -294,6 +375,34 @@ class AsyncStreamBody:
 NATIVE_FALLBACK = object()
 
 
+def request_tenant(headers, remote_addr: str) -> str:
+    """The tenant key of a request, from any case-insensitive headers
+    mapping (an http.client message or the native path's view)."""
+    return classify_tenant(lambda k, d="": (headers.get(k) or d), remote_addr)
+
+
+def observe_tenant_request(tenant: str, seconds: float) -> None:
+    """A request's service time under its tenant, for ``/metrics``. Kept
+    when the tenant is explicit (header or access key) or the governor is
+    on: anonymous /24 classes are labelled only while QoS is active, which
+    bounds the labels' cardinality."""
+    if tenant == INTERNAL_TENANT:
+        return
+    if not (GOVERNOR.enabled() or not tenant.startswith("ip:")):
+        return
+    from ..stats import metrics as _metrics  # stats imports this module
+
+    _metrics.note_qos_request(tenant, seconds)
+
+
+def count_qos_decision(tenant: str, outcome: str) -> None:
+    """The governor's shed / delay / ok counters, per tenant."""
+    SERVING.note_qos(outcome)
+    from ..stats import metrics as _metrics
+
+    _metrics.note_qos_decision(tenant, outcome)
+
+
 def has_dot_segments(path: str) -> bool:
     """True when any "/"-separated segment is literally "." or "..". The
     filer stores segments literally (no traversal), but a stored ".." entry
@@ -326,6 +435,9 @@ class JsonHandler(BaseHTTPRequestHandler):
     native_routes: list[tuple[str, str, Callable]] = []
     server_ctx: Any = None
     extra_headers: Optional[dict] = None
+    # the service tag of this daemon's server spans ("master", "volume",
+    # "filer", "s3"); subclasses override
+    trace_service: str = "http"
 
     def log_message(self, fmt, *args):  # stdlib access log -> V(3)
         glog.V(3).info("http: " + fmt, *args)
@@ -347,28 +459,83 @@ class JsonHandler(BaseHTTPRequestHandler):
             self.close_connection = True
             self._reply(400, {"error": "bad Content-Length"})
             return
+        # the tenant governor: a tenant past its weighted-fair share is paced
+        # on this worker, then shed with 503 + Retry-After; internal hops
+        # bypass. The connection stays open on a shed: a forced close makes
+        # the abuser reconnect, which costs the server more than the abuser.
+        tenant = request_tenant(self.headers, self.client_address[0])
+        decision, wait = GOVERNOR.admit(tenant)
+        if decision == "shed":
+            count_qos_decision(tenant, "shed")
+            self.extra_headers = dict(self.extra_headers or {})
+            self.extra_headers["Retry-After"] = str(dynamic_retry_after())
+            self._reply(503, {"error": "tenant over rate"})
+            return
+        if decision == "delay":
+            count_qos_decision(tenant, "delay")
+            time.sleep(wait)
+        elif GOVERNOR.enabled() and tenant != INTERNAL_TENANT:
+            count_qos_decision(tenant, "ok")
         t0 = time.monotonic()
+        # the ambient deadline, entered around the handler so that every hop
+        # it makes inherits the budget; the aio reactor bridges through this
+        # same dispatch
+        ddl = (_deadline.parse_header(self.headers.get(_deadline.DEADLINE_HEADER))
+               if _deadline.enabled() else None)
+        body = None  # read lazily: streaming handlers consume rfile themselves
         for m, prefix, fn in self.routes:
             if m == method and parsed.path.startswith(prefix):
                 streaming = getattr(fn, "_streaming", False)
-                try:
-                    if streaming:
-                        status, payload = fn(self, parsed.path, query, self.rfile, length)
-                    else:
-                        body = self.rfile.read(length) if length else b""
-                        status, payload = fn(self, parsed.path, query, body)
-                except BadRequest as e:
-                    status, payload = 400, {"error": str(e)}
-                    if streaming:  # the body may be half read: framing is gone
-                        self.close_connection = True
-                except Exception as e:  # noqa: BLE001 — the daemon keeps serving
-                    glog.exception("%s %s failed", method, parsed.path)
-                    status, payload = 500, {"error": f"{type(e).__name__}: {e}"}
-                    if streaming:
-                        self.close_connection = True
-                glog.V(2).info("%s %s -> %d", method, parsed.path, status)
-                self._reply(status, payload, head_only=(method == "HEAD"))
-                SERVING.note_request_seconds(time.monotonic() - t0)
+                # the server span, named by the route prefix (bounded names;
+                # the path rides in a tag); the reply happens inside it, so a
+                # streamed body counts toward the hop's time
+                with _trace.start_span(f"{method} {prefix}", service=self.trace_service,
+                                       parent_header=self.headers.get(_trace.TRACE_HEADER),
+                                       path=parsed.path) as span:
+                    cancelled = False
+                    try:
+                        with _deadline.scope(ddl):
+                            if ddl is not None and _deadline.expired():
+                                # the budget died upstream: answer 504
+                                # without doing the work
+                                _deadline.note("expired_inbound")
+                                cancelled = True
+                                raise _deadline.DeadlineExceeded(-(_deadline.remaining() or 0.0))
+                            if streaming:
+                                status, payload = fn(self, parsed.path, query, self.rfile, length)
+                            else:
+                                body = self.rfile.read(length) if length else b""
+                                status, payload = fn(self, parsed.path, query, body)
+                    except _deadline.DeadlineExceeded as e:
+                        if not cancelled:
+                            _deadline.note("aborted_handler")
+                        cancelled = True
+                        status, payload = 504, {"error": f"deadline exceeded: {e}"}
+                        if streaming or (body is None and length):
+                            self.close_connection = True  # the body is unread
+                    except BadRequest as e:
+                        status, payload = 400, {"error": str(e)}
+                        if streaming:  # the body may be half read: framing is gone
+                            self.close_connection = True
+                    except Exception as e:  # noqa: BLE001 — the daemon keeps serving
+                        glog.exception("%s %s failed", method, parsed.path)
+                        status, payload = 500, {"error": f"{type(e).__name__}: {e}"}
+                        if streaming:
+                            self.close_connection = True
+                    if span is not None:
+                        span.tags["status"] = status
+                        if cancelled:  # the tree shows where the budget died
+                            span.status = "cancelled"
+                            span.tags["deadline"] = "exceeded"
+                        elif status >= 500:
+                            span.status = "error"
+                        self.extra_headers = dict(self.extra_headers or {})
+                        self.extra_headers.setdefault(_trace.TRACE_ID_HEADER, span.trace_id)
+                    glog.V(2).info("%s %s -> %d", method, parsed.path, status)
+                    self._reply(status, payload, head_only=(method == "HEAD"))
+                    dt = time.monotonic() - t0
+                    SERVING.note_request_seconds(dt)
+                    observe_tenant_request(tenant, dt)
                 return
         # drain in bounded pieces for keep-alive framing: a large body to an
         # unrouted path must not be buffered whole
@@ -558,16 +725,59 @@ class _TrackingThreadingHTTPServer(ThreadingHTTPServer):
             _close_socket(c)
 
 
-def start_server(handler_cls, host: str, port: int):
+class _TlsThreadingHTTPServer(_TrackingThreadingHTTPServer):
+    """The threads core over TLS. The handshake runs in the connection's
+    worker thread under a 10 s deadline: wrapping the listening socket
+    would run handshakes in the one accept loop, where a client that never
+    speaks TLS freezes the whole server."""
+
+    def __init__(self, addr, handler_cls, ssl_context):
+        self._ssl_context = ssl_context
+        super().__init__(addr, handler_cls)
+
+    def finish_request(self, request, client_address):
+        try:
+            request.settimeout(10)
+            tls_conn = self._ssl_context.wrap_socket(request, server_side=True)
+            tls_conn.settimeout(None)
+        except (ssl.SSLError, OSError):
+            _close_socket(request)
+            return
+        # wrap_socket detached the raw socket process_request tracked: track
+        # the TLS socket instead, or shutdown() severs a dead fd
+        with self._conns_lock:
+            if self._shutting_down:  # the sever pass already ran
+                _close_socket(tls_conn)
+                return
+            self._live_conns.discard(request)
+            self._live_conns.add(tls_conn)
+        try:
+            self.RequestHandlerClass(tls_conn, client_address, self)
+        finally:
+            with self._conns_lock:
+                self._live_conns.discard(tls_conn)
+            try:
+                tls_conn.close()
+            except OSError:
+                pass
+
+
+def start_server(handler_cls, host: str, port: int, ssl_context=None):
     """Serve ``handler_cls`` on (host, port) from a background thread: the
     asyncio reactor by default, the thread-per-connection server under
-    ``SWEED_SERVING=threads``. Both offer ``shutdown()``,
-    ``server_close()`` and ``server_address``, and admission control."""
+    ``SWEED_SERVING=threads``; over TLS when ``ssl_context`` is given. Both
+    offer ``shutdown()``, ``server_close()`` and ``server_address``, and
+    admission control. The process is marked as serving cluster traffic, so
+    its outbound hops are internal (``_trace_headers``)."""
+    mark_cluster_process()
     if serving_mode() == "aio":
         from .aio import AioHTTPServer
 
-        return AioHTTPServer(handler_cls, host, port).start()
-    srv = _TrackingThreadingHTTPServer((host, port), handler_cls)
+        return AioHTTPServer(handler_cls, host, port, ssl_context=ssl_context).start()
+    if ssl_context is None:
+        srv = _TrackingThreadingHTTPServer((host, port), handler_cls)
+    else:
+        srv = _TlsThreadingHTTPServer((host, port), handler_cls, ssl_context)
     threading.Thread(target=srv.serve_forever, daemon=True,
                      name=f"http-{host}:{srv.server_address[1]}").start()
     return srv
@@ -711,8 +921,11 @@ def http_stream_request(method: str, url: str, reader, length: int,
     """A request whose body streams from a file-like ``reader`` over the
     pooled transport. A consumed reader cannot be rewound, so there is no
     stale-socket retry; the pooled socket is probed before the first byte."""
-    hdrs = dict(headers or {})
+    timeout = _deadline.clamp_timeout(timeout)
+    hdrs = dict(_trace_headers(headers) or {})
     hdrs.setdefault("Content-Length", str(length))
+    if not url.startswith("http://"):
+        return _urllib_request(method, url, reader, hdrs, timeout)
     u = urllib.parse.urlsplit(url)
     key = (u.hostname, u.port)
     path = u.path + (f"?{u.query}" if u.query else "")
@@ -733,13 +946,134 @@ def http_stream_request(method: str, url: str, reader, length: int,
         raise
 
 
+def _urllib_request(method: str, url: str, body, headers: dict,
+                    timeout: float) -> tuple[int, bytes, dict]:
+    """An ``https://`` request through urllib, with its default TLS context."""
+    req = urllib.request.Request(url, data=body, method=method, headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read(), dict(resp.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), dict(e.headers)
+
+
+class _PooledStreamBody:
+    """File-like over a pooled connection's reply body, whose bytes stay on
+    the wire until read. Reading to EOF hands the socket back to the calling
+    thread's pool; closing with bytes unread (or a read error) drops it."""
+
+    def __init__(self, resp, conn, key, conns):
+        self._resp, self._conn = resp, conn
+        self._key, self._conns = key, conns
+        self._owner = threading.get_ident()
+        self._done = False
+
+    def read(self, n: int = -1) -> bytes:
+        try:
+            data = self._resp.read(n)
+        except Exception:
+            self._discard()
+            raise
+        if self._resp.isclosed():
+            self._settle()
+        return data
+
+    def _settle(self) -> None:
+        if self._done:
+            return
+        self._done = True
+        if self._resp.will_close or threading.get_ident() != self._owner:
+            # conns is the creating thread's pool: repooling from another
+            # thread would share one http.client connection across threads
+            self._conn.close()
+        else:
+            _repool(self._conn, self._key, self._conns)
+
+    def _discard(self) -> None:
+        if not self._done:
+            self._done = True
+            self._conn.close()
+
+    def close(self) -> None:
+        if self._resp.isclosed():
+            self._settle()
+        else:
+            self._discard()
+        try:
+            self._resp.close()
+        except Exception:  # noqa: BLE001 — the socket is torn down already
+            pass
+
+
+def http_stream_response(method: str, url: str, headers: Optional[dict] = None,
+                         timeout: float = 600.0) -> tuple[int, object, dict]:
+    """A request whose reply body stays on the wire: (status, file-like
+    body, headers) for a success status (the caller reads it piecewise and
+    must ``close()`` it), or (status, the error bytes, headers) for >= 400.
+    The pooled connection is checked out until the body is read, so a nested
+    request to the same peer on this thread dials its own socket."""
+    timeout = _deadline.clamp_timeout(timeout)
+    headers = _trace_headers(headers)
+    if not url.startswith("http://"):
+        req = urllib.request.Request(url, method=method, headers=headers or {})
+        try:
+            resp = urllib.request.urlopen(req, timeout=timeout)
+            return resp.status, resp, dict(resp.headers)
+        except urllib.error.HTTPError as e:
+            body = e.read()
+            e.close()
+            return e.code, body, dict(e.headers)
+    u = urllib.parse.urlsplit(url)
+    key = (u.hostname, u.port)
+    path = u.path + (f"?{u.query}" if u.query else "")
+    may_retry = method in _IDEMPOTENT_METHODS
+    last_err: Optional[Exception] = None
+    for attempt in (0, 1):
+        conn, conns = _checkout_conn(key, timeout)
+        fresh = conn.sock is None
+        try:
+            conn.request(method, path, headers=headers or {})
+            resp = conn.getresponse()
+        except (http.client.RemoteDisconnected, http.client.BadStatusLine,
+                ConnectionResetError, BrokenPipeError) as e:
+            # the peer closed a reused socket before answering: re-dial once
+            conn.close()
+            last_err = e
+            if fresh or attempt == 1 or not may_retry:
+                raise
+            continue
+        except Exception:
+            conn.close()
+            raise
+        hdrs = dict(resp.getheaders())
+        if resp.status >= 400:
+            try:
+                data = resp.read()
+            except Exception:
+                conn.close()
+                raise
+            if resp.will_close:
+                conn.close()
+            else:
+                _repool(conn, key, conns)
+            return resp.status, data, hdrs
+        return resp.status, _PooledStreamBody(resp, conn, key, conns), hdrs
+    raise last_err  # unreachable
+
+
 def http_bytes_headers(method: str, url: str, body: Optional[bytes] = None,
                        timeout: float = 30.0, headers: Optional[dict] = None,
                        idempotent: bool = False) -> tuple[int, bytes, dict]:
     """One request over the pooled transport -> (status, body, reply
     headers). An unreachable peer raises OSError; HTTP error statuses come
     back as statuses. ``idempotent`` lets a POST take the stale-socket
-    retry (fid-addressed uploads are safe to resend; assigns are not)."""
+    retry (fid-addressed uploads are safe to resend; assigns are not). The
+    timeout is clamped to the ambient deadline, and a spent one raises
+    ``DeadlineExceeded`` before anything goes on the wire."""
+    timeout = _deadline.clamp_timeout(timeout)
+    headers = _trace_headers(headers)
+    if not url.startswith("http://"):
+        return _urllib_request(method, url, body, headers or {}, timeout)
     return _pooled_request(method, url, body, headers, timeout, idempotent=idempotent)
 
 

@@ -37,9 +37,9 @@ journal (``fid_leases_{port}.jsonl``, replayed into the sequencer at start)
 and the autopilot's plan journal (``lifecycle_{port}.json``). The autopilot
 runs on the leader only, and only with ``SWEED_LIFECYCLE=1``.
 
-Differences from the JAX package's master: no ``/debug/traces`` yet
-(tracing is not ported), and ``/dir/status`` drops the sections of the
-subsystems the port lacks (``locks``, ``serving``, ``trace``). The
+``/debug/traces`` serves the process's span ring (``stats/trace.py``).
+Differences from the JAX package's master: ``/dir/status`` drops the
+sections of the subsystems the port lacks (``locks``, ``serving``). The
 assign-latency histogram is this master's own (the JAX package's is
 process-wide); ``/metrics`` exposes it beside the process registry under the
 same name, ``master_assign_seconds``.
@@ -70,6 +70,7 @@ from ..cluster.master import Master
 from ..cluster.topology import DataNode
 from ..cluster.volume_growth import VolumeGrowOption
 from ..security import gen_jwt
+from ..stats import trace
 from ..stats.histogram import Histogram
 from ..stats.metrics import default_registry
 from ..storage.file_id import FileId
@@ -372,6 +373,7 @@ class MasterServer:
             "assign": self.assign_hist.summary(op="assign"),
             # fid-range leases: live, granted, replayed
             "fid_leases": self.fid_leases.stats(),
+            "trace": trace.trace_stats(),
             # the autopilot: cycle counters, interlock, recovery
             "lifecycle": {"enabled": self.lifecycle_enabled, **self.lifecycle.status()},
         }
@@ -522,8 +524,10 @@ class MasterServer:
         lead = ms._leader_only
 
         class Handler(JsonHandler):
+            trace_service = "master"
             # prefix routes: /dir/lookup_ec before /dir/lookup
             routes = [
+                ("GET", "/debug/traces", trace.h_debug_traces),
                 # leader-only (writes, admin): a follower proxies to the leader
                 ("GET", "/dir/assign", lead(ms._h_assign)),
                 ("POST", "/dir/assign", lead(ms._h_assign)),

@@ -86,6 +86,7 @@ from ..ec.decoder import decode_to_volume
 from ..ec.ec_volume import rebuild_ecx_file
 from ..query import execute_request
 from ..security import Guard, gen_jwt, read_auth_query, verify_fid_jwt
+from ..stats import trace
 from ..stats.heat import heat_stats
 from ..stats.metrics import SCRUB_COUNTERS, default_registry, scrub_stats
 from ..storage.commit import atomic_write
@@ -1017,6 +1018,7 @@ class VolumeServer:
         hb["turbo"] = self.turbo_status()
         hb["serving"] = SERVING.snapshot()
         hb["queries_served"] = self.queries_served
+        hb["trace"] = trace.trace_stats()
         return 200, hb
 
     def turbo_status(self) -> dict:
@@ -1442,7 +1444,9 @@ class VolumeServer:
         vs = self
 
         class Handler(JsonHandler):
+            trace_service = "volume"
             routes = [
+                ("GET", "/debug/traces", trace.h_debug_traces),
                 ("POST", "/admin/assign_volume", vs._h_assign_volume),
                 ("POST", "/admin/delete_volume", vs._h_delete_volume),
                 ("POST", "/_batch_delete", vs._h_batch_delete),

@@ -12,8 +12,8 @@ status sections read percentiles from (the master's assign summary in
   pipeline.
 
 - ``expose()`` — the Prometheus text lines ``/metrics`` serves
-  (``stats/metrics.py`` registers the histograms). The reference's
-  exemplars (a trace id per bucket) come with tracing and are not ported.
+  (``stats/metrics.py`` registers the histograms). The JAX package's
+  exemplars (the ambient span's trace id per bucket) are not ported yet.
 """
 
 from __future__ import annotations

@@ -13,6 +13,9 @@ counters under the reference's names:
 - ``sweed_fleet_*``: the master's EC scheduler (``cluster/fleet.py``);
 - ``sweed_query_*``: the scan engine (``query/scan.py``);
 - ``sweed_scrub_*``: the background scrub;
+- ``sweed_qos_*``: the tenant governor (``util/throttler.GOVERNOR``), a
+  per-tenant latency histogram and decision counter;
+- ``sweed_deadline_*``: deadline events (``util/deadline.counts``);
 - ``sweed_lifecycle_*``: the master's autopilot (``cluster/lifecycle.py``,
   which also owns the ``lifecycle_cycle_seconds`` and
   ``lifecycle_action_seconds`` histograms). The election and the fid leases
@@ -20,8 +23,8 @@ counters under the reference's names:
 
 Counters and gauges are bumped and read from request and background
 threads, so each takes its own lock. Not ported: the gauges of features the
-port has not got yet (the lock sanitizer, the QoS governor, hedged reads
-and deadlines, filer sync), the push-gateway
+port has not got yet (the lock sanitizer, hedged reads, filer sync), the
+push-gateway
 client, and the host probes (``disk_status``, ``memory_status``), which
 nothing in the JAX package's daemons prints.
 """
@@ -178,6 +181,46 @@ def register_serving_metrics(registry: Optional[Registry] = None) -> None:
          "requests served by native-async fast-path handlers (no bridge)", "native_hits"),
         ("sweed_serving_native_fallbacks_total",
          "native-handler requests punted to the bridged worker path", "native_fallbacks"),
+        ("sweed_serving_qos_shed_total",
+         "requests shed by the tenant governor (503 + Retry-After)", "qos_shed"),
+        ("sweed_serving_qos_delayed_total",
+         "requests paced by the tenant governor before admission", "qos_delayed"),
+    ))
+
+
+def register_qos_metrics(registry: Optional[Registry] = None) -> dict:
+    """Per-tenant QoS evidence: a labelled latency histogram and a
+    per-tenant admission-decision counter. Tenant keys are bounded: the
+    governor keeps at most 1 024 tenants, and anonymous /24 classes are
+    labelled only while the governor is on
+    (``http_util.observe_tenant_request``)."""
+    reg = registry or default_registry
+    return {
+        "hist": reg.histogram("sweed_qos_request_seconds", "request service time by tenant"),
+        "decisions": reg.counter(
+            "sweed_qos_decisions_total",
+            "tenant-governor admissions by tenant and outcome (ok / delay / shed)"),
+    }
+
+
+def register_deadline_metrics(registry: Optional[Registry] = None) -> None:
+    """Gauges over the cross-daemon deadline's events
+    (``util/deadline.counts``)."""
+
+    def snap(key):
+        from ..util import deadline
+
+        return deadline.counts().get(key, 0)
+
+    _gauges(registry or default_registry, snap, (
+        ("sweed_deadline_clamped_total",
+         "hop timeouts shortened to the remaining cross-daemon budget", "clamped"),
+        ("sweed_deadline_refused_dial_total",
+         "downstream calls refused because the budget was already spent", "refused_dial"),
+        ("sweed_deadline_expired_inbound_total",
+         "requests answered 504 on arrival: the deadline died upstream", "expired_inbound"),
+        ("sweed_deadline_aborted_handler_total",
+         "handlers aborted mid-work by DeadlineExceeded", "aborted_handler"),
     ))
 
 
@@ -300,6 +343,18 @@ register_heat_metrics()
 register_ncache_metrics()
 register_fleet_metrics()
 register_lifecycle_metrics()
+register_deadline_metrics()
+QOS_INSTRUMENTS = register_qos_metrics()
+
+
+def note_qos_request(tenant: str, seconds: float) -> None:
+    """Record one request's service time under its tenant label."""
+    QOS_INSTRUMENTS["hist"].observe(seconds, tenant=tenant)
+
+
+def note_qos_decision(tenant: str, outcome: str) -> None:
+    """Count one governor admission decision (ok / delay / shed)."""
+    QOS_INSTRUMENTS["decisions"].inc(tenant=tenant, outcome=outcome)
 
 
 def register_query_metrics(registry: Optional[Registry] = None) -> dict[str, Counter]:

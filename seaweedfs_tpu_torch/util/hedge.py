@@ -22,11 +22,16 @@ when it can least afford it — degrades to ordinary serial failover.
 Counters live here (process-wide) and the filer's ``/_status`` reports
 them under ``hedge``.
 
-The port's copy of the JAX package's ``util/hedge.py``.
+The port's copy of the JAX package's ``util/hedge.py``, with one
+difference: ``hedged_call``'s thread legs run in a copy of the caller's
+context, so a chunk fetched from an EC'd volume (whose lookup names several
+holders) stays in the request's trace and under its deadline; the JAX
+package's legs start with an empty context.
 """
 
 from __future__ import annotations
 
+import contextvars
 import os
 import queue
 import threading
@@ -152,9 +157,13 @@ def hedged_call(primary: Callable[[], object],
     STATS.note_tracked()
     results: "queue.Queue" = queue.Queue()
 
+    # each leg runs in a copy of the caller's context, so its requests
+    # carry the caller's span and deadline (threads start with an empty one)
+    ctx = contextvars.copy_context()
+
     def run(leg: str, fn: Callable[[], object]) -> None:
         try:
-            results.put((leg, True, fn()))
+            results.put((leg, True, ctx.copy().run(fn)))
         except Exception as e:  # leg outcome is relayed; the decider re-raises
             results.put((leg, False, e))
 

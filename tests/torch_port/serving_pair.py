@@ -83,8 +83,8 @@ def pair(tmp_path_factory, assign_vid: bool = True, **vs_kwargs):
             stop_node(node)
 
 
-# headers that differ between two servers by nature: the time, and the JAX
-# package's trace id (tracing is not ported)
+# headers that differ between two servers by nature: the time, and the
+# trace id (a random id per request)
 UNCOMPARED = (b"date:", b"x-sweed-trace-id:")
 
 

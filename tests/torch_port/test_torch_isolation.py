@@ -56,7 +56,11 @@ def test_port_imports_nothing_of_jax():
                  "filer.abstract_sql", "filer.meta_log", "filer.filer_conf", "filer.filer",
                  "filer.meta_aggregator", "util.pipeline", "util.chunk_cache",
                  "util.cipher", "util.hedge", "util.compression", "query.select",
-                 "server.aio_transport", "server.filer_server"):
+                 "server.aio_transport", "server.filer_server", "util.locks",
+                 "util.racecheck", "util.deadline", "stats.trace", "security.tls",
+                 "filer.client", "filer.ring", "s3api", "s3api.auth",
+                 "s3api.policy_engine", "s3api.post_policy", "s3api.s3api_server",
+                 "client", "client.fs"):
         assert "seaweedfs_tpu_torch." + name in walked, name
     assert lines["BAD"] == "[]", r.stdout
     assert lines["NEW_THREADS"] == "0", r.stdout

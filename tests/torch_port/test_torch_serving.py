@@ -5,8 +5,8 @@ read path.
 The cases of the reference's ``tests/test_serving.py`` that cover what the
 port serves, run against both packages where the reference has the case,
 over raw sockets (admission rejections and keep-alive shedding happen below
-``http.client``). Replies are compared with ``Date`` and the JAX package's
-trace-id header removed (tracing is not ported); everything else is exact.
+``http.client``). Replies are compared with ``Date`` and the
+trace-id header removed (a random id per request); everything else is exact.
 """
 
 import os
