@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's erasure-coding, query, cluster, filer and S3 paths
-on one NVIDIA GPU.
+"""Drive the PyTorch port's erasure-coding, query, cluster, filer, S3 and mesh
+paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -12,7 +12,8 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
 1. kernel vs plain PyTorch version on the card, (R, k) in
    {(4,10), (1,10), (2,10), (3,10), (3,6), (4,12), (8,10), (16,10), (4,16),
    (4,17), (64,64), (4,1)} x widths {1, 15, 16, 17, 65537, 32 MiB}, plus
-   strided and unaligned layouts — byte-equal or fail; the kernel's time at
+   strided and unaligned layouts, and at widths 17 and 65537 the
+   ``accumulate`` form (XOR into the output) — byte-equal or fail; the kernel's time at
    the encode shape beside its bound and the plain version's time;
 2. device-resident RS(10,4) encode of one default-size 30 GB volume (data
    uint8[10, 3 GiB] made on the card from a seed) through
@@ -150,6 +151,24 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    ``/_debug/traces``, to one tree of the gateway's, the filer's and a
    volume server's spans. The seal, the degraded reads and the sealed
    Select must launch the kernel.
+14. the multi-device codec (``ec/sharded.py``) and mesh members, on the one
+   card: a. phase 2's geometry through ``MeshCodec.matmul_device`` on the
+   (2,2,1) and (2,1,2) meshes over ``[cuda:0] * 4``, equal to CudaCodec's
+   parity (``torch.equal``), with both times; b. a 1 GiB .dat through
+   ``write_ec_files`` and ``rebuild_ec_files`` ({0, 3, 10, 13} lost) on the
+   tp=2 mesh, every shard's sha256 equal to CudaCodec's files'; c. a Store
+   whose codec is that mesh reads 40 needles of 200-400 KB back with shards
+   {0, 4, 9, 12} lost and no remote reader; d. two ranks over gloo share the
+   card (``ec/mesh_dryrun.py``): ``make_sharded_encode(process_local=True)``
+   with dp across the ranks and tp=2 in each, equal to CudaCodec's parity in
+   the same rank, each rank's launches reported and added to the count;
+   e. the port's master and two volume servers that are single-process mesh
+   members (``SWEED_MESH=1``, ``-ec.backend mesh``, the Python data plane),
+   one on ``-index sqlite`` and one on ``-index mmap``, 256 MiB of phase 8's
+   needle mix each; ``/ec/fleet/status`` lists both, ``ec.encode -fleet``
+   seals each volume on its member, every needle reads back; the sqlite
+   server restarts on ``-index sorted`` over a sealed plain volume and every
+   needle of it reads back. Each step must launch the kernel.
 
 Phases 6, 8, 9, 10, 12 and 13 run with the JAX package's default serving stack: the
 native turbo engine (built from ``seaweedfs_tpu_torch/csrc/turbo.cpp``)
@@ -163,8 +182,10 @@ servers of phase 8 share the card so, and the fleet scheduler runs up to
 four generate jobs together); each result must equal the plain version's.
 
 Every phase prints one JSON line with its numbers and kernel launches.
-Phases 2-13 are the main path: the launch counts are zeroed before phase 2
-and read after phase 13, and every phase must have launched the kernel. The
+Phases 2-14 are the main path: the launch counts are zeroed before phase 2
+and read after phase 14 (phase 14's child ranks count in their own
+processes and report theirs), and every phase must have launched the
+kernel. The
 line before last lists each kernel with its launches, error and times; the
 last line is the device record. Any mismatch or error exits non-zero.
 """
@@ -200,10 +221,12 @@ sys.path.insert(0, HERE)
 from seaweedfs_tpu_torch.__main__ import run_benchmark  # noqa: E402
 from seaweedfs_tpu_torch.ec import decoder, encoder  # noqa: E402
 from seaweedfs_tpu_torch.ec import gf_matmul as gm  # noqa: E402
+from seaweedfs_tpu_torch.ec import mesh_dryrun  # noqa: E402
 from seaweedfs_tpu_torch.ec.codec import get_codec  # noqa: E402
 from seaweedfs_tpu_torch.ec.constants import shard_ext  # noqa: E402
 from seaweedfs_tpu_torch.ec.decoder import decode_to_volume  # noqa: E402
 from seaweedfs_tpu_torch.ec.ec_volume import EcVolume  # noqa: E402
+from seaweedfs_tpu_torch.ec.sharded import MeshCodec  # noqa: E402
 from seaweedfs_tpu_torch.query import execute_request, parse_sql, run_query  # noqa: E402
 from seaweedfs_tpu_torch.query import scan as query_scan  # noqa: E402
 from seaweedfs_tpu_torch.query import select as s3select  # noqa: E402
@@ -222,6 +245,7 @@ from seaweedfs_tpu_torch.storage.file_id import FileId  # noqa: E402
 from seaweedfs_tpu_torch.storage.needle import Needle, get_actual_size  # noqa: E402
 from seaweedfs_tpu_torch.storage.needle_map import IdxLogMixin  # noqa: E402
 from seaweedfs_tpu_torch.storage.store import (  # noqa: E402
+    Store,
     ec_encode_volume,
     read_ec_shard_needle,
 )
@@ -349,6 +373,14 @@ def phase1(state) -> None:
                 torch.cuda.synchronize()
                 want = gm.gf_matmul_plain(matrix, d)
                 bad, err = compare(got, want)
+                if n in (17, 65537):
+                    # accumulate (the mesh codec's tp combine): out ^= M (x) d
+                    acc = rand_u8((R, n), gen)
+                    want_acc = acc ^ want
+                    gm.gf_matmul(matrix, d, out=acc, accumulate=True)
+                    torch.cuda.synchronize()
+                    b2, e2 = compare(acc, want_acc)
+                    bad, err = bad + b2, max(err, e2)
                 cases += 1
                 mismatches += bad
                 max_err = max(max_err, err)
@@ -456,6 +488,7 @@ def phase2(state) -> None:
     p50 = statistics.median(runs)
     bound_ms, bound_by = gf_bound_ms(m, k, n)
     state["data"], state["parity"] = data, parity
+    state["phase2_encode_ms"] = p50
     state["kernel"]["max_abs_err"] = max(state["kernel"]["max_abs_err"], err)
     emit({"phase": 2, "volume_bytes": k * n, "launches_per_encode": per_run,
           "encode_ms_p50": p50, "encode_ms_runs": runs,
@@ -3605,6 +3638,329 @@ def phase13(state) -> None:
         raise SystemExit(f"phase 13: no kernel launch in {idle}")
 
 
+# -- phase 14: the multi-device codec and mesh members ------------------------
+MESH_DEVICES = ["cuda:0"] * 4  # a virtual 4-device mesh on the one card
+MESH_BACKEND = "mesh"  # the volume servers' codec in phase 14e
+MESH_COLS = 3 * GiB  # phase 2's geometry: uint8[10, 3 GiB]
+MESH_DAT = GiB  # phase 4's .dat
+MESH_DRYRUN = {"devices": ["cuda:0", "cuda:0"], "width": 64 * MiB}  # per rank
+MESH_VOLUME_BYTES = 256 * MiB  # each member's needle mix (phase 8's sizes)
+MESH_SEALED_BYTES = 64 * MiB  # the sealed plain volume of the sorted restart
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """Set environment variables for the block, then put them back."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, val in saved.items():
+            if val is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = val
+
+
+def _mesh_encode(state, steps: dict) -> None:
+    """a. Phase 2's geometry through MeshCodec.matmul_device on the (2,2,1)
+    and (2,1,2) meshes over one card, against CudaCodec's parity."""
+    k, m, n = 10, 4, MESH_COLS
+    dev = MESH_DEVICES[0]
+    ref = get_codec(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    data = torch.empty((k, n), dtype=torch.uint8, device=dev).random_(0, 256, generator=gen)
+    want = torch.empty((m, n), dtype=torch.uint8, device=dev)
+    got = torch.empty_like(want)
+    ref.matmul_device(ref.parity_rows, data, out=want)
+    single = cuda_ms(lambda: ref.matmul_device(ref.parity_rows, data, out=want), 3)
+    res = {"shape": [k, n], "cudacodec_ms_p50": statistics.median(single),
+           "cudacodec_ms_runs": single, "phase2_encode_ms_p50": state.get("phase2_encode_ms")}
+    launches = 0
+    for tp in (1, 2):
+        mc = MeshCodec(devices=MESH_DEVICES, tp=tp)
+        got.zero_()
+        l0 = gm.gf_matmul.launches
+        mc.matmul_device(ref.parity_rows, data, out=got)
+        torch.cuda.synchronize()
+        per = gm.gf_matmul.launches - l0
+        equal = bool(torch.equal(got, want))
+        runs = cuda_ms(lambda: mc.matmul_device(ref.parity_rows, data, out=got), 3)
+        launches += gm.gf_matmul.launches - l0
+        p50 = statistics.median(runs)
+        name = "x".join(str(v) for v in mc.mesh.shape.values())
+        res[name] = {"mesh": mc.mesh.shape, "ms_p50": p50, "ms_runs": runs,
+                     "input_GBps": k * n / p50 / 1e6, "launches_per_encode": per,
+                     "over_cudacodec": p50 / res["cudacodec_ms_p50"], "equal": equal}
+        if not equal:
+            raise SystemExit(f"phase 14a: the {name} mesh's parity differs from CudaCodec's")
+    res["launches"] = launches
+    del data, want, got
+    torch.cuda.empty_cache()
+    steps["a_encode_30GiB"] = res
+
+
+def _mesh_files(state, steps: dict, mesh) -> None:
+    """b. A 1 GiB .dat through write_ec_files, then rebuild_ec_files with
+    {0, 3, 10, 13} lost, on the tp=2 mesh: every shard's sha256 equals the
+    one CudaCodec's files have."""
+    base_c, base_m = os.path.join(WORK, "14c"), os.path.join(WORK, "14m")
+    rng = np.random.default_rng(14)
+    with open(base_c + ".dat", "wb") as f:
+        f.write(SuperBlock(version=3).to_bytes())
+        left = MESH_DAT - 8
+        while left:
+            step = min(left, 64 * MiB)
+            f.write(rng.bytes(step))
+            left -= step
+    os.link(base_c + ".dat", base_m + ".dat")
+    t0 = time.perf_counter()
+    encoder.write_ec_files(base_c, get_codec(device=MESH_DEVICES[0]))
+    cuda_s = time.perf_counter() - t0
+    l0, t0 = gm.gf_matmul.launches, time.perf_counter()
+    stats: dict = {}
+    encoder.write_ec_files(base_m, mesh, pipeline_stats=stats)
+    enc_s, enc_launches = time.perf_counter() - t0, gm.gf_matmul.launches - l0
+    sums = [_sha256(base_c + shard_ext(s)) for s in range(14)]
+    bad = [s for s in range(14) if _sha256(base_m + shard_ext(s)) != sums[s]]
+    for s in LOST:
+        os.remove(base_m + shard_ext(s))
+    l1, t0 = gm.gf_matmul.launches, time.perf_counter()
+    rebuilt = encoder.rebuild_ec_files(base_m, mesh)
+    reb_s, reb_launches = time.perf_counter() - t0, gm.gf_matmul.launches - l1
+    bad_rebuilt = [s for s in LOST if _sha256(base_m + shard_ext(s)) != sums[s]]
+    shard = os.path.getsize(base_m + shard_ext(0))
+    steps["b_file_path"] = {
+        "mesh": mesh.mesh.shape, "dat_bytes": MESH_DAT, "shard_bytes": shard,
+        "cudacodec_encode_s": cuda_s, "encode_s": enc_s, "encode_GBps": MESH_DAT / enc_s / 1e9,
+        "encode_efficiency": stats.get("efficiency"), "encode_launches": enc_launches,
+        "rebuilt": rebuilt, "rebuild_s": reb_s, "rebuild_survivor_GBps": 10 * shard / reb_s / 1e9,
+        "rebuild_launches": reb_launches, "launches": enc_launches + reb_launches,
+        "shards_differ": bad, "rebuilt_differ": bad_rebuilt}
+    for name in os.listdir(WORK):
+        if name.startswith("14c.") or name.startswith("14m."):
+            os.remove(os.path.join(WORK, name))
+    if bad or bad_rebuilt or rebuilt != LOST or not enc_launches or not reb_launches:
+        raise SystemExit(f"phase 14b: the mesh's shard files are wrong: {steps['b_file_path']}")
+
+
+def _mesh_degraded_read(state, steps: dict, mesh) -> None:
+    """c. A Store whose codec is the tp=2 mesh, 40 needles of 200-400 KB,
+    shards {0, 4, 9, 12} lost and no remote reader: every needle reads back
+    equal (the reference's __graft_entry__.py:138-185)."""
+    d = os.path.join(WORK, "14store")
+    store = Store([d], ec_backend="cuda")
+    store.add_volume(10)
+    rng = np.random.default_rng(140)
+    blobs = {}
+    for i in range(1, 41):
+        blobs[i] = rng.bytes(int(rng.integers(200_000, 400_000)))
+        store.write_volume_needle(10, Needle(cookie=7, id=i, data=blobs[i]))
+    base = store.find_volume(10).file_name()
+    store.close()
+    ec_encode_volume(base, get_codec(device=MESH_DEVICES[0]))
+    for ext in (".dat", ".idx"):
+        os.remove(base + ext)
+    for sid in (0, 4, 9, 12):
+        os.remove(base + shard_ext(sid))
+    store = Store([d], ec_backend="cuda")
+    store._ec_codec = mesh
+    wrong, ms = [], []
+    l0, t0 = gm.gf_matmul.launches, time.perf_counter()
+    try:
+        if store.remote_shard_reader is not None or \
+                len(store.find_ec_volume(10).shard_ids()) != 10:
+            raise SystemExit("phase 14c: the store is not the degraded one asked for")
+        for i, want in blobs.items():
+            t1 = time.perf_counter()
+            n = Needle(id=i)
+            store.read_volume_needle(10, n)
+            ms.append((time.perf_counter() - t1) * 1e3)
+            if n.data != want:
+                wrong.append(i)
+    finally:
+        store.close()
+    launches = gm.gf_matmul.launches - l0
+    steps["c_degraded_read"] = {"mesh": mesh.mesh.shape, "needles": len(blobs),
+                                "lost": [0, 4, 9, 12], "s": time.perf_counter() - t0,
+                                "read_ms_p50": _pct(ms, 50), "read_ms_p99": _pct(ms, 99),
+                                "wrong": wrong, "launches": launches}
+    shutil.rmtree(d, ignore_errors=True)
+    if wrong or not launches:
+        raise SystemExit(f"phase 14c: degraded reads wrong {wrong} or no launch ({launches})")
+
+
+def _mesh_two_processes(state, steps: dict) -> None:
+    """d. Two ranks over gloo share the card: make_sharded_encode with dp
+    across the ranks and tp=2 in each, equal to CudaCodec's parity in the
+    same rank; each rank reports its launches."""
+    t0 = time.perf_counter()
+    got = mesh_dryrun.run(procs=2, devices=MESH_DRYRUN["devices"], tp=2, batch=2,
+                          width=MESH_DRYRUN["width"], seed=14, timeout=300)
+    got["s"] = time.perf_counter() - t0
+    got["launches_ranks"] = got.pop("launches")
+    state["child_launches"] = state.get("child_launches", 0) + sum(got["launches_ranks"])
+    steps["d_two_processes"] = got
+    if got["mismatches"] or got["mesh"] != {"dp": 2, "sp": 1, "tp": 2} or \
+            not all(got["launches_ranks"]):
+        raise SystemExit(f"phase 14d: the two-process encode failed: {got}")
+
+
+def _mesh_cluster(state, steps: dict) -> None:
+    """e. The port's master and two port volume servers in this process,
+    each a single-process mesh member (``SWEED_MESH=1``) with ``-ec.backend
+    mesh``, one on ``-index sqlite`` and one on ``-index mmap`` (the Python
+    data plane, so that the maps serve every request). Each takes 256 MiB of
+    phase 8's needle mix; ``/ec/fleet/status`` lists both as initialized;
+    ``ec.encode -fleet`` seals each volume on its member; every needle reads
+    back. Then the sqlite server restarts on ``-index sorted`` over a sealed
+    plain volume, and every needle of it reads back."""
+    master = MasterServer(host="127.0.0.1", port=_free_port(), node_timeout=3.0).start()
+    env = CommandEnv(master.url)
+    res: dict = {"servers": {}}
+    servers: dict = {}
+    dirs = {kind: os.path.join(WORK, f"14{kind}") for kind in ("sqlite", "mmap")}
+    ports = {kind: _free_port() for kind in dirs}
+
+    def server(kind: str, index: str) -> VolumeServer:
+        return VolumeServer([dirs[kind]], host="127.0.0.1", port=ports[kind],
+                            master_url=master.url, data_center=f"dc_{kind}",
+                            pulse_seconds=0.5, ec_backend=MESH_BACKEND,
+                            needle_map_kind=index).start()
+
+    def read_all(blobs: dict) -> tuple[float, list]:
+        wrong: list = []
+
+        def get(item):
+            fid, want = item
+            status, data, _, _ = _client_get(master.url, fid)
+            if status != 200 or data != want:
+                wrong.append((fid, status))
+        return _parallel(get, list(blobs.items()), 8), wrong
+
+    l_start = gm.gf_matmul.launches
+    try:
+        with _env(SWEED_MESH="1", SWEED_TURBO="0"):
+            for kind in dirs:
+                servers[kind] = server(kind, kind)
+            urls = {kind: f"127.0.0.1:{ports[kind]}" for kind in dirs}
+            if not _until(lambda: all(
+                    m.get("initialized") for m in [
+                        master.fleet.members().get(u, {}) for u in urls.values()])):
+                raise SystemExit(f"phase 14e: the members never reached the master: "
+                                 f"{master.fleet.members()}")
+            res["members"] = {u: master.fleet.members()[u] for u in urls.values()}
+            cols = {"sqlite": "mesh14sqlite", "mmap": "mesh14mmap", "sealed": "mesh14sealed"}
+            for name, col in cols.items():
+                dc = "dc_sqlite" if name == "sealed" else f"dc_{name}"
+                if _admin(master.url, f"/vol/grow?collection={col}&count=1&replication=000"
+                                      f"&dataCenter={dc}") != {"count": 1}:
+                    raise SystemExit(f"phase 14e: /vol/grow of {col} failed")
+            blobs: dict = {}
+            vids: dict = {}
+            for name, col in cols.items():
+                fill = MESH_SEALED_BYTES if name == "sealed" else MESH_VOLUME_BYTES
+                items = _needle_blobs(141 + len(vids), fill)
+                fids, _, post_ms, write_s, errors = _upload_via_master(master.url, col, items, 8)
+                if errors:
+                    raise SystemExit(f"phase 14e: uploads to {col} failed: {errors[:3]}")
+                vids[name] = {FileId.parse(f).volume_id for f in fids}
+                if len(vids[name]) != 1:
+                    raise SystemExit(f"phase 14e: {col} spread over volumes {vids[name]}")
+                vids[name] = vids[name].pop()
+                blobs[name] = dict(zip(fids, items))
+                p_ms = [x for xs in post_ms for x in xs]
+                res.setdefault("upload", {})[name] = {
+                    "needles": len(items), "MBps": sum(map(len, items)) / write_s / 1e6,
+                    "post_ms_p50": _pct(p_ms, 50), "post_ms_p99": _pct(p_ms, 99)}
+            for kind, vs in servers.items():
+                v = vs.store.find_volume(vids[kind])
+                res["servers"][kind] = {"url": urls[kind], "map": type(v.nm).__name__,
+                                        "codec": type(vs.store.ec_codec).__name__}
+            if res["servers"]["sqlite"]["map"] != "SqliteNeedleMap" or \
+                    res["servers"]["mmap"]["map"] != "MmapNeedleMap":
+                raise SystemExit(f"phase 14e: the needle maps are not the asked kinds: "
+                                 f"{res['servers']}")
+            # the fleet encode: each volume's generate on its mesh member
+            jobs = {}
+            l0, t0 = gm.gf_matmul.launches, time.perf_counter()
+            for kind in ("sqlite", "mmap"):
+                r = run_command(env, f"ec.encode -volumeId={vids[kind]} "
+                                     f"-collection={cols[kind]} -fleet")
+                jobs[kind] = [(j["state"], j["server"]) for j in r["jobs"]]
+                if jobs[kind] != [("done", urls[kind])]:
+                    raise SystemExit(f"phase 14e: the fleet encode of {kind}: {r['jobs']}")
+            res["ec_encode"] = {"s": time.perf_counter() - t0, "jobs": jobs,
+                                "launches": gm.gf_matmul.launches - l0}
+            if not res["ec_encode"]["launches"]:
+                raise SystemExit("phase 14e: the fleet encode launched no kernel")
+            for kind in ("sqlite", "mmap"):
+                if not _until(lambda: len(env.ec_shard_locations(vids[kind])) == 14):
+                    raise SystemExit(f"phase 14e: the shards of {kind} never all mounted")
+            sealed = {**blobs["sqlite"], **blobs["mmap"]}
+            s, wrong = read_all(sealed)
+            res["read_back_ec"] = {"needles": len(sealed), "s": s, "wrong": wrong[:5]}
+            if wrong:
+                raise SystemExit(f"phase 14e: EC read-back wrong: {wrong[:5]}")
+            # the sorted restart: seal the plain volume, restart on -index sorted
+            _admin(urls["sqlite"], f"/admin/readonly?volume={vids['sealed']}")
+            servers.pop("sqlite").stop()
+            t0 = time.perf_counter()
+            servers["sqlite"] = server("sqlite", "sorted")
+            v = servers["sqlite"].store.find_volume(vids["sealed"])
+            if type(v.nm).__name__ != "SortedFileNeedleMap" or not v.read_only:
+                raise SystemExit(f"phase 14e: the restart did not load the sorted kind: "
+                                 f"{type(v.nm).__name__}")
+            if not _until(lambda: master.fleet.members().get(urls["sqlite"], {}).get(
+                    "initialized") and env.volume_locations(vids["sealed"])):
+                raise SystemExit("phase 14e: the restarted server did not come back")
+            restart_s = time.perf_counter() - t0
+            s, wrong = read_all(blobs["sealed"])
+            res["sorted_restart"] = {"restart_s": restart_s, "needles": len(blobs["sealed"]),
+                                     "read_s": s, "wrong": wrong[:5],
+                                     "sdx_bytes": os.path.getsize(v.file_name() + ".sdx")}
+            if wrong:
+                raise SystemExit(f"phase 14e: sorted read-back wrong: {wrong[:5]}")
+    finally:
+        for vs in servers.values():
+            vs.stop()
+        master.stop()
+        for d in dirs.values():
+            shutil.rmtree(d, ignore_errors=True)
+    res["launches"] = gm.gf_matmul.launches - l_start
+    steps["e_mesh_members"] = res
+
+
+def phase14(state) -> None:
+    """The multi-device codec (ec/sharded.py) and mesh membership on the one
+    card: meshes that repeat ``cuda:0`` (as the JAX tests use virtual host
+    devices), two ranks sharing the card over gloo, and volume servers that
+    are mesh members. Every step must launch the kernel and give CudaCodec's
+    bytes."""
+    torch.cuda.empty_cache()
+    steps: dict = {}
+    mesh = MeshCodec(devices=MESH_DEVICES, tp=2)
+    for name, fn in (("a", lambda: _mesh_encode(state, steps)),
+                     ("b", lambda: _mesh_files(state, steps, mesh)),
+                     ("c", lambda: _mesh_degraded_read(state, steps, mesh)),
+                     ("d", lambda: _mesh_two_processes(state, steps)),
+                     ("e", lambda: _mesh_cluster(state, steps))):
+        l0, t0 = gm.gf_matmul.launches, time.perf_counter()
+        fn()
+        key = next(k for k in steps if k.startswith(name + "_"))
+        emit({"phase": 14, "step": key, "s": time.perf_counter() - t0,
+              "launches": gm.gf_matmul.launches - l0, **steps[key]})
+    idle = [k for k, v in steps.items() if not (v.get("launches") or v.get("launches_ranks"))]
+    emit({"phase": 14, "steps": {k: {"launches": v.get("launches", v.get("launches_ranks"))}
+                                 for k, v in steps.items()},
+          "launches": gm.gf_matmul.launches - state["l_phase"],
+          "launches_ranks": steps["d_two_processes"]["launches_ranks"],
+          "nvidia_smi": state["smi"]})
+    if idle:
+        raise SystemExit(f"phase 14: no kernel launch in {idle}")
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -3612,7 +3968,7 @@ def _free_port() -> int:
 
 
 MAIN_PATH = (phase2, phase3, phase4, phase5, phase6, phase7, phase8, phase9, phase10,
-             phase11, phase12, phase13)
+             phase11, phase12, phase13, phase14)
 
 
 def main() -> int:
@@ -3636,7 +3992,8 @@ def main() -> int:
                 raise SystemExit(f"phase {i}: the kernel was never launched")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    main_launches = gm.gf_matmul.launches
+    # the launches of phase 14's child ranks, counted in their processes
+    main_launches = gm.gf_matmul.launches + state.get("child_launches", 0)
     kern = state["kernel"]
     emit({"phase_s": phase_s})
     print(smi_line(), flush=True)

@@ -10,9 +10,12 @@ master|volume|filer|s3|shell|upload|download|delete|backup|compact|volume.tail|b
   ``SWEED_TIER_*`` knobs).
 - ``volume`` runs a volume server with the flags of ``weed volume`` (and of
   the JAX package's CLI): ``-ip -port -dir -mserver -dataCenter -rack -max
-  -pulseSeconds -index``. ``-ec.backend`` is ``cuda`` (the default: the
-  hand-written kernel, and EC requests fail without a card) or ``cpu`` (the
-  kernel's plain PyTorch version).
+  -pulseSeconds -index`` (``memory``, ``dense``, ``sqlite``, ``sorted`` or
+  ``mmap``). ``-ec.backend`` is ``cuda`` (the default: the hand-written
+  kernel, and EC requests fail without a card), ``mesh`` (the kernel on
+  every local card, ``ec/sharded.py``) or ``cpu`` (the kernel's plain
+  PyTorch version). ``SWEED_MESH=1`` makes the server a mesh member
+  (``server/volume_server.py``).
 - ``filer`` runs a filer with the flags of ``weed filer``: ``-ip -port
   -master -chunkSizeMB -db -collection -replication -encryptVolumeData
   -peers -metaLogDir``. Its store is ``-db`` (a sqlite file, or
@@ -632,11 +635,13 @@ def main(argv=None) -> None:
     v.add_argument("-max", type=int, default=7)
     v.add_argument("-pulseSeconds", dest="pulse", type=_positive_pulse, default=5.0)
     v.add_argument("-index", default="dense",
-                   choices=["memory", "dense", "sqlite", "sorted"],
-                   help="needle map kind (sqlite and sorted are not ported yet)")
+                   choices=["memory", "dense", "sqlite", "sorted", "mmap"],
+                   help="needle map kind: memory, dense (16 B an entry), sqlite "
+                        "(<vol>.ldb), sorted (read-only <vol>.sdx), mmap (<vol>.mdx)")
     v.add_argument("-ec.backend", dest="ec_backend", default="cuda",
-                   choices=["cuda", "cpu"],
-                   help="cuda: the hand-written GPU kernel; cpu: its plain version")
+                   choices=["cuda", "cpu", "mesh"],
+                   help="cuda: the hand-written GPU kernel; cpu: its plain version; "
+                        "mesh: the kernel on every local GPU (ec/sharded.py)")
     v.set_defaults(fn=cmd_volume)
 
     f = sub.add_parser("filer", help="run a filer server")

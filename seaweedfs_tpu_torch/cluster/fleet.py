@@ -10,8 +10,9 @@ single client and dies with it. Here the MASTER owns a small job scheduler:
   heartbeat (``mesh`` dict: coordinator address, process_id,
   num_processes, initialized) — the scheduler's membership view is exactly
   the heartbeat-fresh topology, so a dead member stops receiving jobs the
-  moment the reaper would drop it. The port's volume servers report no mesh
-  yet, so ``_pick_target`` falls back to the volume's holders;
+  moment the reaper would drop it. The port's volume servers report it
+  under ``SWEED_MESH=1`` (``torch.distributed``, ``VolumeServer._init_mesh``);
+  without a member ``_pick_target`` falls back to the volume's holders;
 * ``ec.encode -fleet`` (or any client) POSTs ``/ec/fleet/encode`` with a
   volume-id list and the scheduler fans ``/admin/ec/generate`` calls over a
   bounded worker pool — the HTTP fan-out is the control-plane analog of the

@@ -66,7 +66,9 @@
 // Binding: a plain C entry point (gf_matmul_launch) loaded with ctypes. It
 // takes the masks from host memory, launches on the caller's stream,
 // allocates nothing, and returns cudaGetLastError() so the Python wrapper can
-// raise on a refused launch.
+// raise on a refused launch. With accumulate set, the first chunk also XORs
+// into out, as every later chunk does: the multi-device codec
+// (ec/sharded.py) sums the partial products of a split contraction so.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -216,10 +218,11 @@ constexpr auto kLaunch = chunk_launches(std::make_integer_sequence<int, kChunk>{
 
 // masks: host uint64[R][8], bit d of masks[r][j] = bit j of M[r, d]; read
 // during the call only (each launch takes its chunk's masks by value).
+// accumulate != 0: out ^= M (x) data instead of out = M (x) data.
 extern "C" int gf_matmul_launch(const unsigned long long* masks, int R, int k,
                                 const void* data, long long data_ld,
                                 void* out, long long out_ld,
-                                long long n, void* stream) {
+                                long long n, int accumulate, void* stream) {
   if (masks == nullptr || R < 1 || R > kMaxRows || k < 1 || k > kMaxCols || n < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -237,7 +240,7 @@ extern "C" int gf_matmul_launch(const unsigned long long* masks, int R, int k,
     }
     kLaunch[kc - 1](grid, static_cast<cudaStream_t>(stream), cm, R,
                     static_cast<const uint8_t*>(data) + d0 * data_ld, data_ld,
-                    static_cast<uint8_t*>(out), out_ld, n, vec, d0 > 0);
+                    static_cast<uint8_t*>(out), out_ld, n, vec, accumulate != 0 || d0 > 0);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

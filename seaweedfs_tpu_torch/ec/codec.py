@@ -210,12 +210,13 @@ class CudaCodec(_TorchCodec):
         return torch.cuda.mem_get_info(self.device)[0]
 
     def matmul_device(self, matrix: np.ndarray, data_dev: torch.Tensor,
-                      out: "torch.Tensor | None" = None) -> torch.Tensor:
+                      out: "torch.Tensor | None" = None,
+                      accumulate: bool = False) -> torch.Tensor:
         """Device-resident matmul: ``data_dev`` (k, N) already on the device;
-        returns (R, N) there. Widths beyond ``chunk_bytes`` are split into
-        chunk-sized launches that write column slices of one output, so each
-        launch stays bounded whatever N is (codec.py:414-422 in the JAX
-        package).
+        returns (R, N) there (XORed into ``out`` with ``accumulate``). Widths
+        beyond ``chunk_bytes`` are split into chunk-sized launches that write
+        column slices of one output, so each launch stays bounded whatever N
+        is (codec.py:414-422 in the JAX package).
 
         The kernels run on the codec's compute stream, ordered after the
         caller's current stream, and the caller's stream is ordered after
@@ -229,7 +230,8 @@ class CudaCodec(_TorchCodec):
                 out = torch.empty((R, n), dtype=torch.uint8, device=self.device)
             for pos in range(0, n, self.chunk_bytes):
                 end = min(pos + self.chunk_bytes, n)
-                gf_matmul(matrix, data_dev[:, pos:end], out=out[:, pos:end])
+                gf_matmul(matrix, data_dev[:, pos:end], out=out[:, pos:end],
+                          accumulate=accumulate)
         # the allocator must not hand either buffer to another stream while
         # these kernels still use it
         data_dev.record_stream(self._compute)
@@ -283,8 +285,10 @@ class CpuCodec(_TorchCodec):
         return None
 
     def matmul_device(self, matrix: np.ndarray, data_dev: torch.Tensor,
-                      out: "torch.Tensor | None" = None) -> torch.Tensor:
-        return gf_matmul(np.ascontiguousarray(matrix, dtype=np.uint8), data_dev, out=out)
+                      out: "torch.Tensor | None" = None,
+                      accumulate: bool = False) -> torch.Tensor:
+        return gf_matmul(np.ascontiguousarray(matrix, dtype=np.uint8), data_dev, out=out,
+                         accumulate=accumulate)
 
     def record_ready(self) -> None:
         return None
@@ -300,12 +304,16 @@ class CpuCodec(_TorchCodec):
 
 
 def _codec_class(device: "str | torch.device") -> type:
+    if device == "mesh":
+        from .sharded import MeshCodec  # deferred: sharded imports this module
+
+        return MeshCodec
     kind = torch.device(device).type
     if kind == "cuda":
         return CudaCodec
     if kind == "cpu":
         return CpuCodec
-    raise ValueError(f"the port's codec runs on cuda or cpu, not {device}")
+    raise ValueError(f"the port's codec runs on cuda, cpu or mesh, not {device}")
 
 
 def get_codec(
@@ -316,5 +324,7 @@ def get_codec(
 ) -> Codec:
     """Codec factory. Runs on the GPU; raises RuntimeError when there is
     none. Only an explicit ``device="cpu"`` selects the plain PyTorch
-    version."""
+    version. ``device="mesh"`` runs over every local CUDA device
+    (``sharded.MeshCodec``; ``kwargs`` may name ``tp``, ``devices`` or a
+    ``mesh``)."""
     return _codec_class(device)(data_shards, parity_shards, device=device, **kwargs)

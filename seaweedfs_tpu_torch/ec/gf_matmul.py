@@ -93,7 +93,7 @@ def _load():
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                            ctypes.c_void_p, ctypes.c_longlong,
                            ctypes.c_void_p, ctypes.c_longlong,
-                           ctypes.c_longlong, ctypes.c_void_p]
+                           ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _launch = fn
     return _launch
@@ -142,11 +142,14 @@ def _check_rows(name: str, t: torch.Tensor) -> None:
 
 
 def gf_matmul(matrix: np.ndarray, data: torch.Tensor,
-              out: "torch.Tensor | None" = None) -> torch.Tensor:
+              out: "torch.Tensor | None" = None, accumulate: bool = False) -> torch.Tensor:
     """(R x k GF matrix) @ (k x n bytes) -> (R x n bytes), on data's device.
 
     ``matrix`` is a host uint8 np.ndarray, whatever the device of ``data``.
     ``data`` and ``out`` are uint8 with contiguous rows (see _check_rows).
+    With ``accumulate`` the product is XORed into ``out`` (which must be
+    given) instead of replacing it: GF(2^8) addition, so partial products
+    over disjoint slices of the contraction sum to the whole.
     On CUDA the kernels go on the current stream, one per CHUNK data rows,
     and each adds one to ``gf_matmul.launches`` (under a lock: any thread
     may launch)."""
@@ -157,6 +160,8 @@ def gf_matmul(matrix: np.ndarray, data: torch.Tensor,
         raise ValueError(f"shape mismatch: matrix {matrix.shape} @ data {tuple(data.shape)}")
     n = data.shape[1]
     if out is None:
+        if accumulate:
+            raise ValueError("accumulate needs an out to XOR into")
         out = torch.empty((R, n), dtype=torch.uint8, device=data.device)
     else:
         _check_rows("out", out)
@@ -164,6 +169,8 @@ def gf_matmul(matrix: np.ndarray, data: torch.Tensor,
             raise ValueError(f"out: want ({R}, {n}) on {data.device}, "
                              f"got {tuple(out.shape)} on {out.device}")
     if data.device.type == "cpu":
+        if accumulate:
+            return out.bitwise_xor_(gf_matmul_plain(matrix, data))
         return gf_matmul_plain(matrix, data, out=out)
     if data.device.type != "cuda":
         raise ValueError(f"gf_matmul runs on cuda or cpu tensors, not {data.device}")
@@ -176,7 +183,7 @@ def gf_matmul(matrix: np.ndarray, data: torch.Tensor,
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
         err = launch(masks.ctypes.data, R, k, data.data_ptr(), data.stride(0),
-                     out.data_ptr(), out.stride(0), n, stream)
+                     out.data_ptr(), out.stride(0), n, int(accumulate), stream)
     if err != 0:
         raise RuntimeError(f"gf_matmul launch failed: CUDA error {err}")
     with _count_lock:

@@ -21,6 +21,6 @@ def make_client(filers: "str | list[str]", retry_reads: bool = True) -> FilerCli
     if len(filers) != 1:
         raise ValueError(
             f"{len(filers)} filer addresses given: the multi-filer ring "
-            "(RingFilerClient) is not ported yet (ROADMAP Queue A item 4); "
+            "(RingFilerClient) is not ported yet (ROADMAP Queue A item 1); "
             "give one filer")
     return FilerClient(filers[0], retry_reads=retry_reads)

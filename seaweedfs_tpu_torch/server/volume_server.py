@@ -60,10 +60,15 @@ second a volume, and hashes EC shards against the .vif sums; what it finds
 rides the heartbeat to the master.
 
 EC work runs through the store's codec: the hand-written CUDA kernel unless
-the server was started with ``ec_backend="cpu"``. Without a card the first
-EC request answers 500 naming the missing device and writes nothing.
-``/_query`` runs its scan plan on the same device, and without a card
-answers 500 naming it too.
+the server was started with ``ec_backend="cpu"``; ``"mesh"`` runs it on
+every local card (``ec/sharded.py``). Without a card the first EC request
+answers 500 naming the missing device and writes nothing. ``/_query`` runs
+its scan plan on the same device, and without a card answers 500 naming it
+too.
+
+With ``SWEED_MESH=1`` the server joins a ``torch.distributed`` mesh at
+``start()``, before its first heartbeat, and reports the mesh in every beat
+(``mesh_info``), so the master's fleet scheduler prefers it.
 
 Nothing here starts at import: ``start()`` binds the port and starts the
 heartbeat (and scrub) thread, ``stop()`` ends them.
@@ -136,6 +141,9 @@ from .status_ui import render_status_page
 # server a moment before and has not bound yet. SWEED_TURBO_BACKEND_HOST
 # overrides it.
 TURBO_BACKEND_HOST = os.environ.get("SWEED_TURBO_BACKEND_HOST", "127.0.0.2")
+# the longest a SWEED_MESH rendezvous may hold start(): torch.distributed's
+# own default is 30 minutes
+MESH_INIT_TIMEOUT_S = 60.0
 
 
 def _q_req_uint(q: dict, key: str) -> int:
@@ -228,6 +236,10 @@ class VolumeServer:
         self._stop = threading.Event()
         self._hb_thread: Optional[threading.Thread] = None
         self._scrub_thread: Optional[threading.Thread] = None
+        # torch.distributed coordinates (SWEED_MESH=1), sent in every
+        # heartbeat so the master's fleet scheduler sees the membership
+        self.mesh_info: Optional[dict] = None
+        self._mesh_group = False  # this server made the default process group
 
     # -- remote EC shard read through the master's shard lookup -------------
     def _remote_shard_reader(self, vid, shard_id, offset, size):
@@ -557,7 +569,7 @@ class VolumeServer:
             # this server's own scans: the filer's pushdown is told apart by
             # them where several servers share a process (and its counters)
             self.queries_served += 1
-        return execute_request(data, req, backend=self.store.ec_backend)
+        return execute_request(data, req, backend=self.store.device_backend)
 
     def _h_post(self, h, path, q, body):
         if not self.guard.allowed(h.client_address[0]):
@@ -1373,6 +1385,8 @@ class VolumeServer:
         hb["data_center"] = self.data_center
         hb["rack"] = self.rack
         hb["max_volume_count"] = self.max_volume_count
+        if self.mesh_info is not None:
+            hb["mesh"] = self.mesh_info
         ack = http_json("POST", f"http://{self.master_url}/cluster/heartbeat", hb,
                         timeout=10)
         # follow the leader the master announces
@@ -1439,8 +1453,51 @@ class VolumeServer:
             i = -1
         self.master_url = self.master_seeds[(i + 1) % len(self.master_seeds)]
 
+    def _init_mesh(self) -> None:
+        """SWEED_MESH=1: join the fleet's ``torch.distributed`` mesh before
+        the first heartbeat. Coordinates come from the environment:
+
+            SWEED_MESH_COORDINATOR    host:port of rank 0's rendezvous (empty:
+                                      this node is a 1-process mesh, and no
+                                      process group is made)
+            SWEED_MESH_PROCESS_ID     this server's rank
+            SWEED_MESH_NUM_PROCESSES  the fleet's size
+
+        The group's backend is NCCL, or gloo under ``-ec.backend cpu``; the
+        rendezvous waits at most MESH_INIT_TIMEOUT_S. A failure is
+        survivable: the server serves, reports initialized=false, and the
+        fleet scheduler stops preferring it for mesh work."""
+        coordinator = os.environ.get("SWEED_MESH_COORDINATOR", "")
+        num = tolerant_uint(os.environ.get("SWEED_MESH_NUM_PROCESSES"), 1) or 1
+        pid = tolerant_uint(os.environ.get("SWEED_MESH_PROCESS_ID"), 0) or 0
+        self.mesh_info = {
+            "coordinator": coordinator,
+            "process_id": pid,
+            "num_processes": num,
+            "initialized": False,
+        }
+        try:
+            if coordinator and num > 1:
+                from ..ec.sharded import init_mesh
+
+                backend = "gloo" if self.store.ec_backend == "cpu" else "nccl"
+                init_mesh(coordinator, num, pid, backend, timeout=MESH_INIT_TIMEOUT_S)
+                self._mesh_group = True
+                self.mesh_info["backend"] = backend
+            import torch
+
+            self.mesh_info["local_devices"] = (
+                1 if self.store.ec_backend == "cpu" else torch.cuda.device_count())
+            self.mesh_info["initialized"] = True
+            glog.info("mesh member up: process %d/%d (coordinator %s)",
+                      pid, num, coordinator or "<self>")
+        except Exception as e:  # noqa: BLE001 — degraded, not dead
+            glog.warning("torch.distributed init failed: %s", e)
+
     # -- lifecycle -----------------------------------------------------------
     def start(self) -> "VolumeServer":
+        if os.environ.get("SWEED_MESH") == "1" and self.mesh_info is None:
+            self._init_mesh()
         vs = self
 
         class Handler(JsonHandler):
@@ -1577,4 +1634,9 @@ class VolumeServer:
         self.store.close()
         self.store.turbo_engine = None
         self.turbo = None
+        if self._mesh_group:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+            self._mesh_group = False
         glog.info("volume server %s:%d stopped", self.host, self.port)

@@ -272,7 +272,7 @@ def register_fleet_metrics(registry: Optional[Registry] = None) -> None:
         return fleet_stats().get(key, 0)
 
     _gauges(reg, snap, (
-        ("sweed_fleet_members", "volume servers reporting jax.distributed mesh coordinates",
+        ("sweed_fleet_members", "volume servers reporting torch.distributed mesh coordinates",
          "members"),
         ("sweed_fleet_jobs_scheduled_total", "EC jobs accepted by the fleet scheduler",
          "jobs_scheduled"),

@@ -53,6 +53,9 @@ class NeedleMapper:
     def close(self) -> None:
         pass
 
+    def destroy(self) -> None:
+        """Close and remove the map's own files (not the .idx)."""
+
 
 class IdxLogMixin:
     """The .idx append log + mapMetric counters shared by the map kinds."""
@@ -83,14 +86,30 @@ class IdxLogMixin:
     def deleted_count(self) -> int:
         return self.deletion_counter
 
+    def _fileno(self) -> Optional[int]:
+        """The .idx log's descriptor; None for an in-memory log
+        (``io.BytesIO``)."""
+        try:
+            return self._index_file.fileno()
+        except (AttributeError, io.UnsupportedOperation):
+            return None
+
     def index_file_size(self) -> int:
         """Bytes in the .idx log: compaction's snapshot point and the end of
-        its replay."""
-        return os.fstat(self._index_file.fileno()).st_size
+        its replay (an in-memory log is measured by seeking)."""
+        fd = self._fileno()
+        if fd is not None:
+            return os.fstat(fd).st_size
+        self._index_file.seek(0, io.SEEK_END)
+        return self._index_file.tell()
 
     def sync(self) -> None:
+        """Flush and fsync the .idx log; a failed fsync raises, so a write
+        that asked for durability fails with it."""
         self._index_file.flush()
-        os.fsync(self._index_file.fileno())
+        fd = self._fileno()
+        if fd is not None:
+            os.fsync(fd)
 
     def close(self) -> None:
         self._index_file.close()

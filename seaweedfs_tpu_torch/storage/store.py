@@ -175,8 +175,11 @@ class Store:
         for loc in self.locations:
             loc.load_existing_volumes()
         # "cuda" (the default) runs the hand-written kernel and raises
-        # without a card; only "cpu" selects the plain version
+        # without a card; "mesh" runs it on every local card
+        # (ec/sharded.py); only "cpu" selects the plain version
         self.ec_backend = ec_backend or "cuda"
+        if self.ec_backend not in ("cuda", "cpu", "mesh"):
+            raise ValueError(f"ec backend {self.ec_backend!r}: want cuda, cpu or mesh")
         self._ec_codec: Optional[Codec] = None
         self._codec_lock = threading.Lock()
         # the native data plane (storage/turbo.py), set by the volume server
@@ -199,6 +202,12 @@ class Store:
         self.corrupt_shards: dict[int, set[int]] = {}
         self._lock = threading.RLock()
         heat.register_store(self)
+
+    @property
+    def device_backend(self) -> str:
+        """The device the store's other device work (a ``/_query`` scan)
+        runs on: the CPU under the ``cpu`` codec, else the card."""
+        return "cpu" if self.ec_backend == "cpu" else "cuda"
 
     @property
     def ec_codec(self) -> Codec:

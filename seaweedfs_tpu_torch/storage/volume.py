@@ -15,6 +15,10 @@ Mirrors `weed/storage/volume.go` + `volume_read_write.go` +
 
 One lock per volume; writes are synchronous and ``sync()`` is explicit.
 
+The needle map kind (``-index``): ``memory``, ``dense``, ``sqlite`` (a
+``.ldb`` beside the volume), ``mmap`` (a mapped ``.mdx``) or ``sorted``
+(a ``.sdx`` made from the .idx at load; the volume is then read-only).
+
 ``attach_turbo`` hands a volume's data plane to the native engine
 (``storage/turbo.py``): while attached the engine is the single writer of
 the .dat/.idx, lookups and counters go through it, and the Python write and
@@ -55,7 +59,13 @@ from .needle import (
     parse_needle_header,
 )
 from .needle_map import CompactNeedleMap
-from .needle_map_dense import DenseNeedleMap
+from .needle_map_dense import (
+    DenseNeedleMap,
+    MmapNeedleMap,
+    SortedFileNeedleMap,
+    SqliteNeedleMap,
+    write_sorted_index,
+)
 from .replica_placement import ReplicaPlacement
 from .super_block import SUPER_BLOCK_SIZE, SuperBlock
 from .ttl import EMPTY_TTL, TTL
@@ -67,9 +77,8 @@ from .types import (
     size_is_valid,
 )
 
-# the needle map kinds `-index` offers; the reference's others are not ported
-NEEDLE_MAP_KINDS = {"dense": DenseNeedleMap, "memory": CompactNeedleMap}
-UNPORTED_NEEDLE_MAP_KINDS = ("sqlite", "sorted", "mmap")
+# the needle map kinds `-index` offers
+NEEDLE_MAP_KINDS = ("memory", "dense", "sqlite", "sorted", "mmap")
 
 
 class NotFoundError(Exception):
@@ -92,11 +101,9 @@ def volume_file_name(directory: str, collection: str, vid: int) -> str:
 
 
 def check_needle_map_kind(kind: str) -> None:
-    if kind in UNPORTED_NEEDLE_MAP_KINDS:
-        raise ValueError(f"needle map kind {kind!r} is not ported yet "
-                         f"(the port has {', '.join(NEEDLE_MAP_KINDS)})")
     if kind not in NEEDLE_MAP_KINDS:
-        raise ValueError(f"unknown needle map kind {kind!r}")
+        raise ValueError(f"unknown needle map kind {kind!r} "
+                         f"(want one of {', '.join(NEEDLE_MAP_KINDS)})")
 
 
 class Volume:
@@ -175,7 +182,23 @@ class Volume:
             raise
 
     def _load_needle_map(self, idx_file):
-        return NEEDLE_MAP_KINDS[self.needle_map_kind].load(idx_file, self.offset_size)
+        kind, base = self.needle_map_kind, self.file_name()
+        if kind == "memory":
+            return CompactNeedleMap.load(idx_file, self.offset_size)
+        if kind == "dense":
+            return DenseNeedleMap.load(idx_file, self.offset_size)
+        if kind == "sqlite":
+            return SqliteNeedleMap.load(idx_file, base + ".ldb", self.offset_size)
+        if kind == "mmap":
+            return MmapNeedleMap.load(idx_file, base + ".mdx", self.offset_size)
+        # sorted (needle_map_sorted_file.go): make or refresh the .sdx from
+        # the .idx, then binary-search it on disk; the volume is sealed
+        sdx, idxp = base + ".sdx", base + ".idx"
+        if not os.path.exists(sdx) or os.path.getmtime(sdx) < os.path.getmtime(idxp):
+            with open(idxp, "rb") as f:
+                write_sorted_index(f.read(), sdx, self.offset_size)
+        self.read_only = True
+        return SortedFileNeedleMap(sdx, self.offset_size, idx_file)
 
     # -- native turbo attach/detach ------------------------------------------
     @property
@@ -191,10 +214,14 @@ class Volume:
 
     def attach_turbo(self, engine, writable_http: bool = True) -> bool:
         """Hand the data plane to the native engine. Refused for volumes the
-        engine cannot own (a non-disk backend, a volume-level TTL the native
-        writer would not inherit)."""
+        engine cannot own (a sorted or mmap needle map, a non-disk backend,
+        a volume-level TTL the native writer would not inherit)."""
         if self.turbo is not None:
             return True
+        if self.needle_map_kind in ("sorted", "mmap"):
+            # sorted is sealed; mmap's base is an immutable mapping the
+            # engine cannot own as its writable .idx-backed map
+            return False
         if not isinstance(self.data_backend, DiskFile):
             return False
         if self.ttl != EMPTY_TTL:
@@ -811,7 +838,8 @@ class Volume:
             base = self.file_name()
             # .tier too: a deleted tiered volume must not load again at the
             # next start (the JAX package's destroy leaves its descriptor)
-            for ext in (".dat", ".tier", ".idx", ".vif", ".cpd", ".cpx", ".note"):
+            for ext in (".dat", ".tier", ".idx", ".vif", ".sdx", ".cpd", ".cpx", ".note",
+                        ".ldb", ".mdx", ".mdx.meta"):
                 try:
                     os.remove(base + ext)
                 except FileNotFoundError:

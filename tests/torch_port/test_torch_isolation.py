@@ -60,7 +60,8 @@ def test_port_imports_nothing_of_jax():
                  "util.racecheck", "util.deadline", "stats.trace", "security.tls",
                  "filer.client", "filer.ring", "s3api", "s3api.auth",
                  "s3api.policy_engine", "s3api.post_policy", "s3api.s3api_server",
-                 "client", "client.fs"):
+                 "client", "client.fs", "ec.sharded", "ec.mesh_dryrun",
+                 "storage.needle_map_dense"):
         assert "seaweedfs_tpu_torch." + name in walked, name
     assert lines["BAD"] == "[]", r.stdout
     assert lines["NEW_THREADS"] == "0", r.stdout

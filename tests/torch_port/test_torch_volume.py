@@ -205,9 +205,49 @@ def test_ttl_volume_and_destroy(tmp_path):
 
 @pytest.mark.parametrize("kind", ["sqlite", "sorted", "mmap"])
 def test_unported_needle_maps_say_so(tmp_path, kind):
-    with pytest.raises(ValueError, match="not ported yet"):
-        PVolume(str(tmp_path), "", VID, needle_map_kind=kind)
+    """A kind that neither package serves (these kinds are ported now, so
+    the kind with a suffix) is refused by name and leaves nothing behind."""
+    with pytest.raises(ValueError, match="unknown needle map kind"):
+        PVolume(str(tmp_path), "", VID, needle_map_kind=kind + "x")
     assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("kind", ["sqlite", "sorted", "mmap"])
+def test_every_needle_map_kind_loads(tmp_path, kind):
+    """Each kind loads: the volume serves from its own index file
+    (test_torch_needle_map_kinds.py holds the files against the JAX
+    package's), and destroy removes it."""
+    v = PVolume(str(tmp_path), "", VID, needle_map_kind=kind)
+    assert v.read_only == (kind == "sorted")
+    ext = {"sqlite": ".ldb", "sorted": ".sdx", "mmap": ".mdx"}[kind]
+    assert os.path.exists(v.file_name() + ext)
+    v.destroy()
+    assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("kind", ["memory", "dense", "sqlite", "mmap"])
+def test_a_failed_idx_fsync_fails_the_write(tmp_path, monkeypatch, kind):
+    """A write that asks for fsync is not acknowledged when the .idx fsync
+    fails (EIO): the error reaches the caller, whatever the map kind."""
+    import errno
+
+    v = PVolume(str(tmp_path), "", VID, needle_map_kind=kind)
+    try:
+        idx_fd = v.nm._index_file.fileno()
+        real = os.fsync
+
+        def fsync(fd):
+            if fd == idx_fd:
+                raise OSError(errno.EIO, "injected EIO on the .idx")
+            real(fd)
+
+        monkeypatch.setattr(os, "fsync", fsync)
+        with pytest.raises(OSError, match="injected EIO"):
+            v.write_needle(pneedle.Needle(cookie=9, id=1, data=b"x" * 100), fsync=True)
+        v.write_needle(pneedle.Needle(cookie=9, id=2, data=b"y" * 100))  # no fsync asked
+        monkeypatch.setattr(os, "fsync", real)
+    finally:
+        v.close()
 
 
 def test_key_ordered_index_keeps_every_record(tmp_path):
