@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's erasure-coding, query, cluster, filer, S3 and mesh
-paths on one NVIDIA GPU.
+"""Drive the PyTorch port's erasure-coding, query, cluster, filer, S3, mesh and
+filer-fleet paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -169,8 +169,31 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    seals each volume on its member, every needle reads back; the sqlite
    server restarts on ``-index sorted`` over a sealed plain volume and every
    needle of it reads back. Each step must launch the kernel.
+15. the filer fleet: the port's master, four port volume servers (CUDA
+   backend, the engine on), three port filers as one ring (``ring_peers``,
+   the default shard depth 2, 32 MiB chunks; stores sqlite, redis over an
+   in-process ``MiniRedisServer`` and ``GenericSqlStore("sqlite3")``; the
+   first publishing its meta events to a file queue), the port's gateway
+   over ``-filer A,B,C`` and a fourth filer outside the ring as the
+   ``filer.sync`` target. a. ``RingFilerClient`` writes 1 024 files of
+   phase 6's mix under 16 shard roots ``/b15/dNN`` from 8 threads, and
+   phase 7's schema as 32, 32 and 96 MiB CSVs in buckets owned by three
+   members; b. a plain ``FilerClient`` on one member follows 64 307s,
+   has 64 POSTs proxied, and lists the spine ``/b15`` merged across the
+   members, whose shares add up to every file; c. 128 S3 objects PUT, GET
+   and listed by 100, and the probe's SelectObjectContent on a 32 and the
+   96 MiB CSV, each scanned on the card by its owner filer, rows equal to
+   the cpu backend's; d. ``/_reshard`` moves the largest shard root to
+   another member (``tree_hash`` equal, no source entry, no marker left,
+   every file read back); e. ``FilerSync`` drains the first member's share
+   into the fifth filer, byte for byte, then one write's lag; the file
+   queue holds one event per mutation; f. ``ec.encode`` seals the
+   collection (4/4/3/3), the server with shards 1, 5, 9, 13 stops, and a
+   seeded 64 files read back through the ring and the sealed 32 MiB CSV's
+   Select, through the kernel. The seal, the degraded reads and the sealed
+   Select must launch the kernel.
 
-Phases 6, 8, 9, 10, 12 and 13 run with the JAX package's default serving stack: the
+Phases 6, 8, 9, 10, 12, 13 and 15 run with the JAX package's default serving stack: the
 native turbo engine (built from ``seaweedfs_tpu_torch/csrc/turbo.cpp``)
 owns each volume server's public port, the asyncio core serves the rest.
 Each of them fails if a volume server in it started without the engine, and
@@ -182,8 +205,8 @@ servers of phase 8 share the card so, and the fleet scheduler runs up to
 four generate jobs together); each result must equal the plain version's.
 
 Every phase prints one JSON line with its numbers and kernel launches.
-Phases 2-14 are the main path: the launch counts are zeroed before phase 2
-and read after phase 14 (phase 14's child ranks count in their own
+Phases 2-15 are the main path: the launch counts are zeroed before phase 2
+and read after phase 15 (phase 14's child ranks count in their own
 processes and report theirs), and every phase must have launched the
 kernel. The
 line before last lists each kernel with its launches, error and times; the
@@ -3961,6 +3984,546 @@ def phase14(state) -> None:
         raise SystemExit(f"phase 14: no kernel launch in {idle}")
 
 
+RING_COL = "filer15"  # the fleet's collection
+SYNC_COL = "sync15"  # the filer.sync target's own
+RING_SMALL = 1024  # files of 1 KiB-1 MiB, log-uniform (phase 6's mix)
+RING_DIRS = 16  # shard roots /b15/d00 ... /b15/d15
+RING_CSV = (32 * MiB, 96 * MiB)  # two of the first size, one of the second
+RING_DUMB = 64  # GETs and POSTs of a plain FilerClient through a non-owner
+RING_PAGE = 50  # spine listing page size
+RING_S3_OBJECTS = 128
+RING_S3_PAGE = 100  # ListObjectsV2 max-keys
+RING_SEALED_READS = 64  # small files read back after the seal (a seeded sample)
+RING_THREADS = 8
+
+
+def _ring_walk(url: str, root: str) -> dict:
+    """{path: entry} of every file under ``root`` that the filer at ``url``
+    holds itself (``noRedirect``: a fleet member's own share)."""
+    from seaweedfs_tpu_torch.filer.reshard import _InternalFilerClient
+
+    c, out, stack = _InternalFilerClient(url), {}, [root]
+    while stack:
+        d = stack.pop()
+        cursor = ""
+        while True:
+            page = c.list(d, start_after=cursor, limit=1000)
+            for e in page:
+                p = f"{d.rstrip('/')}/{e['name']}"
+                if e.get("is_directory"):
+                    stack.append(p)
+                else:
+                    out[p] = e
+            if len(page) < 1000:
+                break
+            cursor = page[-1]["name"]
+    return out
+
+
+def phase15(state) -> None:
+    """The filer fleet: the port's master, four port volume servers (CUDA
+    backend, ``weed volume`` defaults, the engine on), three port filers as
+    one ring (the default shard depth 2, 32 MiB chunks, collection
+    ``filer15`` on four volumes; stores: A sqlite, B redis over an in-process
+    ``MiniRedisServer``, C ``GenericSqlStore("sqlite3")``; A publishes its
+    meta events to a file queue from ``notification.toml``'s keys), the
+    port's S3 gateway over ``-filer A,B,C``, and a fourth port filer E
+    outside the ring (its own sqlite store and collection) as the
+    ``filer.sync`` target, in one process. a. Through ``RingFilerClient``
+    from 8 threads: 1 024 files (1 KiB-1 MiB) under the 16 shard roots
+    ``/b15/d00`` ... ``/d15``, and phase 7's schema as two 32 MiB CSVs and
+    one 96 MiB CSV in three buckets owned by three members. b. A plain
+    ``FilerClient`` on one member: 64 GETs of files it does not own (307 to
+    the owner), 64 POSTs it proxies, the spine ``/b15`` listed by pages of
+    50 (merged across the members); the members' shares add up to every
+    file written. c. 128 S3 objects PUT and GET, ListObjectsV2 by 100, and
+    SelectObjectContent with phase 7's probe on a 32 MiB and the 96 MiB
+    CSV, each run by its owner filer's scan on the card, rows equal to the
+    cpu backend's. d. ``POST /_reshard`` moves the largest shard root to
+    another member: the target's ``tree_hash`` equals the source's before,
+    the source holds none of it, the target no marker, and every file reads
+    back from the target. e. ``FilerSync(A, E)`` active-passive drains A's
+    share of ``/b15``: every file A holds is on E with its bytes; one more
+    write's lag to E; the file queue holds one event per mutation on A.
+    f. ``ec.encode`` of ``filer15``'s volumes (4/4/3/3), the server with
+    shards 1, 5, 9, 13 of the first stops, a seeded 64 small files read
+    back through ``RingFilerClient`` and the sealed 32 MiB CSV's Select
+    through the gateway, through gf_matmul."""
+    from seaweedfs_tpu_torch.__main__ import _filer_notifications
+    from seaweedfs_tpu_torch.filer.abstract_sql import GenericSqlStore
+    from seaweedfs_tpu_torch.filer.client import FilerClient
+    from seaweedfs_tpu_torch.filer.redis_store import RedisStore
+    from seaweedfs_tpu_torch.filer.reshard import tree_hash
+    from seaweedfs_tpu_torch.filer.ring import RingFilerClient
+    from seaweedfs_tpu_torch.replication import FilerSync
+    from seaweedfs_tpu_torch.replication.notification import FileQueue
+    from seaweedfs_tpu_torch.s3api import S3ApiServer
+    from seaweedfs_tpu_torch.s3api.s3_client import S3Client
+    from seaweedfs_tpu_torch.s3api.xml_util import find_text, findall, parse_xml
+    from seaweedfs_tpu_torch.util.mini_redis import MiniRedisServer
+
+    t_start = time.perf_counter()
+    n_servers, threads = 4, RING_THREADS
+    dev = FILER_QUERY_BACKEND or "cuda"
+    out: dict = {"phase": 15, "servers": n_servers, "filers": 3, "collection": RING_COL,
+                 "chunk_MiB": FILER_CHUNK / MiB, "client_threads": threads}
+    steps: dict = {}
+    master = MasterServer(host="127.0.0.1", port=_free_port(), node_timeout=3.0).start()
+    servers, stopped = [], set()
+    for i in range(n_servers):
+        servers.append(VolumeServer([os.path.join(WORK, f"15srv{i}")], host="127.0.0.1",
+                                    port=_free_port(), master_url=master.url,
+                                    pulse_seconds=0.5, ec_backend=EC_BACKEND))
+    by_url = {f"127.0.0.1:{vs.port}": vs for vs in servers}
+    eng = _Engines(15, servers)
+    work = os.path.join(WORK, "15fleet")
+    os.makedirs(work)
+    redis = MiniRedisServer().start()
+    fleet: dict = {}  # url -> FilerServer
+    filer_e = api = sync_bg = None
+    env = CommandEnv(master.url)
+    selects: collections.Counter = collections.Counter()
+
+    def step(name: str, fn):
+        l0, e0, t0 = gm.gf_matmul.launches, TorchKernels.evaluations[dev], time.perf_counter()
+        res = fn()
+        steps[name] = {"s": time.perf_counter() - t0, "launches": gm.gf_matmul.launches - l0,
+                       "scan_evaluations": TorchKernels.evaluations[dev] - e0}
+        emit({"phase": 15, "step": name, **steps[name], **(res or {})})
+        return res
+
+    def counting(url: str, fn):
+        def h_select(h, path, q, body):
+            selects[url] += 1
+            return fn(h, path, q, body)
+        return h_select
+
+    try:
+        for vs in servers:
+            vs.start()
+        eng.check()
+        if not _until(lambda: len(master.master.topo.data_nodes()) == n_servers):
+            raise SystemExit("phase 15: the volume servers did not register")
+        grown = _admin(master.url, f"/vol/grow?collection={RING_COL}&count=4&replication=000")
+        if grown != {"count": 4}:
+            raise SystemExit(f"phase 15: /vol/grow answered {grown}")
+        ports = [_free_port() for _ in range(3)]
+        ring_urls = [f"127.0.0.1:{p}" for p in ports]
+        stores = {  # one store a member, so that the three run under load
+            "sqlite": None,
+            "redis": RedisStore(redis.address),
+            "sql": GenericSqlStore("sqlite3", database=os.path.join(work, "c.sqlite"),
+                                   check_same_thread=False),
+        }
+        for (kind, store), port in zip(stores.items(), ports):
+            fs = FilerServer(host="127.0.0.1", port=port, master_url=master.url,
+                             chunk_size=FILER_CHUNK, db_path=os.path.join(work, f"{kind}.db"),
+                             store=store, meta_log_dir=os.path.join(work, f"{kind}.metalog"),
+                             collection=RING_COL, replication="000", read_window=4,
+                             write_window=4, query_backend=FILER_QUERY_BACKEND,
+                             ring_peers=ring_urls)
+            fs._h_select = counting(fs.url, fs._h_select)
+            fleet[fs.url] = fs.start()
+        a_url = ring_urls[0]
+        queue_path = os.path.join(work, "a.events.jsonl")
+        # notification.toml's [notification.file], by its WEED_ keys
+        with _env(WEED_NOTIFICATION_FILE_ENABLED="true",
+                  WEED_NOTIFICATION_FILE_PATH=queue_path):
+            _filer_notifications(fleet[a_url])
+        filer_e = FilerServer(host="127.0.0.1", port=_free_port(), master_url=master.url,
+                              chunk_size=FILER_CHUNK, db_path=os.path.join(work, "e.db"),
+                              collection=SYNC_COL, replication="000",
+                              query_backend=FILER_QUERY_BACKEND).start()
+        api = S3ApiServer(host="127.0.0.1", port=_free_port(),
+                          filer_url=",".join(ring_urls)).start()
+        s3 = S3Client(f"http://{api.url}", "", "")
+        rc = RingFilerClient(ring_urls)
+        ring = rc.ring
+        out["ring"] = {"members": ring.members(), "depth": ring.depth,
+                       "stores": dict(zip(ring_urls, stores)), "gateway": api.url,
+                       "sync_target": filer_e.url}
+
+        # the data, from the seed; the cpu backend's Select rows meanwhile
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(15)
+        files = {}
+        for i in range(RING_SMALL):
+            size = int(np.exp(rng.uniform(np.log(1024), np.log(MiB))))
+            files[f"/b15/d{i % RING_DIRS:02d}/f{i:04d}.bin"] = rng.bytes(size)
+        small = dict(files)
+        owners_seen, buckets = set(), []
+        for i in range(64):  # three CSV buckets owned by three members
+            b = f"csv15-{i}"
+            if ring.owner(f"/buckets/{b}") not in owners_seen:
+                owners_seen.add(ring.owner(f"/buckets/{b}"))
+                buckets.append(b)
+            if len(buckets) == 3:
+                break
+        buckets += [f"csv15-x{i}" for i in range(3 - len(buckets))]
+        one_size, three_size = RING_CSV
+        csvs = {f"/buckets/{buckets[0]}/one0.csv": query_csv(150, one_size),
+                f"/buckets/{buckets[1]}/one1.csv": query_csv(151, one_size),
+                f"/buckets/{buckets[2]}/three.csv": query_csv(152, three_size)}
+        probe = {"input": "csv", "sql": FILER_PROBE_SQL}
+        pool = concurrent.futures.ThreadPoolExecutor(2)
+        want_rows = {p: pool.submit(execute_request, csvs[p], probe, backend="cpu")
+                     for p in (f"/buckets/{buckets[0]}/one0.csv",
+                               f"/buckets/{buckets[2]}/three.csv")}
+        pool.shutdown(wait=False)
+        out["data_gen_s"] = time.perf_counter() - t0
+        for b in ["s15", *buckets]:
+            status, body, _ = s3.create_bucket(b)
+            if status != 200:
+                raise SystemExit(f"phase 15: CreateBucket {b} answered {status}: {body[:200]!r}")
+
+        # a. ring writes
+        def ring_writes() -> dict:
+            ms, errors = [], []
+
+            def put(path: str) -> None:
+                t0 = time.perf_counter()
+                try:
+                    rc.put_object(path, files[path])
+                except Exception as e:  # noqa: BLE001 — every failure is reported below
+                    errors.append((path, repr(e)))
+                ms.append((time.perf_counter() - t0) * 1e3)
+
+            sec = _parallel(put, list(small), threads)
+            if errors:
+                raise SystemExit(f"phase 15: ring writes failed: {errors[:5]}")
+            nbytes = sum(map(len, small.values()))
+            per_member = collections.Counter(ring.owner(p) for p in small)
+            t0 = time.perf_counter()
+            csv_chunks = {}
+            for path, data in csvs.items():
+                csv_chunks[path] = rc.put_object(path, data)["chunks"]
+            csv_s = time.perf_counter() - t0
+            files.update(csvs)
+            want_chunks = {p: -(-len(d) // FILER_CHUNK) for p, d in csvs.items()}
+            if csv_chunks != want_chunks:
+                raise SystemExit(f"phase 15: CSV chunks {csv_chunks}, want {want_chunks}")
+            return {"files": len(small), "bytes": nbytes, "write_s": sec,
+                    "MBps": nbytes / sec / 1e6,
+                    "write_ms_p50": _pct(ms, 50), "write_ms_p99": _pct(ms, 99),
+                    "files_per_member": {u: per_member[u] for u in ring_urls},
+                    "csv": {p: ring.owner(p) for p in csvs}, "csv_s": csv_s,
+                    "csv_MBps": sum(map(len, csvs.values())) / csv_s / 1e6}
+
+        step("a_ring_writes", ring_writes)
+        if len({ring.owner(p) for p in small}) < 2:
+            raise SystemExit("phase 15: the shard roots did not spread over the members")
+
+        # b. a client that does not know the ring
+        def plain_client() -> dict:
+            dumb_url = a_url
+            dumb = FilerClient(dumb_url)
+            rr = np.random.default_rng(1515)
+            foreign = [p for p in small if ring.owner(p) != dumb_url]
+            gets = [foreign[int(i)] for i in rr.choice(len(foreign), RING_DUMB, replace=False)]
+            get_ms, post_ms, bad = [], [], []
+            for p in gets:
+                t0 = time.perf_counter()
+                status, data, _ = dumb.get_object(p)
+                get_ms.append((time.perf_counter() - t0) * 1e3)
+                if status != 200 or data != files[p]:
+                    bad.append(("GET", p, status))
+            foreign_dirs = sorted({p.rsplit("/", 1)[0] for p in foreign})
+            for i in range(RING_DUMB):
+                p = f"{foreign_dirs[i % len(foreign_dirs)]}/posted{i:03d}.bin"
+                body = rr.bytes(int(rr.integers(1024, 64 * 1024)))
+                status, resp, sec = _filer_call(dumb_url, "POST", p, body)
+                post_ms.append(sec * 1e3)
+                owner = ring.owner(p)
+                if status != 201 or _filer_call(owner, "GET", f"{p}?noRedirect=1")[1] != body \
+                        or _filer_call(dumb_url, "GET", f"{p}?noRedirect=1")[0] != 404:
+                    bad.append(("POST", p, status))
+                files[p] = small[p] = body
+            list_ms, names, last = [], [], ""
+            while True:
+                status, body, sec = _filer_call(
+                    dumb_url, "GET", f"/b15/?limit={RING_PAGE}&lastFileName={last}")
+                list_ms.append(sec * 1e3)
+                page = json.loads(body)["entries"]
+                names += [e["name"] for e in page]
+                if len(page) < RING_PAGE:
+                    break
+                last = page[-1]["name"]
+            if bad or names != [f"d{i:02d}" for i in range(RING_DIRS)]:
+                raise SystemExit(f"phase 15: the plain client got {bad[:5]}, lists {names}")
+            shares = {u: _ring_walk(u, "/b15") for u in ring_urls}
+            held = [p for s in shares.values() for p in s]
+            ring_files = sorted(p for p in files if p.startswith("/b15/"))
+            if sorted(held) != ring_files:
+                raise SystemExit(f"phase 15: the members hold {len(held)} files under /b15, "
+                                 f"{len(set(held))} distinct, want {len(ring_files)}")
+            return {"get_ms_p50": _pct(get_ms, 50), "get_ms_p99": _pct(get_ms, 99),
+                    "post_ms_p50": _pct(post_ms, 50), "post_ms_p99": _pct(post_ms, 99),
+                    "list_pages": len(list_ms), "list_ms_p50": _pct(list_ms, 50),
+                    "list_ms_p99": _pct(list_ms, 99),
+                    "members": {u: {"files": len(s), "tree_hash": tree_hash(u, "/b15")[:16]}
+                                for u, s in shares.items()},
+                    "files": len(held)}
+
+        step("b_plain_client", plain_client)
+
+        # c. S3 over the ring: objects, listing, Select on the owners' cards
+        def s3_ring() -> dict:
+            rr = np.random.default_rng(15015)
+            objs = {f"o/{i % 8}/k{i:03d}.bin": rr.bytes(int(np.exp(rr.uniform(
+                np.log(1024), np.log(MiB))))) for i in range(RING_S3_OBJECTS)}
+            put_ms, get_ms, bad = [], [], []
+
+            def put(key: str) -> None:
+                t0 = time.perf_counter()
+                status, body, _ = s3.put_object("s15", key, objs[key])
+                put_ms.append((time.perf_counter() - t0) * 1e3)
+                if status != 200:
+                    bad.append(("PUT", key, status))
+
+            def get(key: str) -> None:
+                t0 = time.perf_counter()
+                status, data, _ = s3.get_object("s15", key)
+                get_ms.append((time.perf_counter() - t0) * 1e3)
+                if status != 200 or data != objs[key]:
+                    bad.append(("GET", key, status))
+
+            put_s = _parallel(put, list(objs), threads)
+            get_s = _parallel(get, list(objs), threads)
+            listed, token, pages = [], "", 0
+            while True:
+                q = {"max-keys": str(RING_S3_PAGE),
+                     **({"continuation-token": token} if token else {})}
+                status, body, _ = s3.list_objects("s15", v2=True, **q)
+                pages += 1
+                x = parse_xml(body)
+                listed += [find_text(c, "Key") for c in findall(x, "Contents")]
+                token = find_text(x, "NextContinuationToken")
+                if status != 200 or find_text(x, "IsTruncated") != "true":
+                    break
+            if bad or sorted(listed) != sorted(objs):
+                raise SystemExit(f"phase 15: S3 over the ring: {bad[:5]}, "
+                                 f"{len(listed)} keys listed")
+            files.update({f"/buckets/s15/{k}": v for k, v in objs.items()})
+            sel = {}
+            for path, fut in want_rows.items():
+                bucket, key = path.split("/", 3)[2:]
+                before = dict(selects)
+                t0 = time.perf_counter()
+                records, stats = s3.select_object_content(bucket, key, FILER_PROBE_SQL,
+                                                          output_format="json")
+                sec = time.perf_counter() - t0
+                rows = [json.loads(x) for x in records.splitlines()]
+                ran_on = [u for u in ring_urls if selects[u] != before.get(u, 0)]
+                want = fut.result()[1]["rows"]
+                sel[path] = {"owner": ring.owner(path), "ran_on": ran_on, "ms": sec * 1e3,
+                             "MBps": len(files[path]) / sec / 1e6, "rows": len(rows)}
+                if rows != want or ran_on != [ring.owner(path)]:
+                    raise SystemExit(f"phase 15: Select {path}: {len(rows)} rows (want "
+                                     f"{len(want)}), ran on {ran_on}")
+            if len({v["owner"] for v in sel.values()}) < 2:
+                raise SystemExit(f"phase 15: both Selects ran on one member: {sel}")
+            return {"objects": len(objs), "owner": ring.owner("/buckets/s15"),
+                    "put_s": put_s, "put_ms_p50": _pct(put_ms, 50), "put_ms_p99": _pct(put_ms, 99),
+                    "get_s": get_s, "get_ms_p50": _pct(get_ms, 50), "get_ms_p99": _pct(get_ms, 99),
+                    "list_pages": pages, "select": sel}
+
+        step("c_s3", s3_ring)
+        if not steps["c_s3"]["scan_evaluations"]:
+            raise SystemExit(f"phase 15: the Selects ran no scan on {dev}")
+
+        # d. reshard the largest shard root to another member
+        roots = collections.Counter()
+        for p in small:
+            roots[p.rsplit("/", 1)[0]] += len(files[p])
+        root = roots.most_common(1)[0][0]
+        src = ring.owner(root)
+        # never onto A: step e checks that E mirrors what A holds as its owner
+        dst = next(u for u in ring_urls if u not in (src, a_url))
+        moved = sorted(p for p in files if p.startswith(root + "/"))
+
+        def reshard() -> dict:
+            before = tree_hash(src, root)
+            t0 = time.perf_counter()
+            status, body, _ = _filer_call(src, "POST",
+                                          f"/_reshard?root={root}&target={dst}&epoch=15")
+            sec = time.perf_counter() - t0
+            if status != 200:
+                raise SystemExit(f"phase 15: /_reshard answered {status}: {body[:300]!r}")
+            summary = json.loads(body)
+            moved_to = _ring_walk(dst, root)
+            target_kv = FilerClient(dst)
+            paths = [root] + sorted({p.rsplit("/", 1)[0] for p in moved_to}) + sorted(moved_to)
+            sha = hashlib.sha1(root.encode()).hexdigest()
+            markers = [k for k in [f"reshard.done.15.{sha}", f"reshard.ckpt.15.{sha}"] + [
+                f"reshard.applied.15.{hashlib.sha1(p.encode()).hexdigest()}" for p in paths]
+                if target_kv.kv_get(k) is not None]
+            bad = [p for p in moved if _filer_call(dst, "GET", f"{p}?noRedirect=1")[1] != files[p]]
+            left = _filer_call(src, "GET", f"{root}?meta=true&noRedirect=1")[0]
+            res = {"root": root, "source": src, "target": dst, "reshard_s": sec,
+                   "entries_moved": summary["applied"],
+                   "entries_skipped": summary["marker_skips"] + summary["ckpt_skips"],
+                   "files": len(moved), "bytes": roots[root]}
+            if tree_hash(dst, root) != before or sorted(moved_to) != moved or markers or bad \
+                    or left != 404:
+                raise SystemExit(f"phase 15: the reshard left {res}, markers {markers[:3]}, "
+                                 f"{len(bad)} files wrong, source answers {left}")
+            return res
+
+        step("d_reshard", reshard)
+
+        # e. filer.sync of A's share of /b15 into E, and A's file queue
+        def sync_and_notify() -> dict:
+            sync = FilerSync(a_url, filer_e.url, source_path="/b15", target_path="/b15")
+            t0, events, zeros = time.perf_counter(), 0, 0
+            while zeros < 2:
+                n = sync.sync_once()
+                events += n
+                zeros = zeros + 1 if n == 0 else 0
+            drain_s = time.perf_counter() - t0
+            share = _ring_walk(a_url, "/b15")
+            bad = [p for p in share
+                   if _filer_call(filer_e.url, "GET", p)[1] != files[p]]
+            mirrored = _ring_walk(filer_e.url, "/b15")
+            if bad or sorted(mirrored) != sorted(share):
+                raise SystemExit(f"phase 15: E holds {len(mirrored)} files of A's "
+                                 f"{len(share)}, {len(bad)} wrong")
+            # one more write on A: the lag until E holds it, the sync running
+            nonlocal sync_bg
+            sync_bg = FilerSync(a_url, filer_e.url, source_path="/b15", target_path="/b15",
+                                poll_interval=0.05).start()
+            own_root = next((r for r in sorted(roots) if ring.owner(r) == a_url and r != root),
+                            None) or next(f"/b15/lag{i}" for i in range(1000)
+                                          if ring.owner(f"/b15/lag{i}") == a_url)
+            lag_path, lag_body = f"{own_root}/lag.bin", rng.bytes(64 * 1024)
+            if _filer_call(a_url, "POST", lag_path, lag_body)[0] != 201:
+                raise SystemExit("phase 15: the lag probe's write failed")
+            t0 = time.perf_counter()
+            if not _until(lambda: _filer_call(filer_e.url, "GET", lag_path)[1] == lag_body,
+                          timeout=30):
+                raise SystemExit("phase 15: E never got the lag probe")
+            lag_s = time.perf_counter() - t0
+            files[lag_path] = lag_body
+            sync_bg.stop()
+            # the file queue: one event per mutation on A, in A's order
+            a_events, since = [], 0
+            while True:
+                page = FilerClient(a_url).meta_events(since_ns=since, limit=1000)["events"]
+                a_events += page
+                if len(page) < 1000:
+                    break
+                since = page[-1]["ts_ns"]
+
+            def queued():
+                return [(r["key"], r["message"]["ts_ns"]) for r in FileQueue(queue_path).read_all()]
+            want = [((e.get("new_entry") or e.get("old_entry") or {}).get("full_path"),
+                     e["ts_ns"]) for e in a_events]
+            if not _until(lambda: queued() == want, timeout=30):
+                raise SystemExit(f"phase 15: the file queue holds {len(queued())} events, "
+                                 f"A's meta log {len(want)}")
+            return {"drain_s": drain_s, "events_synced": events, "files": len(share),
+                    "bytes": sum(len(files[p]) for p in share),
+                    "MBps": sum(len(files[p]) for p in share) / drain_s / 1e6,
+                    "lag_s": lag_s, "queue_events": len(want), "stats": sync.stats()}
+
+        step("e_sync", sync_and_notify)
+
+        # f. seal the collection, lose a server, read back through the ring
+        holder = {p: (dst if p in moved else ring.owner(p)) for p in files}
+        vids = sorted({FileId.parse(c.file_id).volume_id for p in files
+                       for c in fleet[holder[p]].filer.find_entry(p).chunks})
+        sealed_csv = f"/buckets/{buckets[0]}/one0.csv"
+
+        def seal() -> dict:
+            encodes = {}
+            with _ShellCalls() as sc:
+                for vid in vids:
+                    encodes[vid] = run_command(
+                        env, f"ec.encode -volumeId={vid} -collection={RING_COL}")["spread"]
+            if any(sorted(len(s) for s in sp.values()) != [3, 3, 4, 4]
+                   for sp in encodes.values()):
+                raise SystemExit(f"phase 15: the shards spread as {encodes}")
+            if not _until(lambda: all(len(env.ec_shard_locations(v)) == 14
+                                      and not master.master.topo.lookup(RING_COL, v)
+                                      for v in vids)):
+                raise SystemExit("phase 15: the master never saw every volume's 14 shards")
+            victim = next(t for t, sids in encodes[vids[0]].items() if sids == [1, 5, 9, 13])
+            eng.stop(by_url[victim])
+            stopped.add(victim)
+            if not _until(lambda: not any(victim in urls for v in vids for urls in
+                                          master.master.lookup_ec_volume(v)[
+                                              "shard_id_locations"].values()), timeout=60):
+                raise SystemExit(f"phase 15: the master still names {victim} as a shard holder")
+            for fs in fleet.values():  # every read below reaches the volume servers
+                fs.chunk_cache = type(fs.chunk_cache)()
+            return {"volumes": vids, "generate_s": sc.seconds["/admin/ec/generate"],
+                    "copy_s": sc.seconds["/admin/ec/copy"], "victim": victim,
+                    "victim_shards": {v: encodes[v].get(victim, []) for v in vids}}
+
+        step("f_ec_encode", seal)
+        readable = [p for p in small if p not in moved]
+        sample = [readable[int(i)] for i in np.random.default_rng(15115).choice(
+            len(readable), RING_SEALED_READS, replace=False)]
+
+        def degraded_read() -> dict:
+            ms, bad = [], []
+
+            def get(p: str) -> None:
+                t0 = time.perf_counter()
+                status, data, _ = rc.get_object(p)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if status != 200 or data != files[p]:
+                    bad.append((p, status))
+
+            sec = _parallel(get, sample, threads)
+            if bad:
+                raise SystemExit(f"phase 15: sealed reads wrong: {bad[:5]}")
+            return {"files": len(sample), "read_s": sec, "ms_p50": _pct(ms, 50),
+                    "ms_p99": _pct(ms, 99)}
+
+        step("f_degraded_read", degraded_read)
+
+        def sealed_select() -> dict:
+            bucket, key = sealed_csv.split("/", 3)[2:]
+            t0 = time.perf_counter()
+            records, _ = s3.select_object_content(bucket, key, FILER_PROBE_SQL,
+                                                  output_format="json")
+            sec = time.perf_counter() - t0
+            rows = [json.loads(x) for x in records.splitlines()]
+            want = want_rows[sealed_csv].result()[1]["rows"]
+            if rows != want:
+                raise SystemExit(f"phase 15: the sealed Select gave {len(rows)} rows, "
+                                 f"want {len(want)}")
+            return {"ms": sec * 1e3, "MBps": len(files[sealed_csv]) / sec / 1e6,
+                    "rows": len(rows)}
+
+        step("f_sealed_select", sealed_select)
+        out["filer_status"] = {u: {k: v for k, v in json.loads(_filer_call(
+            u, "GET", "/_status")[1]).items() if k in ("ring", "fid_leases", "hedge", "sync")}
+            for u in ring_urls}
+    finally:
+        if sync_bg is not None:
+            sync_bg.stop()
+        if api is not None:
+            api.stop()
+        for fs in [*fleet.values(), filer_e]:
+            if fs is not None:
+                fs.stop()
+        redis.stop()
+        for url, vs in by_url.items():
+            if url not in stopped:
+                eng.stop(vs)
+        master.stop()
+    out.update(turbo=eng.totals(), steps={k: {"s": v["s"], "launches": v["launches"]}
+                                          for k, v in steps.items()},
+               wall_s=time.perf_counter() - t_start,
+               launches=gm.gf_matmul.launches - state["l_phase"], nvidia_smi=state["smi"])
+    emit(out)
+    idle = [name for name in ("f_ec_encode", "f_degraded_read", "f_sealed_select")
+            if not steps[name]["launches"]]
+    if idle:
+        raise SystemExit(f"phase 15: no kernel launch in {idle}")
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -3968,7 +4531,7 @@ def _free_port() -> int:
 
 
 MAIN_PATH = (phase2, phase3, phase4, phase5, phase6, phase7, phase8, phase9, phase10,
-             phase11, phase12, phase13, phase14)
+             phase11, phase12, phase13, phase14, phase15)
 
 
 def main() -> int:

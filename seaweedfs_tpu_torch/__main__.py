@@ -1,5 +1,6 @@
 """Command line: ``python -m seaweedfs_tpu_torch
-master|volume|filer|s3|shell|upload|download|delete|backup|compact|volume.tail|benchmark ...``.
+master|volume|filer|s3|filer.sync|filer.replicate|watch|shell|upload|download|delete|backup|
+compact|volume.tail|benchmark ...``.
 
 - ``master`` runs a master with the flags of ``weed master``: ``-ip -port
   -volumeSizeLimitMB -defaultReplication -peers -mdir``. ``-peers A,B,C``
@@ -19,17 +20,27 @@ master|volume|filer|s3|shell|upload|download|delete|backup|compact|volume.tail|b
 - ``filer`` runs a filer with the flags of ``weed filer``: ``-ip -port
   -master -chunkSizeMB -db -collection -replication -encryptVolumeData
   -peers -metaLogDir``. Its store is ``-db`` (a sqlite file, or
-  ``:memory:``); with ``-db`` unset, ``filer.toml``'s ``[sqlite]`` or
-  ``./filer.db``. A ``filer.toml`` that enables another store, or a
-  ``notification.toml`` that enables a queue, stops the command with a
-  message naming it: those are not ported yet. Filer-side queries run on
-  the card; ``SWEED_QUERY_BACKEND=cpu`` runs them on the CPU.
+  ``:memory:``); with ``-db`` unset, the first store ``filer.toml`` enables:
+  ``[redis]``, ``[sql]`` (any DB-API driver by module name), ``[cassandra]``,
+  ``[mongodb]``, ``[etcd]``, ``[elastic7]`` (these four need their client
+  SDKs and stop the command naming the one missing) or ``[sqlite]``, else
+  ``./filer.db``. ``notification.toml``'s first enabled queue (log, file,
+  webhook, aws_sqs, kafka, google_pub_sub) gets every meta event.
+  Filer-side queries run on the card; ``SWEED_QUERY_BACKEND=cpu`` runs them
+  on the CPU. A sharded fleet of filers is the ``FilerServer(ring_peers=)``
+  argument, as in the JAX package: no flag starts one.
 - ``s3`` runs the S3 gateway over a filer with the flags of ``weed s3``:
   ``-ip -port -filer -config`` (the identities' ``s3.json``; none: every
   request is allowed) and ``-cert.file -key.file -caCert.file`` (https,
   and with a CA mutual TLS; ``security.toml``'s ``[tls.s3]`` and
-  ``tls.ca`` are the fallback). ``-filer`` takes one address: the
-  multi-filer ring is not ported yet.
+  ``tls.ca`` are the fallback). ``-filer a,b,c`` fronts a filer fleet
+  through ``filer/ring.RingFilerClient``.
+- ``filer.sync -a A -b B [-a.path -b.path -isActivePassive]`` keeps two
+  filer clusters in sync (``replication/filer_sync.py``), both ways unless
+  ``-isActivePassive``.
+- ``filer.replicate -filer F [-source] [-sink.dir | -sink.s3]`` mirrors a
+  filer's meta events into a sink (``replication.toml``'s, else the flags).
+- ``watch -filer F [-v]`` prints a filer's meta events as they come.
 - ``upload -master [-maxMB] FILE...``, ``download -master [-o] FID`` and
   ``delete -master FID...`` are the object-store client of ``operation.py``.
 - ``shell`` runs the admin shell against ``-master``; ``-c "cmd; cmd"``
@@ -65,14 +76,15 @@ def _positive_pulse(s: str) -> float:
     return val
 
 
-def _serve_until_signalled(server) -> None:
+def _serve_until_signalled(*servers) -> None:
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: stop.set())
     try:
         stop.wait()
     finally:
-        server.stop()
+        for server in servers:
+            server.stop()
 
 
 def cmd_master(args) -> None:
@@ -446,55 +458,86 @@ def _report(op, args, latencies, wall, failures=0):
     print(f"failed: {failures} / {total + failures}")
 
 
-# filer.toml stores and notification.toml queues the port does not have
-_UNPORTED_STORES = ("redis", "sql", "cassandra", "mongodb", "etcd", "elastic7")
-_QUEUES = ("log", "file", "webhook", "aws_sqs", "kafka", "google_pub_sub")
-
-
-def _filer_store_from_conf(db_path: str) -> str:
-    """filer.toml store selection: an explicit ``-db`` beats the config
-    file, then ``[sqlite] dbFile``; an unset ``-db`` with no config lands on
-    a persistent ``./filer.db`` (``:memory:`` when the cwd is read-only).
-    A store the port lacks raises SystemExit naming it."""
+def _filer_store_from_conf(db_path: str):
+    """filer.toml store selection (first enabled store wins); an explicit
+    ``-db`` beats the config file, and an unset ``-db`` with no config lands
+    on a persistent ``./filer.db`` (``:memory:`` when the cwd is read-only).
+    Returns ``(db_path, store)``: ``store`` is None for the sqlite path."""
     import os
     import sys
 
     from .util.config import load_configuration
 
     if db_path:
-        return db_path
+        return db_path, None
     conf = load_configuration("filer")
-    for name in _UNPORTED_STORES:
-        if conf.get_bool(f"{name}.enabled"):
-            raise SystemExit(f"filer.toml enables the {name} store, which is "
-                             "not ported yet (use [sqlite] or -db)")
-    if conf.get_bool("sqlite.enabled"):
-        return conf.get("sqlite.dbFile", "./filer.db")
+    store = None
+    if conf.get_bool("redis.enabled"):
+        from .filer.redis_store import RedisStore
+
+        store = RedisStore(address=conf.get("redis.address", "127.0.0.1:6379"),
+                           password=conf.get("redis.password", ""),
+                           database=int(conf.get("redis.database", 0) or 0))
+    elif conf.get_bool("sql.enabled"):
+        from .filer.abstract_sql import GenericSqlStore
+
+        kwargs = {k: v for k, v in conf.sub("sql").items()
+                  if k not in ("enabled", "driver", "dialect")}
+        store = GenericSqlStore(conf.get("sql.driver"), dialect=conf.get("sql.dialect", ""),
+                                **kwargs)
+    elif conf.get_bool("cassandra.enabled"):
+        from .filer.sdk_stores import CassandraStore
+
+        store = CassandraStore(
+            hosts=[h.strip() for h in str(conf.get("cassandra.hosts", "127.0.0.1")).split(",")],
+            keyspace=conf.get("cassandra.keyspace", "seaweedfs"),
+            username=conf.get("cassandra.username", ""),
+            password=conf.get("cassandra.password", ""),
+            port=int(conf.get("cassandra.port", 9042)))
+    elif conf.get_bool("mongodb.enabled"):
+        from .filer.sdk_stores import MongoStore
+
+        store = MongoStore(uri=conf.get("mongodb.uri", "mongodb://127.0.0.1:27017"),
+                           database=conf.get("mongodb.database", "seaweedfs"))
+    elif conf.get_bool("etcd.enabled"):
+        from .filer.sdk_stores import EtcdStore
+
+        store = EtcdStore(endpoint=conf.get("etcd.servers", "127.0.0.1:2379"),
+                          prefix=conf.get("etcd.prefix", "seaweedfs."))
+    elif conf.get_bool("elastic7.enabled"):
+        from .filer.sdk_stores import ElasticStore
+
+        store = ElasticStore(
+            servers=[x.strip() for x in str(
+                conf.get("elastic7.servers", "http://127.0.0.1:9200")).split(",")],
+            index=conf.get("elastic7.index", "seaweedfs"))
+    elif conf.get_bool("sqlite.enabled"):
+        return conf.get("sqlite.dbFile", "./filer.db"), None
+    if store is not None:
+        return "", store
     if not os.access(os.path.dirname(os.path.abspath("./filer.db")), os.W_OK):
         print("WARNING: cwd not writable; filer metadata is IN-MEMORY and will "
               "not survive a restart (pass -db or mount a writable dir)",
               file=sys.stderr)
-        return ":memory:"
-    return "./filer.db"
+        return ":memory:", None
+    return "./filer.db", None
 
 
-def _refuse_notifications() -> None:
+def _filer_notifications(fs) -> None:
+    """notification.toml → publish meta events to the configured queue."""
+    from .replication import NotificationBus, make_queue
     from .util.config import load_configuration
 
-    conf = load_configuration("notification")
-    if not conf.get_bool("notification.enabled", True):
-        return
-    for q in _QUEUES:
-        if conf.get_bool(f"notification.{q}.enabled"):
-            raise SystemExit(f"notification.toml enables the {q} queue; "
-                             "notifications are not ported yet")
+    q = make_queue(load_configuration("notification"))
+    if q is not None:
+        NotificationBus(fs.filer).add_queue(q)
+        print(f"notifications -> {type(q).__name__}", flush=True)
 
 
 def cmd_filer(args) -> None:
     from .server.filer_server import FilerServer
 
-    db_path = _filer_store_from_conf(args.db)
-    _refuse_notifications()
+    db_path, store = _filer_store_from_conf(args.db)
     fs = FilerServer(
         host=args.ip,
         port=args.port,
@@ -506,9 +549,90 @@ def cmd_filer(args) -> None:
         cipher=args.encrypt_volume_data,
         peers=[p for p in args.peers.split(",") if p],
         meta_log_dir=args.meta_log_dir,
+        store=store,
     ).start()
-    print(f"filer on {fs.url} -> master {args.master} (store {db_path})", flush=True)
+    _filer_notifications(fs)
+    where = type(store).__name__ if store is not None else db_path
+    print(f"filer on {fs.url} -> master {args.master} (store {where})", flush=True)
     _serve_until_signalled(fs)
+
+
+def cmd_filer_sync(args) -> None:
+    from .replication import FilerSync
+
+    syncers = [FilerSync(args.a, args.b, source_path=args.a_path,
+                         target_path=args.b_path).start()]
+    mode = "active-passive"
+    if not args.is_active_passive:
+        syncers.append(FilerSync(args.b, args.a, source_path=args.b_path,
+                                 target_path=args.a_path).start())
+        mode = "active-active"
+    print(f"filer.sync {mode}: {args.a}{args.a_path} <-> {args.b}{args.b_path}", flush=True)
+    _serve_until_signalled(*syncers)
+
+
+def cmd_filer_replicate(args) -> None:
+    from .filer.client import FilerClient
+    from .replication import LocalFsSink, Replicator, S3Sink, make_sink
+    from .util import glog
+    from .util.config import load_configuration
+
+    src = FilerClient(args.filer)
+    if args.sink_s3:
+        endpoint, bucket = args.sink_s3.rsplit("/", 1)
+        sink = S3Sink(endpoint, bucket, args.s3_access_key, args.s3_secret_key)
+    else:
+        # replication.toml picks the sink (gcs/backblaze/azure too); the
+        # -sink.dir local directory otherwise
+        try:
+            sink = make_sink(load_configuration("replication"))
+        except ValueError:
+            sink = LocalFsSink(args.sink_dir)
+    repl = Replicator(sink, read_content=lambda p: src.get_object(p)[1],
+                      source_path=args.source)
+    offset = 0
+    print(f"replicating {args.filer}{args.source} -> {type(sink).__name__}; "
+          "ctrl-c to stop", flush=True)
+    while True:
+        resp = src.meta_events(since_ns=offset)
+        for ev in resp.get("events", []):
+            # a flaky sink must not kill the daemon: retry with backoff,
+            # then skip the event (repl_util.go RetriedWriteFile)
+            for attempt in range(3):
+                try:
+                    repl.replicate(ev)
+                    break
+                except Exception as e:  # noqa: BLE001 — the sink's failure is logged, the event skipped
+                    glog.warning("replicate %s attempt %d failed: %s",
+                                 (ev.get("new_entry") or ev.get("old_entry") or {})
+                                 .get("full_path", "?"), attempt + 1, e)
+                    if attempt < 2:  # no pointless sleep after the last try
+                        time.sleep(2 ** attempt)
+            offset = ev["ts_ns"]
+        if not resp.get("events"):
+            time.sleep(1.0)
+
+
+def cmd_watch(args) -> None:
+    """Tail a filer's meta event stream (weed watch)."""
+    import json
+
+    from .filer.client import FilerClient
+
+    client = FilerClient(args.filer)
+    offset = 0
+    while True:
+        resp = client.meta_events(since_ns=offset)
+        for ev in resp.get("events", []):
+            offset = ev["ts_ns"]
+            kind = ("create" if not ev["old_entry"]
+                    else "delete" if not ev["new_entry"] else "update")
+            path = (ev["new_entry"] or ev["old_entry"]).get("full_path")
+            print(f"{ev['ts_ns']} {kind:7s} {path}", flush=True)
+            if args.verbose:
+                print(json.dumps(ev, indent=2), flush=True)
+        if not resp.get("events"):
+            time.sleep(0.5)
 
 
 def cmd_s3(args) -> None:
@@ -651,7 +775,7 @@ def main(argv=None) -> None:
     f.add_argument("-chunkSizeMB", dest="chunk_size_mb", type=int, default=32)
     f.add_argument("-db", default="",
                    help="sqlite path (default ./filer.db; ':memory:' for "
-                        "ephemeral; filer.toml's [sqlite] when unset)")
+                        "ephemeral; filer.toml's store when unset)")
     f.add_argument("-collection", default="")
     f.add_argument("-replication", default="")
     f.add_argument("-encryptVolumeData", dest="encrypt_volume_data",
@@ -666,10 +790,33 @@ def main(argv=None) -> None:
     s3 = sub.add_parser("s3", help="run the S3 gateway over a filer")
     s3.add_argument("-ip", default="127.0.0.1")
     s3.add_argument("-port", type=int, default=8333)
-    s3.add_argument("-filer", default="127.0.0.1:8888")
+    s3.add_argument("-filer", default="127.0.0.1:8888",
+                    help="a filer, or a comma list of a filer fleet's members")
     s3.add_argument("-config", default="", help="identities json (s3.json)")
     _add_tls_flags(s3)
     s3.set_defaults(fn=cmd_s3)
+
+    fsync = sub.add_parser("filer.sync", help="sync two filer clusters")
+    fsync.add_argument("-a", required=True, help="filer A host:port")
+    fsync.add_argument("-b", required=True, help="filer B host:port")
+    fsync.add_argument("-a.path", dest="a_path", default="/")
+    fsync.add_argument("-b.path", dest="b_path", default="/")
+    fsync.add_argument("-isActivePassive", dest="is_active_passive", action="store_true")
+    fsync.set_defaults(fn=cmd_filer_sync)
+
+    frep = sub.add_parser("filer.replicate", help="replicate a filer's events to a sink")
+    frep.add_argument("-filer", default="127.0.0.1:8888")
+    frep.add_argument("-source", default="/")
+    frep.add_argument("-sink.dir", dest="sink_dir", default="./replica")
+    frep.add_argument("-sink.s3", dest="sink_s3", default="", help="http://endpoint/bucket")
+    frep.add_argument("-s3.accessKey", dest="s3_access_key", default="")
+    frep.add_argument("-s3.secretKey", dest="s3_secret_key", default="")
+    frep.set_defaults(fn=cmd_filer_replicate)
+
+    w = sub.add_parser("watch", help="tail a filer's meta events")
+    w.add_argument("-filer", default="127.0.0.1:8888")
+    w.add_argument("-v", dest="verbose", action="store_true")
+    w.set_defaults(fn=cmd_watch)
 
     u = sub.add_parser("upload", help="upload files")
     u.add_argument("-master", default="127.0.0.1:9333")

@@ -13,6 +13,9 @@ ranged chunk views (`SeaweedInputStream.java`). The same design here:
   to the filer on close;
 - listings and metadata: the filer's JSON listing and ``?meta=true``.
 
+``filer`` is one filer's address, or a comma list of a filer fleet's members
+(``filer/ring.make_client`` gives a ``RingFilerClient`` for those).
+
 ``fsspec`` is imported on first use: ``SeaweedFileSystem`` and
 ``SeaweedFile`` are built when first looked up (a module ``__getattr__``),
 so importing this module needs no fsspec.

@@ -1,12 +1,14 @@
-"""SQL FilerStore over a DB-API 2.0 connection.
+"""Generic SQL FilerStore over any DB-API 2.0 connection: the port's copy
+of the JAX package's ``filer/abstract_sql.py``.
 
-The port's copy of the JAX package's ``filer/abstract_sql.py`` (after
-`weed/filer/abstract_sql/abstract_sql_store.go`): one ``filemeta`` table
-keyed (dir, name) with the entry's JSON as its meta column, plus a ``kv``
-table for checkpoints and signatures. The schema is the JAX package's, so
-one ``filer.db`` serves either package's filer. Only the embedded sqlite
-dialect is ported (``SqliteStore``, the filer's default store); the
-networked drivers (``GenericSqlStore``) are not ported yet.
+Mirrors `weed/filer/abstract_sql/abstract_sql_store.go`: one `filemeta`
+table keyed (dir, name) with the entry's JSON as its meta column, plus a
+`kv` table for checkpoints and signatures. The concrete dialect supplies a
+connection factory and its paramstyle; `SqliteStore` is the embedded
+instance (the filer's default store), and any networked DB-API driver
+(mysql/postgres-style `format` placeholders or `qmark`) plugs in through
+`GenericSqlStore` without subclassing. Schema and statements are the JAX
+package's, so one database serves either package's filer.
 """
 
 from __future__ import annotations
@@ -18,33 +20,95 @@ from typing import Iterator, Optional
 from .entry import Entry
 from .filerstore import FilerStore, NotFoundError, _norm
 
-# the schema of abstract_sql_store.go's sqlite flavour
-_FILEMETA_DDL = ("CREATE TABLE IF NOT EXISTS filemeta ("
-                 " dir TEXT NOT NULL, name TEXT NOT NULL, meta TEXT NOT NULL,"
-                 " PRIMARY KEY (dir, name))")
-_KV_DDL = "CREATE TABLE IF NOT EXISTS kv (k BLOB PRIMARY KEY, v BLOB)"
-_UPSERT = "INSERT OR REPLACE INTO {table} ({cols}) VALUES ({ph})"
+_PLACEHOLDER = {"qmark": "?", "format": "%s", "pyformat": "%s"}
+
+# dialect → (filemeta DDL, kv DDL, upsert template). The schema follows
+# abstract_sql_store.go: mysql needs sized key columns (no TEXT in a PK),
+# postgres spells blobs BYTEA and upserts via ON CONFLICT.
+_DIALECTS = {
+    "sqlite": (
+        "CREATE TABLE IF NOT EXISTS filemeta ("
+        " dir TEXT NOT NULL, name TEXT NOT NULL, meta TEXT NOT NULL,"
+        " PRIMARY KEY (dir, name))",
+        "CREATE TABLE IF NOT EXISTS kv (k BLOB PRIMARY KEY, v BLOB)",
+        "INSERT OR REPLACE INTO {table} ({cols}) VALUES ({ph})",
+    ),
+    "mysql": (
+        "CREATE TABLE IF NOT EXISTS filemeta ("
+        " dir VARCHAR(766) NOT NULL, name VARCHAR(250) NOT NULL,"
+        " meta LONGTEXT NOT NULL, PRIMARY KEY (dir, name))",
+        "CREATE TABLE IF NOT EXISTS kv"
+        " (k VARBINARY(512) PRIMARY KEY, v LONGBLOB)",
+        "REPLACE INTO {table} ({cols}) VALUES ({ph})",
+    ),
+    "postgres": (
+        "CREATE TABLE IF NOT EXISTS filemeta ("
+        " dir TEXT NOT NULL, name TEXT NOT NULL, meta TEXT NOT NULL,"
+        " PRIMARY KEY (dir, name))",
+        "CREATE TABLE IF NOT EXISTS kv (k BYTEA PRIMARY KEY, v BYTEA)",
+        "INSERT INTO {table} ({cols}) VALUES ({ph})"
+        " ON CONFLICT ({pk}) DO UPDATE SET {assign}",
+    ),
+}
+
+_UPSERT_META = {  # per-table ON CONFLICT pieces for the postgres template
+    "filemeta": ("dir, name", "meta = EXCLUDED.meta"),
+    "kv": ("k", "v = EXCLUDED.v"),
+}
+
+
+def _guess_dialect(driver: str) -> str:
+    d = driver.lower()
+    if "mysql" in d or "maria" in d:
+        return "mysql"
+    if "psycopg" in d or d in ("pg8000", "pgdb"):
+        return "postgres"
+    return "sqlite"
 
 
 class AbstractSqlStore(FilerStore):
-    """All six FilerStore ops + KV as SQL over a DB-API connection whose
-    paramstyle is qmark (sqlite3's)."""
+    """All six FilerStore ops + KV expressed as dialect-parameterized SQL.
 
-    def __init__(self, conn):
+    Subclasses / callers provide `conn` (DB-API connection), `paramstyle`
+    (qmark/format/pyformat), and `dialect` (sqlite/mysql/postgres) picking
+    the DDL + upsert flavor.
+    """
+
+    def __init__(self, conn, paramstyle: str = "qmark", dialect: str = "sqlite"):
+        if paramstyle not in _PLACEHOLDER:
+            raise ValueError(
+                f"unsupported DB-API paramstyle {paramstyle!r}; "
+                f"supported: {sorted(_PLACEHOLDER)}"
+            )
+        if dialect not in _DIALECTS:
+            raise ValueError(
+                f"unsupported SQL dialect {dialect!r}; "
+                f"supported: {sorted(_DIALECTS)}"
+            )
         self._db = conn
-        self._ph = "?"
+        self._ph = _PLACEHOLDER[paramstyle]
+        self._dialect = dialect
         self._lock = threading.RLock()
         self._create_tables()
 
+    # -- dialect hooks ------------------------------------------------------
     def _create_tables(self) -> None:
+        meta_ddl, kv_ddl, _ = _DIALECTS[self._dialect]
         with self._lock:
             cur = self._db.cursor()
-            cur.execute(_FILEMETA_DDL)
-            cur.execute(_KV_DDL)
+            cur.execute(meta_ddl)
+            cur.execute(kv_ddl)
             self._db.commit()
 
     def _upsert_sql(self, table: str, cols: str, nvals: int) -> str:
-        return _UPSERT.format(table=table, cols=cols, ph=",".join([self._ph] * nvals))
+        pk, assign = _UPSERT_META[table]
+        return _DIALECTS[self._dialect][2].format(
+            table=table,
+            cols=cols,
+            ph=",".join([self._ph] * nvals),
+            pk=pk,
+            assign=assign,
+        )
 
     # -- helpers ------------------------------------------------------------
     @staticmethod
@@ -145,4 +209,30 @@ class SqliteStore(AbstractSqlStore):
     def __init__(self, db_path: str = ":memory:"):
         import sqlite3
 
-        super().__init__(sqlite3.connect(db_path, check_same_thread=False))
+        super().__init__(
+            sqlite3.connect(db_path, check_same_thread=False),
+            paramstyle="qmark",
+        )
+
+
+class GenericSqlStore(AbstractSqlStore):
+    """Adapter for external DB-API drivers selected by dotted module name.
+
+    filer.toml:
+        [sql]
+        enabled = true
+        driver = "pymysql"            # any DB-API module on sys.path
+        # dialect = "mysql"           # optional; guessed from the driver
+        # connect kwargs passed through (host/port/user/password/database…)
+    """
+
+    def __init__(self, driver: str, dialect: str = "", **connect_kwargs):
+        import importlib
+
+        mod = importlib.import_module(driver)
+        conn = mod.connect(**connect_kwargs)
+        super().__init__(
+            conn,
+            paramstyle=getattr(mod, "paramstyle", "qmark"),
+            dialect=dialect or _guess_dialect(driver),
+        )

@@ -5,8 +5,13 @@ The port's copy of the JAX package's ``filer/filerstore.py`` (after
 delete_folder_children/list + KV. Implementations:
 
 - MemoryStore (here): dict-backed (``-db :memory:`` and tests)
-- SqliteStore / AbstractSqlStore (abstract_sql.py): the SQL family over
-  the embedded sqlite, the filer's default (`abstract_sql_store.go`)
+- SqliteStore / AbstractSqlStore / GenericSqlStore (abstract_sql.py):
+  the SQL family, embedded sqlite by default (the filer's store), any
+  DB-API driver by name (`abstract_sql/abstract_sql_store.go`)
+- RedisStore (redis_store.py): redis-protocol networked store
+  (`redis2/universal_redis_store.go`)
+- CassandraStore / MongoStore / EtcdStore / ElasticStore (sdk_stores.py):
+  over their client SDKs, which raise ImportError where those are missing
 """
 
 from __future__ import annotations
@@ -125,7 +130,7 @@ def __getattr__(name):
     # SqliteStore/AbstractSqlStore live in abstract_sql (which imports this
     # module for the base class); resolve lazily to avoid the cycle while
     # keeping `from .filerstore import SqliteStore` working everywhere
-    if name in ("SqliteStore", "AbstractSqlStore"):
+    if name in ("SqliteStore", "AbstractSqlStore", "GenericSqlStore"):
         from . import abstract_sql
 
         return getattr(abstract_sql, name)

@@ -108,7 +108,8 @@ class S3ApiServer:
         tls_ca: str = "",
     ):
         self.host, self.port = host, port
-        # one filer address (the multi-filer ring is not ported yet)
+        # one address: a plain FilerClient; a comma list of a filer
+        # fleet's members: a RingFilerClient (filer/ring.py make_client)
         from ..filer.ring import make_client
 
         self.client = make_client(filer_url)

@@ -35,9 +35,15 @@ stream). The filer's own scans run on ``query_backend`` (``cuda`` unless
 fail naming the device, and never scan on the CPU.
 
 ``/_debug/traces`` serves the process's span ring (``stats/trace.py``), and
-``/_status`` carries its ``trace`` and ``deadline`` sections. One filer: the
-multi-filer ring (``/_ring`` answers a ring of one) and its ``/_reshard``
-are not ported yet.
+``/_status`` carries its ``trace``, ``deadline`` and ``sync`` sections.
+
+A sharded fleet (``ring_peers=[...]``, ``filer/ring.py``): each filer owns
+the subtrees whose shard key the ring maps to it. Reads of a foreign path
+answer 307 to the owner, writes and deletes are proxied there, and spine
+dirs (shallower than the shard key) live on every member, their listings
+merged across the fleet. ``noRedirect=1`` marks a hop inside the fleet.
+``GET /_ring`` reports the layout and ``POST /_reshard?root=&target=&epoch=``
+moves a subtree from this filer to another (``filer/reshard.py``).
 """
 
 from __future__ import annotations
@@ -310,6 +316,8 @@ class FilerServer:
         read_window: int = 4,
         write_window: int = 4,
         query_backend: Optional[str] = None,
+        store=None,
+        ring_peers: Optional[list[str]] = None,
     ):
         from ..stats.metrics import default_registry, query_stats
         from ..util.chunk_cache import TieredChunkCache
@@ -355,8 +363,13 @@ class FilerServer:
             # store (a supported topology) must not interleave segments or
             # collide on seq numbering in a common directory
             meta_log_dir = f"{db_path}.metalog.{port}"
+        elif not meta_log_dir and store is not None:
+            # networked store (redis/sql): the store is durable, so the meta
+            # log must be too — peers resume from offsets saved in the store's
+            # KV, which would dangle against a fresh in-memory log
+            meta_log_dir = f"./filer.metalog.{port}"
         self.filer = Filer(
-            store=SqliteStore(db_path),
+            store=store or SqliteStore(db_path),
             chunk_purger=self._purge_chunks,
             meta_log_dir=meta_log_dir or None,
         )
@@ -397,6 +410,15 @@ class FilerServer:
         )
         self.meta_aggregator = MetaAggregator(
             self.filer, f"{host}:{port}", peers or []
+        )
+        # sharded fleet (filer/ring.py): ring_peers is the FULL member
+        # list including this filer. With <2 members the ring is inert and
+        # every path below serves exactly as before — single-filer
+        # clusters never see a redirect, proxy, or fan-out.
+        from ..filer.ring import FilerRing
+
+        self.ring = FilerRing(
+            list(ring_peers or []), self_url=f"{host}:{port}"
         )
         # fid-range leases (cluster/fid_lease.py): single-fid assigns mint
         # locally from a master-granted key range; per-request coalesced
@@ -476,6 +498,266 @@ class FilerServer:
         first (zero master round-trips while a range is live), coalesced
         per-request assigns as the always-correct fallback."""
         return self._fid_leases.assign(collection, replication, ttl)
+
+    # -- sharded fleet: ownership gates (filer/ring.py) ----------------------
+    # With <2 ring members every gate below returns None immediately and
+    # the daemon behaves exactly as the single-filer build. With a fleet:
+    # reads REDIRECT foreign paths (307 — bodies can be huge and a GET is
+    # safe to re-issue), writes PROXY (a consumed stream can't replay a
+    # 307), and spine dirs — shallower than the shard key — fan out so
+    # `ls /bucket` stays correct with children living on every member.
+    # ``noRedirect=1`` marks intra-fleet hops and breaks forwarding loops.
+
+    @staticmethod
+    def _fwd_query(q) -> str:
+        qs = urllib.parse.urlencode({**q, "noRedirect": "1"})
+        return f"?{qs}" if qs else ""
+
+    def _redirect_to_owner(self, h, path, q, owner: str):
+        h.extra_headers = {
+            "Location": f"http://{owner}{path}{self._fwd_query(q)}"
+        }
+        return 307, {"redirect": owner}
+
+    def _ring_point_gate(self, h, path, q):
+        """Ownership gate for point lookups (GET/HEAD of one path):
+        None → serve locally, else a 307 to the owner. Spine paths are
+        served by every member; a locally-missing one still redirects to
+        its owner in case it's a file AT spine depth (owner-placed)."""
+        if not self.ring.active or q.get("noRedirect") == "1":
+            return None
+        p = urllib.parse.unquote(path).rstrip("/") or "/"
+        if self.ring.is_spine(p):
+            try:
+                self.filer.find_entry(p)
+                return None  # the local replica answers
+            except NotFoundError:
+                pass
+        owner = self.ring.owner(p)
+        if owner != self.ring.self_url:
+            return self._redirect_to_owner(h, path, q, owner)
+        return None
+
+    def _ring_read_gate(self, h, path, q):
+        g = self._ring_point_gate(h, path, q)
+        if g is not None:
+            return g
+        if not self.ring.active or q.get("noRedirect") == "1":
+            return None
+        p = urllib.parse.unquote(path).rstrip("/") or "/"
+        if not self.ring.is_spine(p):
+            return None
+        try:
+            entry = self.filer.find_entry(p)
+        except NotFoundError:
+            return None
+        if entry.is_directory and not (
+            q.get("meta") == "true" and not path.endswith("/")
+        ):
+            return self._spine_list_merged(h, path, q, p)
+        return None
+
+    def _spine_list_merged(self, h, path, q, p):
+        """Spine dir listing: shard roots live on their owners and deeper
+        spine dirs on everyone, so the children of a spine dir are spread
+        across the fleet — fan out with noRedirect, merge by name (prefer
+        the directory copy), present one sorted view. Mirrors
+        RingFilerClient.list so dumb and smart clients see identical
+        listings."""
+        limit = self._qint(q, "limit", 1000)
+        merged: dict[str, dict] = {}
+
+        def fold(entries):
+            for e in entries:
+                name = e.get("name", "")
+                prev = merged.get(name)
+                if prev is None or (
+                    not prev.get("is_directory") and e.get("is_directory")
+                ):
+                    merged[name] = e
+
+        status, local = self._h_read_inner(
+            h, path, dict(q, noRedirect="1"), b""
+        )
+        if status == 200 and isinstance(local, dict):
+            fold(local.get("entries", []))
+        target = path if path.endswith("/") else path + "/"
+        qs = self._fwd_query(q)
+        for m in self.ring.members():
+            if m == self.ring.self_url:
+                continue
+            try:
+                r = http_json("GET", f"http://{m}{target}{qs}")
+                fold(r.get("entries", []))
+            except Exception:  # sweedlint: ok broad-except a down peer degrades the merged view, never 500s it
+                pass
+        entries = [merged[k] for k in sorted(merged)][:limit]
+        return 200, {
+            "path": p,
+            "entries": entries,
+            "lastFileName": entries[-1]["name"] if entries else "",
+        }
+
+    def _ring_write_gate(self, h, path, q, rfile, length):
+        """Writes PROXY to the owner — the request body is a consumed
+        stream, which a 307 cannot replay. Spine dir creates replicate to
+        every member; cross-shard renames are refused here (the ring-aware
+        client decomposes them into copy + metadata-only delete)."""
+        if not self.ring.active or q.get("noRedirect") == "1":
+            return None
+        parsed = urllib.parse.unquote(path)
+        p = parsed.rstrip("/") or "/"
+        if q.get("mv.to"):
+            if self.ring.owner(q["mv.to"].rstrip("/") or "/") != self.ring.owner(p):
+                return 400, {
+                    "error": "cross-shard rename: use a ring-aware client"
+                }
+            if self.ring.owner(p) != self.ring.self_url:
+                return self._proxy_write(
+                    h, path, q, self.ring.owner(p), rfile, length
+                )
+            return None
+        if self.ring.is_spine(p):
+            from .http_util import http_bytes
+
+            ct = h.headers.get("Content-Type", "") or ""
+            body = None
+            is_dir = parsed.endswith("/")
+            if q.get("meta") == "true":
+                # a meta=true entry at spine depth may be a FILE (owner-
+                # placed) — sniff the small body to tell; every branch
+                # that consumed it finishes from the buffer
+                body = rfile.read(length) if length else b""
+                try:
+                    is_dir = bool(json.loads(body).get("is_directory"))
+                except (ValueError, AttributeError):
+                    is_dir = parsed.endswith("/")
+            if is_dir:
+                # spine DIR create (mkdir / meta entry): every member
+                # holds a replica so its listings can fan out from it
+                if body is None:
+                    body = rfile.read(length) if length else b""
+                st, payload = self._h_write_inner(
+                    h, path, dict(q, noRedirect="1"), body
+                )
+                qs = self._fwd_query(q)
+                for m in self.ring.members():
+                    if m == self.ring.self_url:
+                        continue
+                    try:
+                        http_bytes(
+                            h.command, f"http://{m}{path}{qs}", body=body,
+                            headers={"Content-Type": ct} if ct else None,
+                        )
+                    except OSError:
+                        # a joining/down member backfills via reshard; the
+                        # merged listing hides the gap meanwhile
+                        pass
+                return st, payload
+            if body is not None:
+                # buffered meta=true FILE entry at spine depth
+                owner = self.ring.owner(p)
+                if owner == self.ring.self_url:
+                    return self._h_write_inner(
+                        h, path, dict(q, noRedirect="1"), body
+                    )
+                url = f"http://{owner}{path}{self._fwd_query(q)}"
+                try:
+                    st, data = http_bytes(
+                        h.command, url, body=body,
+                        headers={"Content-Type": ct} if ct else None,
+                    )
+                except OSError as e:
+                    return 502, {"error": f"owner {owner} unreachable: {e}"}
+                h.extra_headers = {"Content-Type": "application/json"}
+                return st, data
+            # plain FILE stream at spine depth: owner-placed, body untouched
+        owner = self.ring.owner(p)
+        if owner != self.ring.self_url:
+            return self._proxy_write(h, path, q, owner, rfile, length)
+        return None
+
+    def _proxy_write(self, h, path, q, owner, rfile, length):
+        from .http_util import CountedReader, http_stream_request
+
+        fwd = {
+            k: v for k, v in h.headers.items()
+            if k.lower() == "content-type"
+            or k.title().startswith("Seaweed-")
+        }
+        url = f"http://{owner}{path}{self._fwd_query(q)}"
+        try:
+            status, data, _ = http_stream_request(
+                h.command, url, CountedReader(rfile, length), length,
+                headers=fwd,
+            )
+        except OSError as e:
+            return 502, {"error": f"owner {owner} unreachable: {e}"}
+        h.extra_headers = {"Content-Type": "application/json"}
+        return status, data
+
+    def _ring_delete_gate(self, h, path, q):
+        if not self.ring.active or q.get("noRedirect") == "1":
+            return None
+        p = urllib.parse.unquote(path).rstrip("/") or "/"
+        if self.ring.is_spine(p):
+            local_is_dir = False
+            try:
+                local_is_dir = self.filer.find_entry(p).is_directory
+            except NotFoundError:
+                pass
+            if local_is_dir:
+                return self._spine_delete_fanout(h, path, q)
+        owner = self.ring.owner(p)
+        if owner != self.ring.self_url:
+            return self._proxy_delete(h, path, q, owner)
+        return None
+
+    def _spine_delete_fanout(self, h, path, q):
+        """Delete a replicated spine dir on every member. Success wants
+        RingFilerClient.delete's shape: worst non-404 status wins; a 404
+        only surfaces when NOBODY had the entry."""
+        from .http_util import http_bytes
+
+        p = urllib.parse.unquote(path).rstrip("/") or "/"
+        qs = self._fwd_query(q)
+        worst, purged = 0, 0
+        for m in self.ring.members():
+            if m == self.ring.self_url:
+                st, payload = self._h_delete_inner(
+                    h, path, dict(q, noRedirect="1"), b""
+                )
+            else:
+                try:
+                    st, raw = http_bytes("DELETE", f"http://{m}{path}{qs}")
+                    try:
+                        payload = json.loads(raw)
+                    except ValueError:
+                        payload = {}
+                except OSError:
+                    st, payload = 502, {}
+            if st == 404:
+                continue
+            if st < 400 and isinstance(payload, dict):
+                purged += payload.get("purged_chunks", 0)
+            worst = max(worst, st)
+        if worst == 0:
+            return 404, {"error": f"{p} not found"}
+        if worst < 400:
+            return 200, {"purged_chunks": purged}
+        return worst, {"error": "spine delete partially failed"}
+
+    def _proxy_delete(self, h, path, q, owner):
+        from .http_util import http_bytes
+
+        try:
+            status, data = http_bytes(
+                "DELETE", f"http://{owner}{path}{self._fwd_query(q)}"
+            )
+        except OSError as e:
+            return 502, {"error": f"owner {owner} unreachable: {e}"}
+        h.extra_headers = {"Content-Type": "application/json"}
+        return status, data
 
     def _purge_chunks(self, fids: list[str]) -> None:
         t = threading.Thread(
@@ -578,22 +860,42 @@ class FilerServer:
             f"seaweedfs_tpu filer {self.url}", {"Filer": status}
         )
 
+    @staticmethod
+    def _sync_stats_safe() -> dict:
+        from ..replication.controller import sync_stats
+
+        return sync_stats()
+
     def _h_ring(self, h, path, q, body):
-        """The multi-filer ring is not ported yet: this filer is a ring of
-        one, owning every path. Also the tail counters an operator reads:
-        hedge outcomes and fid-lease minting."""
+        """Shard layout + the tail/scale counters an operator reads when
+        debugging the fleet: ring placement, hedge outcomes, fid-lease
+        minting, deadline aborts."""
         return 200, {
-            "ring": self._ring_plan(),
+            "ring": self.ring.plan(),
             "hedge": _hedge.STATS.snapshot(),
             "fid_leases": self._fid_leases.stats(),
+            "deadline": _deadline.counts(),
         }
 
-    def _ring_plan(self) -> dict:
-        return {"members": [], "self": self.url, "active": False}
-
     def _h_reshard(self, h, path, q, body):
-        return 501, {"error": "/_reshard (the multi-filer ring's subtree "
-                              "handoff) is not ported yet"}
+        """Drive a subtree handoff FROM this filer to ``target``: the
+        marker-guarded, checkpointed copy in filer/reshard.py. Idempotent
+        — kill this daemon mid-run and a re-POST with the same epoch
+        resumes from the durable prefix and converges."""
+        from ..filer.reshard import Resharder
+
+        root = q.get("root", "")
+        target = q.get("target", "")
+        if not root or not target:
+            return 400, {"error": "root and target are required"}
+        try:
+            summary = Resharder(
+                self.url, target, root, q.get("epoch", "0"),
+                ckpt_every=self._qint(q, "ckpt_every", 32),
+            ).run()
+        except Exception as e:  # reshard is re-POSTable; the error is the operator's signal
+            return 500, {"error": str(e)}
+        return 200, summary
 
     def _h_status(self, h, path, q, body):
         return 200, {
@@ -618,6 +920,9 @@ class FilerServer:
             # serving-core counters: mode, inflight connections,
             # admission shedding, loop lag
             "serving": SERVING.snapshot(),
+            # cross-cluster replication: per-direction lag/inflight/dlq
+            # (network-free snapshot — readable while the peer is down)
+            "sync": self._sync_stats_safe(),
             # request-latency quantiles straight from the cumulative-bucket
             # histograms that also feed /metrics (no parallel bookkeeping)
             "request_latency": {
@@ -625,8 +930,8 @@ class FilerServer:
                 "read": self._req_hist.summary(op="read"),
                 "read_stream": self._req_hist.summary(op="read_stream"),
             },
-            # the ring (one member) + hedge/lease counters
-            "ring": self._ring_plan(),
+            # metadata fleet: shard layout + hedge/lease/deadline counters
+            "ring": self.ring.plan(),
             "hedge": _hedge.STATS.snapshot(),
             "fid_leases": self._fid_leases.stats(),
             "deadline": _deadline.counts(),
@@ -753,6 +1058,9 @@ class FilerServer:
 
             drain_refused_body(h, CountedReader(rfile, length))
             return 400, {"error": "dot path segments not allowed"}
+        g = self._ring_write_gate(h, path, q, rfile, length)
+        if g is not None:
+            return g
         meta_shaped = (
             q.get("mv.to") or q.get("link.to") or q.get("meta") == "true"
             or parsed_path.endswith("/")
@@ -940,6 +1248,9 @@ class FilerServer:
 
     # -- read path ------------------------------------------------------------
     def _h_read(self, h, path, q, body):
+        g = self._ring_read_gate(h, path, q)
+        if g is not None:
+            return g
         with self._req_hist.time(op="read"):
             return self._h_read_inner(h, path, q, body)
 
@@ -1342,10 +1653,17 @@ class FilerServer:
             return NATIVE_FALLBACK
         t0 = time.perf_counter()
         lookup = urllib.parse.unquote(path).rstrip("/") or "/"
+        if (
+            self.ring.active
+            and q.get("noRedirect") != "1"
+            and not self.ring.owns(lookup)
+        ):
+            return NATIVE_FALLBACK  # bridged ring gate renders the 307
         try:
             entry = self.filer.find_entry(lookup)
         except NotFoundError:
-            # the bridge renders the canonical 404
+            # bridge renders the canonical 404 — or, for a spine-depth
+            # file whose owner is a peer, the ring gate's redirect
             return NATIVE_FALLBACK
         if entry.is_directory:
             return NATIVE_FALLBACK
@@ -1434,6 +1752,9 @@ class FilerServer:
         return bytes(out)
 
     def _h_head(self, h, path, q, body):
+        g = self._ring_point_gate(h, path, q)
+        if g is not None:
+            return g
         path = urllib.parse.unquote(path).rstrip("/") or "/"
         try:
             entry = self.filer.find_entry(path)
@@ -1443,6 +1764,12 @@ class FilerServer:
 
     # -- delete ----------------------------------------------------------------
     def _h_delete(self, h, path, q, body):
+        g = self._ring_delete_gate(h, path, q)
+        if g is not None:
+            return g
+        return self._h_delete_inner(h, path, q, body)
+
+    def _h_delete_inner(self, h, path, q, body):
         path = urllib.parse.unquote(path).rstrip("/") or "/"
         try:
             fids = self.filer.delete_entry(

@@ -16,6 +16,8 @@ counters under the reference's names:
 - ``sweed_qos_*``: the tenant governor (``util/throttler.GOVERNOR``), a
   per-tenant latency histogram and decision counter;
 - ``sweed_deadline_*``: deadline events (``util/deadline.counts``);
+- ``sweed_sync_*``: filer.sync's directions (``replication/controller.
+  sync_stats``);
 - ``sweed_lifecycle_*``: the master's autopilot (``cluster/lifecycle.py``,
   which also owns the ``lifecycle_cycle_seconds`` and
   ``lifecycle_action_seconds`` histograms). The election and the fid leases
@@ -23,7 +25,7 @@ counters under the reference's names:
 
 Counters and gauges are bumped and read from request and background
 threads, so each takes its own lock. Not ported: the gauges of features the
-port has not got yet (the lock sanitizer, hedged reads, filer sync), the
+port has not got yet (the lock sanitizer, hedged reads), the
 push-gateway
 client, and the host probes (``disk_status``, ``memory_status``), which
 nothing in the JAX package's daemons prints.
@@ -338,12 +340,54 @@ def register_lifecycle_metrics(registry: Optional[Registry] = None) -> None:
     ))
 
 
+def register_sync_metrics(registry: Optional[Registry] = None) -> None:
+    """Gauges over live cross-cluster sync directions
+    (``replication/controller.sync_stats``): per-direction lag plus
+    process-wide totals. The snapshot is network-free by construction, so
+    these gauges stay readable while the PEER cluster is down."""
+
+    def snap(key):
+        from ..replication.controller import sync_stats  # stats must not import replication at import
+
+        return sync_stats()["totals"].get(key, 0)
+
+    reg = registry or default_registry
+    _gauges(reg, snap, (
+        ("sweed_sync_replicated_total", "meta events applied to a peer cluster",
+         "replicated"),
+        ("sweed_sync_redelivered_total",
+         "crash-window redeliveries proven no-ops by idempotence markers", "redelivered"),
+        ("sweed_sync_lww_skipped_total",
+         "conflicting writes dropped as the last-writer-wins loser", "lww_skipped"),
+        ("sweed_sync_retries_total", "transient per-event apply retries", "retries"),
+        ("sweed_sync_inflight",
+         "events fetched but not yet applied, summed over directions", "inflight"),
+        ("sweed_sync_dlq_depth", "poison events parked in a dead-letter queue",
+         "dlq_depth"),
+        ("sweed_sync_parked_total",
+         "events classified poison and parked to the dead-letter queue", "parked"),
+    ))
+    lag = reg.gauge("sweed_sync_lag_s",
+                    "replication lag per direction (last seen source ts - checkpoint)")
+
+    def _push_lag():
+        from ..replication.controller import sync_stats
+
+        snapshot = sync_stats()
+        for name, d in snapshot["directions"].items():
+            lag.set(d.get("lag_s", 0.0), direction=name)
+        return snapshot["totals"].get("max_lag_s", 0.0)
+
+    reg.gauge("sweed_sync_max_lag_s", "worst-direction replication lag").set_function(_push_lag)
+
+
 register_serving_metrics()
 register_heat_metrics()
 register_ncache_metrics()
 register_fleet_metrics()
 register_lifecycle_metrics()
 register_deadline_metrics()
+register_sync_metrics()
 QOS_INSTRUMENTS = register_qos_metrics()
 
 

@@ -10,8 +10,9 @@ The search path is the reference's: ``.``, ``$HOME/.seaweedfs_tpu``,
 3. the caller's default.
 
 The port reads ``backend.toml`` (the named remote tiers of
-``storage/backend_config.py``) and, for the ``filer`` command,
-``filer.toml`` and ``notification.toml``.
+``storage/backend_config.py``), for the ``filer`` command ``filer.toml``
+(its store) and ``notification.toml`` (its event queue), and for
+``filer.replicate`` ``replication.toml`` (its sink).
 """
 
 from __future__ import annotations
@@ -48,6 +49,12 @@ class Configuration:
         if isinstance(v, str):
             return v.lower() in ("1", "true", "yes", "on")
         return bool(v)
+
+    def sub(self, prefix: str) -> dict:
+        """The raw table under a prefix (``filer.toml``'s ``[sql]``: the
+        driver's connect arguments)."""
+        v = self.get(prefix, {})
+        return v if isinstance(v, dict) else {}
 
 
 def load_configuration(name: str) -> Configuration:

@@ -3,8 +3,10 @@
 ``retry_call(fn, policy=..., classify=...)`` runs ``fn`` until it returns, a
 classifier calls the error permanent (``POISON``), the attempts run out or
 the deadline passes; then it raises :class:`RetryError`. Its callers here:
-the degraded EC read's remote shard fetch (storage/store.py) and the shell's
-re-run of a read-only command after a master failover (shell/shell.py).
+the degraded EC read's remote shard fetch (storage/store.py), the shell's
+re-run of a read-only command after a master failover (shell/shell.py), and
+filer.sync's per-event apply (replication/filer_sync.py), whose outer loop
+paces itself by ``backoff_delays``.
 """
 
 from __future__ import annotations
@@ -38,6 +40,11 @@ class RetryPolicy:
             d = random.uniform(0, d)  # full jitter
         return d
 
+
+#: replication apply path: a dead target cluster is normal (datacenter
+#: loss), so keep individual applies snappy and let the outer loop pace
+REPLICATION_POLICY = RetryPolicy(attempts=3, base_s=0.05, cap_s=1.0,
+                                 deadline_s=15.0)
 
 #: interactive/read paths (the shell's read-only commands)
 READ_POLICY = RetryPolicy(attempts=3, base_s=0.05, cap_s=0.5, deadline_s=10.0)

@@ -22,6 +22,8 @@ first appearance).
 
 from __future__ import annotations
 
+import functools
+import gzip
 import http.client
 import importlib
 import inspect
@@ -131,6 +133,9 @@ class Stack:
         fn = getattr(module, case)
         params = inspect.signature(fn).parameters
         with pytest.MonkeyPatch.context() as mp:
+            # a gzip member carries its mtime: a case that gzips its body
+            # would upload different bytes to each gateway across a second
+            mp.setattr(gzip, "compress", functools.partial(_GZIP_COMPRESS, mtime=0))
             if kind == "port":
                 for name, obj in PORT_NAMES.items():
                     if hasattr(module, name):
@@ -138,6 +143,9 @@ class Stack:
             with Recorder({self.apis[kind].port} if self.apis else ()) as rec:
                 fn(**{n: fixtures[n] for n in params})
         return normalized(rec.replies)
+
+
+_GZIP_COMPRESS = gzip.compress
 
 
 class Recorder:

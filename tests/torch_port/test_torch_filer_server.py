@@ -342,11 +342,14 @@ def test_status_ring_and_reshard(one):
     st = http_json("GET", f"http://{filer.url}/_status")
     assert st["pipeline"] == {"read_window": 8, "write_window": 4}
     assert st["master"] == master.url
+    assert set(st["sync"]) == {"directions", "totals"}
     ring = http_json("GET", f"http://{filer.url}/_ring")
-    assert ring["ring"]["active"] is False
-    if kind == "port":
-        st, body = http_bytes("POST", f"http://{filer.url}/_reshard?root=/a&target=x:1")
-        assert st == 501 and b"not ported yet" in body
+    assert ring["ring"] == {"depth": 2, "members": [], "self": filer.url, "active": False}
+    # a reshard to a target that is not there fails as an error, on both
+    st, body = http_bytes("POST", f"http://{filer.url}/_reshard?root=/a&target=127.0.0.1:1")
+    assert st == 500 and b"error" in body
+    st, body = http_bytes("POST", f"http://{filer.url}/_reshard?root=/a")
+    assert st == 400 and b"root and target are required" in body
 
 
 # -- across the two filers ----------------------------------------------------

@@ -61,7 +61,11 @@ def test_port_imports_nothing_of_jax():
                  "filer.client", "filer.ring", "s3api", "s3api.auth",
                  "s3api.policy_engine", "s3api.post_policy", "s3api.s3api_server",
                  "client", "client.fs", "ec.sharded", "ec.mesh_dryrun",
-                 "storage.needle_map_dense"):
+                 "storage.needle_map_dense", "messaging", "messaging.consistent",
+                 "filer.reshard", "filer.redis_store", "filer.sdk_stores", "util.resp",
+                 "util.mini_redis", "replication", "replication.notification",
+                 "replication.sink", "replication.cloud_sinks", "replication.replicator",
+                 "replication.filer_sync", "replication.controller"):
         assert "seaweedfs_tpu_torch." + name in walked, name
     assert lines["BAD"] == "[]", r.stdout
     assert lines["NEW_THREADS"] == "0", r.stdout

@@ -4,7 +4,7 @@ After the same traffic on both clusters, the families the port exposes and
 their label sets are the JAX package's, for the volume server and the
 master. The JAX process registry also holds families of subsystems the port
 has not got yet (the lock sanitizer, the QoS governor, hedged reads and
-deadlines, filer sync, the lifecycle autopilot, tracing): those are the
+deadlines, the lifecycle autopilot, tracing): those are the
 only names the port may lack, and the port exposes no name the JAX package
 does not. ``/ui`` renders an HTML page on both daemons of the port.
 """
@@ -17,8 +17,8 @@ from serving_pair import both, pair, request
 # the families of the subsystems the port has: every one of these that the
 # JAX page shows, the port's shows too (the JAX process registry also holds
 # whatever else its process imported: the lock sanitizer, QoS, hedging,
-# deadlines, replication, the lifecycle autopilot, ...)
-PORTED = re.compile(r"^(volume_server_|fleet_job_|sweed_(ncache|heat|scrub|query|fleet)_|"
+# deadlines, the lifecycle autopilot, ...)
+PORTED = re.compile(r"^(volume_server_|fleet_job_|sweed_(ncache|heat|scrub|query|fleet|sync)_|"
                     r"sweed_serving_(inflight|admission|keepalive|loop_lag|request_p99|"
                     r"reaped|native))")
 
