@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's erasure-coding, query, cluster, filer, S3, mesh and
-filer-fleet paths on one NVIDIA GPU.
+"""Drive the PyTorch port's erasure-coding, query, cluster, filer, S3, mesh,
+filer-fleet and client-gateway paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -84,11 +84,11 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    port volume server on ``weed master``/``weed volume`` defaults (CUDA
    backend, the native turbo engine on the public port, the asyncio core
    behind it). ``run_benchmark`` at `weed/command/benchmark.go`'s defaults
-   but half its files (524 288 files of 1 KiB from 16 connections, assigns
+   but a quarter of its files (262 144 files of 1 KiB from 16 connections, assigns
    in batches of 100): no failure, a seeded 4 096 fids read back equal, the
    engine's native posts and gets covering the run and its proxied requests
    a sliver of it. The same server restarted with ``SWEED_TURBO=0`` (the
-   asyncio core alone): a 32 768-file run, 64 GETs of 256 KiB needles by
+   asyncio core alone): an 8 192-file run, 64 GETs of 256 KiB needles by
    sendfile (byte-equal, served natively on the loop), then 512 concurrent
    connections against ``SWEED_MAX_INFLIGHT=64``: every reply a 200 or a 503
    with ``Retry-After``, at least one 503, then 64 GETs all 200. The engine
@@ -129,8 +129,8 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    (event-stream CRCs checked) on the 3-chunk and gzip'd objects; every
    reply equal to the cpu backend's. Then ``ec.encode`` seals every volume
    of the collection (4/4/3/3), the server with shards 1, 5, 9, 13 of the
-   first stops, every surviving file reads back through the filer and the
-   probe runs again on two sealed CSVs. The seal and the degraded reads
+   first stops, every surviving small file and the cipher'd object read
+   back through the filer and the probe runs again on two sealed CSVs. The seal and the degraded reads
    must launch the kernel.
 13. the S3 gateway: the port's master, four port volume servers (CUDA
    backend, the engine on), one port filer (``weed filer`` defaults) and the
@@ -192,8 +192,27 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    seeded 64 files read back through the ring and the sealed 32 MiB CSV's
    Select, through the kernel. The seal, the degraded reads and the sealed
    Select must launch the kernel.
+16. the filer's client gateways: the port's master, four port volume servers
+   (CUDA backend, the engine on), one port filer (``weed filer`` defaults,
+   collection ``gw16``) and over it the port's WebDAV gateway, FTP gateway
+   and message broker. a. WebDAV from 8 threads: 256 PUTs of 1 KiB-1 MiB, a
+   streamed 64 MiB PUT, every file read back, PROPFIND, LOCK/PUT/UNLOCK,
+   MOVE and COPY of a collection; b. FTP (``ftplib``, passive): 128 STORs
+   and a 64 MiB one, LIST, every file RETR'd; c. a port ``WFS`` writes a 64
+   MiB file by random writes (read-your-writes before the flush), reads it
+   back and renames it; ``filer.copy`` of 128 files (the function and the
+   CLI); one ``MountSync`` round both ways; and where the host has FUSE the
+   kernel mount (``cp``, ``cat``, ``ls``; else the line says why not);
+   d. 8 000 messages published through the broker from 4 threads, every
+   partition replayed from 0 in order, count and md5 equal; e. ``ec.encode``
+   seals the collection (4/4/3/3), the server with shards 1, 5, 9, 13 of the
+   first stops, and a seeded 32 files read back through WebDAV and 32
+   through FTP, the 64 MiB file through WFS (and the small files through
+   FUSE), and a whole
+   partition through a restarted broker, byte for byte. The seal and the
+   sealed reads (together) must launch the kernel.
 
-Phases 6, 8, 9, 10, 12, 13 and 15 run with the JAX package's default serving stack: the
+Phases 6, 8, 9, 10, 12, 13, 15 and 16 run with the JAX package's default serving stack: the
 native turbo engine (built from ``seaweedfs_tpu_torch/csrc/turbo.cpp``)
 owns each volume server's public port, the asyncio core serves the rest.
 Each of them fails if a volume server in it started without the engine, and
@@ -205,8 +224,8 @@ servers of phase 8 share the card so, and the fleet scheduler runs up to
 four generate jobs together); each result must equal the plain version's.
 
 Every phase prints one JSON line with its numbers and kernel launches.
-Phases 2-15 are the main path: the launch counts are zeroed before phase 2
-and read after phase 15 (phase 14's child ranks count in their own
+Phases 2-16 are the main path: the launch counts are zeroed before phase 2
+and read after phase 16 (phase 14's child ranks count in their own
 processes and report theirs), and every phase must have launched the
 kernel. The
 line before last lists each kernel with its launches, error and times; the
@@ -2141,8 +2160,8 @@ def phase9(state) -> None:
 # weed/command/benchmark.go's defaults (-c 16 -size 1024) with the reference's
 # -assign.batch 100, at half its -n 1048576 (a cut since phase 11 came, so
 # that the whole script stays well inside its time limit: PERF.md section 4)
-BENCH_N, BENCH_C, BENCH_SIZE, BENCH_BATCH = 1 << 19, 16, 1024, 100
-BENCH_N_THREADS = 1 << 15  # the run on the asyncio core alone (a cut: PERF.md section 4)
+BENCH_N, BENCH_C, BENCH_SIZE, BENCH_BATCH = 1 << 18, 16, 1024, 100  # a cut: PERF.md section 4
+BENCH_N_THREADS = 1 << 13  # the run on the asyncio core alone (a cut: PERF.md section 4)
 BENCH_SAMPLE = 4096  # fids read back and compared after the run
 SHED_WATERMARK, SHED_CONNS = 64, 512
 EC_READS = 4096  # fids of the sealed volume read back through the engine
@@ -2905,9 +2924,9 @@ def phase12(state) -> None:
     card), and the probe as ``/_select`` on the 3-chunk and gzip'd objects;
     every reply equal to the cpu backend's. Then the shell's ``ec.encode``
     seals every volume of the collection (4/4/3/3), the server with shards
-    1, 5, 9, 13 of the first stops, every surviving file reads back through
-    the filer and the probe runs again on a sealed single-chunk CSV and the
-    3-chunk one, through gf_matmul."""
+    1, 5, 9, 13 of the first stops, every surviving small file and the
+    cipher'd object read back through the filer and the probe runs again on
+    a sealed single-chunk CSV and the 3-chunk one, through gf_matmul."""
     t_start = time.perf_counter()
     n_servers, threads = 4, FILER_THREADS
     out: dict = {"phase": 12, "servers": n_servers, "collection": FILER_COL,
@@ -3211,8 +3230,10 @@ def phase12(state) -> None:
         out["victim_shards"] = {v: encodes[v].get(victim, []) for v in vids}
         # an empty chunk cache: every read below reaches the volume servers
         filer.chunk_cache = type(filer.chunk_cache)()
-        out["degraded_read"] = step("degraded_read",
-                                    lambda: read_all(list(files), "degraded"))
+        # every small file and the cipher'd object (every file before a cut:
+        # PERF.md section 4)
+        out["degraded_read"] = step("degraded_read", lambda: read_all(
+            [*small, *cipher], "degraded"))
         q0, r0 = served(), filer.query_routes()
         ec_bad, ec_ms = [], []
 
@@ -4524,6 +4545,596 @@ def phase15(state) -> None:
         raise SystemExit(f"phase 15: no kernel launch in {idle}")
 
 
+GW_COL = "gw16"  # the gateways' collection
+GW_DAV_FILES = 256  # WebDAV PUTs of 1 KiB-1 MiB, log-uniform (phase 6's mix)
+GW_DAV_DIRS = 8
+GW_FTP_FILES = 128
+GW_LARGE = 64 * MiB  # the streamed WebDAV PUT, the FTP STOR, the mount's file
+GW_COPY_FILES = 128  # the local tree of filer.copy
+GW_FUSE_SMALL = 64
+GW_MESSAGES = 8_000  # 64-1 024 B each (64 000 before a cut: PERF.md section 4)
+GW_PARTITIONS = 4
+GW_SEALED_READS = 32  # small files a gateway reads back after the seal
+GW_THREADS = 8
+
+
+def _log_uniform(rng, n: int, lo: int = 1024, hi: int = MiB) -> list:
+    return [rng.bytes(int(np.exp(rng.uniform(np.log(lo), np.log(hi))))) for _ in range(n)]
+
+
+def _fuse_mount(wfs, mountpoint: str, root: str):
+    """``(FuseMount, None)`` once the kernel shows the mount, else ``(None,
+    why)``: FUSE missing on the host, or the mount refused by it."""
+    import ctypes.util
+    import platform
+
+    from seaweedfs_tpu_torch.mount.fuse_mount import FuseMount, fuse_available
+
+    if not fuse_available():
+        return None, (f"fuse_available() is false: machine {platform.machine()}, /dev/fuse "
+                      f"{'present' if os.path.exists('/dev/fuse') else 'absent'}, libfuse "
+                      f"{ctypes.util.find_library('fuse') or 'not found'}")
+    try:
+        return FuseMount(wfs, mountpoint, root=root).mount(), None
+    except Exception as e:  # noqa: BLE001 — the host refused the mount: said, not hidden
+        return None, f"the mount was refused: {e!r}"
+
+
+def _replay(mc, partition: int) -> list:
+    """(key, value) of every message of one partition of gw16/events, from 0."""
+    got, since = [], 0
+    while True:
+        msgs, since = mc.fetch("gw16", "events", partition, since_ns=since, limit=1000)
+        if not msgs:
+            return got
+        got += [(m["key"], m["value"]) for m in msgs]
+
+
+def phase16(state) -> None:
+    """The filer's client gateways: the port's master, four port volume
+    servers (CUDA backend, ``weed volume`` defaults, the engine on), one port
+    filer (``weed filer`` defaults: 32 MiB chunks, a sqlite ``filer.db``,
+    collection ``gw16`` on four volumes), and over it the port's WebDAV
+    gateway (``weed webdav`` defaults), FTP gateway (``weed ftp``, one user)
+    and message broker (``weed msgBroker``), in one process. a. WebDAV from 8
+    threads: MKCOL, 256 PUTs of 1 KiB-1 MiB, a streamed 64 MiB PUT, every
+    file read back, PROPFIND depth 1, LOCK -> PUT with the token (and
+    without: 423) -> UNLOCK, MOVE and COPY of a collection. b. FTP through
+    ``ftplib`` (passive): 128 STORs and a 64 MiB one, LIST, every file
+    RETR'd. c. The mount: a port ``WFS`` (``weed mount`` defaults: 8 MiB
+    chunks, the meta cache on) writes a 64 MiB file by random writes of 4
+    KiB-1 MiB (read-your-writes before the flush), reads it back
+    sequentially and renames it; ``filer.copy`` of a local tree of 128 files
+    (``copy_to_filer``, and the CLI's ``main()``); one bidirectional
+    ``MountSync`` round; and, where the host has FUSE, the kernel mount: a 64
+    MiB ``cp`` and 64 small ones into it, ``cat`` and ``ls`` back. d. The
+    broker: 8 000 messages of 64-1 024 B published from 4 threads through
+    ``MessagingClient``, one partition a thread, ``/_flush``, then every
+    partition subscribed from 0: each message back in order, the count and
+    md5 equal to what was published. e. ``ec.encode`` of the collection
+    (4/4/3/3), the server with shards 1, 5, 9, 13 of the first stops, and a
+    seeded 32 files read back through WebDAV and 32 through FTP, the 64 MiB
+    file through WFS (and the 64 small files through FUSE where step c
+    mounted), and one whole partition replayed from 0 through a restarted
+    broker, through gf_matmul."""
+    import ftplib
+
+    from seaweedfs_tpu_torch.__main__ import main as cli_main
+    from seaweedfs_tpu_torch.filer.client import FilerClient
+    from seaweedfs_tpu_torch.messaging import Broker, MessagingClient
+    from seaweedfs_tpu_torch.mount import WFS
+    from seaweedfs_tpu_torch.mount.sync import MountSync, copy_to_filer
+    from seaweedfs_tpu_torch.server.ftp_server import FtpServer
+    from seaweedfs_tpu_torch.server.webdav_server import WebDavServer
+
+    t_start = time.perf_counter()
+    n_servers, threads = 4, GW_THREADS
+    out: dict = {"phase": 16, "servers": n_servers, "collection": GW_COL,
+                 "chunk_MiB": FILER_CHUNK / MiB, "client_threads": threads}
+    steps: dict = {}
+    master = MasterServer(host="127.0.0.1", port=_free_port(), node_timeout=3.0).start()
+    servers, stopped = [], set()
+    for i in range(n_servers):
+        servers.append(VolumeServer([os.path.join(WORK, f"16srv{i}")], host="127.0.0.1",
+                                    port=_free_port(), master_url=master.url,
+                                    pulse_seconds=0.5, ec_backend=EC_BACKEND))
+    by_url = {f"127.0.0.1:{vs.port}": vs for vs in servers}
+    eng = _Engines(16, servers)
+    work = os.path.join(WORK, "16gw")
+    os.makedirs(work)
+    filer = dav = ftp_srv = broker = None
+    wfs_list: list = []
+    mounts: list = []
+    env = CommandEnv(master.url)
+
+    def step(name: str, fn):
+        l0, t0 = gm.gf_matmul.launches, time.perf_counter()
+        res = fn()
+        steps[name] = {"s": time.perf_counter() - t0, "launches": gm.gf_matmul.launches - l0}
+        emit({"phase": 16, "step": name, **steps[name], **(res or {})})
+        return res
+
+    def new_wfs(**kw):
+        wfs_list.append(WFS(filer.url, collection=GW_COL, **kw))
+        return wfs_list[-1]
+
+    def ftp_login():
+        c = ftplib.FTP()
+        c.connect(ftp_srv.host, ftp_srv.port, timeout=600)
+        c.login("gw16", "haystack16")
+        return c
+
+    try:
+        for vs in servers:
+            vs.start()
+        eng.check()
+        if not _until(lambda: len(master.master.topo.data_nodes()) == n_servers):
+            raise SystemExit("phase 16: the volume servers did not register")
+        grown = _admin(master.url, f"/vol/grow?collection={GW_COL}&count=4&replication=000")
+        if grown != {"count": 4}:
+            raise SystemExit(f"phase 16: /vol/grow answered {grown}")
+        filer = FilerServer(host="127.0.0.1", port=_free_port(), master_url=master.url,
+                            chunk_size=FILER_CHUNK, db_path=os.path.join(work, "filer.db"),
+                            collection=GW_COL, replication="000", read_window=4,
+                            write_window=4, query_backend=FILER_QUERY_BACKEND).start()
+        dav = WebDavServer(host="127.0.0.1", port=_free_port(), filer_url=filer.url).start()
+        ftp_srv = FtpServer(host="127.0.0.1", port=_free_port(), filer_url=filer.url,
+                            users={"gw16": "haystack16"}).start()
+        broker = Broker(host="127.0.0.1", port=_free_port(), filer_url=filer.url).start()
+        out["gateways"] = {"filer": filer.url, "webdav": dav.url, "ftp": ftp_srv.url,
+                           "broker": broker.url}
+
+        # the data, from the seed
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(16)
+        files: dict = {}  # filer path -> bytes, whichever gateway wrote it
+        dav_small = {f"/dav16/d{i % GW_DAV_DIRS:02d}/f{i:04d}.bin": b
+                     for i, b in enumerate(_log_uniform(rng, GW_DAV_FILES))}
+        ftp_small = {f"/ftp16/g{i:04d}.bin": b
+                     for i, b in enumerate(_log_uniform(rng, GW_FTP_FILES))}
+        copy_tree = _log_uniform(rng, GW_COPY_FILES)
+        large = {"dav": rng.bytes(GW_LARGE), "ftp": rng.bytes(GW_LARGE),
+                 "wfs": rng.bytes(GW_LARGE)}
+        payloads = [[(b"p%d-%06d" % (p, i), rng.bytes(int(n))) for i, n in
+                     enumerate(rng.integers(64, 1025, GW_MESSAGES // GW_PARTITIONS))]
+                    for p in range(GW_PARTITIONS)]
+        out["data_gen_s"] = time.perf_counter() - t0
+
+        # a. WebDAV
+        def webdav() -> dict:
+            d = dav.url
+            for path in ["/dav16"] + [f"/dav16/d{i:02d}" for i in range(GW_DAV_DIRS)]:
+                if _filer_call(d, "MKCOL", path)[0] != 201:
+                    raise SystemExit(f"phase 16: MKCOL {path} refused")
+            put_ms, get_ms, bad = [], [], []
+
+            def put(path: str) -> None:
+                status, _, sec = _filer_call(d, "PUT", path, dav_small[path])
+                put_ms.append(sec * 1e3)
+                if status != 201:
+                    bad.append(("PUT", path, status))
+
+            def get(path: str) -> None:
+                status, data, sec = _filer_call(d, "GET", path)
+                get_ms.append(sec * 1e3)
+                if status != 200 or data != files[path]:
+                    bad.append(("GET", path, status))
+
+            put_s = _parallel(put, list(dav_small), threads)
+            files.update(dav_small)
+            status, _, big_put_s = _filer_call(d, "PUT", "/dav16/large.bin",
+                                               io.BytesIO(large["dav"]),
+                                               {"Content-Length": str(GW_LARGE)})
+            if status != 201:
+                raise SystemExit(f"phase 16: the streamed PUT answered {status}")
+            files["/dav16/large.bin"] = large["dav"]
+            status, data, big_get_s = _filer_call(d, "GET", "/dav16/large.bin")
+            if status != 200 or data != large["dav"]:
+                raise SystemExit(f"phase 16: the 64 MiB GET answered {status}, "
+                                 f"{len(data)} bytes")
+            get_s = _parallel(get, list(dav_small), threads)
+            status, body, pf_s = _filer_call(d, "PROPFIND", "/dav16/d00/",
+                                             headers={"Depth": "1"})
+            in_d00 = sum(p.startswith("/dav16/d00/") for p in dav_small)
+            if status != 207 or body.count(b"<D:response>") != in_d00 + 1:
+                raise SystemExit(f"phase 16: PROPFIND answered {status}, "
+                                 f"{body.count(b'<D:response>')} responses for {in_d00} files")
+            # LOCK -> PUT without the token (423) and with it -> UNLOCK
+            target = "/dav16/d00/f0000.bin"
+            lockinfo = (b'<?xml version="1.0" encoding="utf-8"?><D:lockinfo xmlns:D="DAV:">'
+                        b"<D:lockscope><D:exclusive/></D:lockscope><D:locktype><D:write/>"
+                        b"</D:locktype><D:owner><D:href>phase16</D:href></D:owner></D:lockinfo>")
+            conn = http.client.HTTPConnection(d, timeout=60)
+            try:
+                conn.request("LOCK", target, body=lockinfo, headers={"Timeout": "Second-600"})
+                resp = conn.getresponse()
+                resp.read()
+                token = (resp.getheader("Lock-Token") or "").strip("<>")
+            finally:
+                conn.close()
+            new_body = rng.bytes(4096)
+            locked = (resp.status,
+                      _filer_call(d, "PUT", target, b"refused")[0],
+                      _filer_call(d, "PUT", target, new_body, {"If": f"(<{token}>)"})[0],
+                      _filer_call(d, "UNLOCK", target, headers={"Lock-Token": f"<{token}>"})[0])
+            if locked != (200, 423, 204, 204):
+                raise SystemExit(f"phase 16: LOCK, PUT, PUT with the token, UNLOCK: {locked}")
+            files[target] = dav_small[target] = new_body
+            # MOVE and COPY of a collection
+            last, prev = f"/dav16/d{GW_DAV_DIRS - 1:02d}", f"/dav16/d{GW_DAV_DIRS - 2:02d}"
+            moved = (_filer_call(d, "MOVE", last,
+                                 headers={"Destination": f"http://{d}/dav16/m"})[0],
+                     _filer_call(d, "COPY", prev,
+                                 headers={"Destination": f"http://{d}/dav16/c"})[0])
+            if moved != (201, 201):
+                raise SystemExit(f"phase 16: MOVE, COPY answered {moved}")
+            for p in [p for p in dav_small if p.startswith(last + "/")]:
+                files["/dav16/m/" + p.rsplit("/", 1)[1]] = dav_small.pop(p)
+                del files[p]
+            for p in [p for p in dav_small if p.startswith(prev + "/")]:
+                files["/dav16/c/" + p.rsplit("/", 1)[1]] = dav_small[p]
+            bad += [p for p in files if p.startswith(("/dav16/m/", "/dav16/c/"))
+                    and _filer_call(d, "GET", p)[1] != files[p]]
+            if bad:
+                raise SystemExit(f"phase 16: WebDAV: {bad[:5]}")
+            nbytes = sum(map(len, dav_small.values()))
+            return {"files": GW_DAV_FILES, "bytes": nbytes, "put_s": put_s,
+                    "put_MBps": nbytes / put_s / 1e6, "put_ms_p50": _pct(put_ms, 50),
+                    "put_ms_p99": _pct(put_ms, 99), "get_s": get_s,
+                    "get_ms_p50": _pct(get_ms, 50), "get_ms_p99": _pct(get_ms, 99),
+                    "large_put_MBps": GW_LARGE / big_put_s / 1e6,
+                    "large_get_MBps": GW_LARGE / big_get_s / 1e6,
+                    "propfind_ms": pf_s * 1e3, "propfind_entries": in_d00}
+
+        step("a_webdav", webdav)
+
+        # b. FTP
+        def ftp() -> dict:
+            c = ftp_login()
+            stor_ms, retr_bad = [], []
+            t0 = time.perf_counter()
+            for path, data in ftp_small.items():
+                t1 = time.perf_counter()
+                c.storbinary(f"STOR {path}", io.BytesIO(data))
+                stor_ms.append((time.perf_counter() - t1) * 1e3)
+            stor_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            c.storbinary("STOR /ftp16/large.bin", io.BytesIO(large["ftp"]), blocksize=MiB)
+            big_stor_s = time.perf_counter() - t0
+            files.update(ftp_small)
+            files["/ftp16/large.bin"] = large["ftp"]
+            listing: list = []
+            t0 = time.perf_counter()
+            c.retrlines("LIST /ftp16", listing.append)
+            list_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for path, data in ftp_small.items():
+                got = io.BytesIO()
+                c.retrbinary(f"RETR {path}", got.write, blocksize=MiB)
+                if got.getvalue() != data:
+                    retr_bad.append(path)
+            retr_s = time.perf_counter() - t0
+            got = io.BytesIO()
+            t0 = time.perf_counter()
+            c.retrbinary("RETR /ftp16/large.bin", got.write, blocksize=MiB)
+            big_retr_s = time.perf_counter() - t0
+            c.quit()
+            if retr_bad or got.getvalue() != large["ftp"] or len(listing) != GW_FTP_FILES + 1:
+                raise SystemExit(f"phase 16: FTP: {len(retr_bad)} RETRs wrong, the 64 MiB "
+                                 f"{len(got.getvalue())} bytes, LIST {len(listing)} lines")
+            nbytes = sum(map(len, ftp_small.values()))
+            return {"files": GW_FTP_FILES, "bytes": nbytes, "stor_s": stor_s,
+                    "stor_MBps": nbytes / stor_s / 1e6, "stor_ms_p50": _pct(stor_ms, 50),
+                    "stor_ms_p99": _pct(stor_ms, 99), "retr_MBps": nbytes / retr_s / 1e6,
+                    "large_stor_MBps": GW_LARGE / big_stor_s / 1e6,
+                    "large_retr_MBps": GW_LARGE / big_retr_s / 1e6, "list_ms": list_s * 1e3}
+
+        step("b_ftp", ftp)
+
+        # c. the mount: WFS, filer.copy, MountSync, FUSE
+        def mount() -> dict:
+            wfs = new_wfs()
+            wfs.mkdir("/mnt16")
+            rr = np.random.default_rng(1616)
+            cuts = [0]
+            while cuts[-1] < GW_LARGE:
+                cuts.append(min(GW_LARGE, cuts[-1] + int(rr.integers(4096, MiB + 1))))
+            pieces = list(zip(cuts[:-1], cuts[1:]))
+            order = rr.permutation(len(pieces))
+            data, path = large["wfs"], "/mnt16/random.bin"
+            ryw_bad = 0
+            t0 = time.perf_counter()
+            with wfs.open(path, "w") as f:
+                for n, i in enumerate(order):
+                    lo, hi = pieces[i]
+                    f.write(lo, data[lo:hi])
+                    if n >= len(order) - 8:  # read-your-writes before the flush
+                        ryw_bad += f.read(lo, hi - lo) != data[lo:hi]
+                dirty = f.dirty.total_size()
+            write_s = time.perf_counter() - t0
+            chunks = len(wfs.stat(path).chunks)
+            t0 = time.perf_counter()
+            back = new_wfs(use_meta_cache=False).read_file(path)
+            read_s = time.perf_counter() - t0
+            wfs.rename(path, "/mnt16/random64.bin")
+            if ryw_bad or back != data or wfs.exists(path) or \
+                    wfs.stat("/mnt16/random64.bin").file_size() != GW_LARGE:
+                raise SystemExit(f"phase 16: WFS: {ryw_bad} dirty reads wrong, read back "
+                                 f"{len(back)} bytes, equal: {back == data}")
+            files["/mnt16/random64.bin"] = data
+            res = {"pieces": len(pieces), "chunks": chunks, "dirty_at_close": dirty,
+                   "write_MBps": GW_LARGE / write_s / 1e6, "read_MBps": GW_LARGE / read_s / 1e6}
+            # filer.copy of a local tree, by the function and by the CLI
+            tree = os.path.join(work, "tree")
+            for i, blob in enumerate(copy_tree):
+                p = os.path.join(tree, f"s{i % 4}", f"c{i:04d}.bin")
+                os.makedirs(os.path.dirname(p), exist_ok=True)
+                with open(p, "wb") as fh:
+                    fh.write(blob)
+            t0 = time.perf_counter()
+            n = copy_to_filer(tree, filer.url, "/copy16")
+            copy_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cli_main(["filer.copy", "-filer", filer.url, "-filer.path", "/copy16cli", tree])
+            cli_s = time.perf_counter() - t0
+            nbytes = sum(map(len, copy_tree))
+            for root in ("/copy16", "/copy16cli"):
+                for i, blob in enumerate(copy_tree):
+                    files[f"{root}/s{i % 4}/c{i:04d}.bin"] = blob
+            held = _ring_walk(filer.url, "/copy16")
+            bad = [p for p in files if p.startswith(("/copy16/", "/copy16cli/"))
+                   and _filer_call(filer.url, "GET", p)[1] != files[p]]
+            if n != GW_COPY_FILES or len(held) != GW_COPY_FILES or bad:
+                raise SystemExit(f"phase 16: filer.copy copied {n}, the filer holds "
+                                 f"{len(held)}, {len(bad)} wrong")
+            res.update(copy_files=n, copy_MBps=nbytes / copy_s / 1e6,
+                       copy_cli_MBps=nbytes / cli_s / 1e6)
+            # one bidirectional MountSync round
+            local = os.path.join(work, "sync")
+            t0 = time.perf_counter()
+            ms = MountSync(filer.url, "/copy16", local, scan_seconds=3600).start()
+            try:
+                pull_s = time.perf_counter() - t0
+                remote_new, local_new = rr.bytes(300_000), rr.bytes(200_000)
+                wfs.write_file("/copy16/remote_new.bin", remote_new)
+                with open(os.path.join(local, "local_new.bin"), "wb") as fh:
+                    fh.write(local_new)
+                t0 = time.perf_counter()
+                sync_round = ms.sync_once()
+                round_s = time.perf_counter() - t0
+            finally:
+                ms.stop()
+            with open(os.path.join(local, "remote_new.bin"), "rb") as fh:
+                pulled = fh.read()
+            pushed = _filer_call(filer.url, "GET", "/copy16/local_new.bin")[1]
+            # the remote file's create and its chunk commit are two events
+            if pulled != remote_new or pushed != local_new or sync_round["pushed"] != 1 \
+                    or not sync_round["pulled"]:
+                raise SystemExit(f"phase 16: the MountSync round gave {sync_round}")
+            files.update({"/copy16/remote_new.bin": remote_new,
+                          "/copy16/local_new.bin": local_new})
+            res.update(sync_materialize_s=pull_s, sync_round_s=round_s)
+            # the kernel's FUSE mount, where the host has it
+            wfs.mkdir("/fuse16")
+            mp = os.path.join(work, "fuse")
+            fm, why = _fuse_mount(new_wfs(), mp, "/fuse16")
+            if fm is None:
+                res["fuse"] = {"ran": False, "why": why}
+                return res
+            mounts.append(fm)
+            src = os.path.join(work, "fuse_src")
+            os.makedirs(src)
+            with open(os.path.join(src, "big.bin"), "wb") as fh:
+                fh.write(large["dav"])
+            smalls = {f"m{i:03d}.bin": blob for i, blob in enumerate(copy_tree[:GW_FUSE_SMALL])}
+            for name, blob in smalls.items():
+                with open(os.path.join(src, name), "wb") as fh:
+                    fh.write(blob)
+            os.makedirs(os.path.join(mp, "small"))
+            t0 = time.perf_counter()
+            r1 = subprocess.run(["cp", os.path.join(src, "big.bin"), mp], capture_output=True)
+            cp_s = time.perf_counter() - t0
+            r2 = subprocess.run(["cp", *[os.path.join(src, n) for n in smalls],
+                                 os.path.join(mp, "small")], capture_output=True)
+            t0 = time.perf_counter()
+            cat = subprocess.run(["cat", os.path.join(mp, "big.bin")], capture_output=True)
+            cat_s = time.perf_counter() - t0
+            listed = sorted(os.listdir(os.path.join(mp, "small")))
+            small_bad = []
+            for name, blob in smalls.items():
+                with open(os.path.join(mp, "small", name), "rb") as fh:
+                    if fh.read() != blob:
+                        small_bad.append(name)
+            mounts.remove(fm)
+            fm.unmount()
+            if r1.returncode or r2.returncode or cat.stdout != large["dav"] or small_bad \
+                    or listed != sorted(smalls) or os.path.ismount(mp):
+                raise SystemExit(f"phase 16: FUSE: cp {r1.returncode}/{r2.returncode} "
+                                 f"{r1.stderr[-200:]!r}, cat {len(cat.stdout)} bytes, "
+                                 f"{len(small_bad)} small files wrong, ls {len(listed)}")
+            files["/fuse16/big.bin"] = large["dav"]
+            files.update({f"/fuse16/small/{n}": b for n, b in smalls.items()})
+            res["fuse"] = {"ran": True, "cp_MBps": GW_LARGE / cp_s / 1e6,
+                           "cat_MBps": GW_LARGE / cat_s / 1e6, "small_files": len(smalls)}
+            return res
+
+        fuse_ran = step("c_mount", mount)["fuse"]["ran"]
+
+        # d. the broker
+        published = {}
+
+        def pubsub() -> dict:
+            mc = MessagingClient([broker.url])
+            mc.create_topic("gw16", "events", partitions=GW_PARTITIONS)
+            errors = []
+
+            def pub(p: int) -> None:
+                try:
+                    for key, value in payloads[p]:
+                        mc.publish("gw16", "events", value, key=key, partition=p)
+                except Exception as e:  # noqa: BLE001 — every failure is reported below
+                    errors.append((p, repr(e)))
+
+            pub_s = _parallel(pub, list(range(GW_PARTITIONS)), GW_PARTITIONS)
+            if errors:
+                raise SystemExit(f"phase 16: publishes failed: {errors}")
+            if _filer_call(broker.url, "POST", "/_flush")[0] != 200:
+                raise SystemExit("phase 16: /_flush refused")
+            for tp in list(broker.topics._partitions.values()):
+                for t in list(tp.buffer._flushers):  # every segment on the filer
+                    t.join(timeout=120)
+            t0 = time.perf_counter()
+            got = {p: _replay(mc, p) for p in range(GW_PARTITIONS)}
+            fetch_s = time.perf_counter() - t0
+            for p in range(GW_PARTITIONS):
+                published[p] = hashlib.md5(b"".join(v for _, v in payloads[p])).hexdigest()
+                if got[p] != payloads[p]:
+                    raise SystemExit(f"phase 16: partition {p}: {len(got[p])} messages back "
+                                     f"of {len(payloads[p])}")
+            segs = {p: len(FilerClient(filer.url).list(f"/topics/gw16/events/{p:02d}"))
+                    for p in range(GW_PARTITIONS)}
+            nbytes = sum(len(v) for msgs in payloads for _, v in msgs)
+            return {"messages": GW_MESSAGES, "bytes": nbytes, "publish_s": pub_s,
+                    "publish_msgs_per_s": GW_MESSAGES / pub_s,
+                    "fetch_msgs_per_s": GW_MESSAGES / fetch_s, "segments": segs,
+                    "md5": published}
+
+        step("d_broker", pubsub)
+
+        # e. seal, lose a server, read back through every gateway
+        walked = _ring_walk(filer.url, "/")
+        vids = sorted({FileId.parse(c["file_id"]).volume_id for e in walked.values()
+                       for c in e.get("chunks", [])})
+
+        def seal() -> dict:
+            encodes = {}
+            with _ShellCalls() as sc:
+                for vid in vids:
+                    encodes[vid] = run_command(
+                        env, f"ec.encode -volumeId={vid} -collection={GW_COL}")["spread"]
+            if any(sorted(len(s) for s in sp.values()) != [3, 3, 4, 4]
+                   for sp in encodes.values()):
+                raise SystemExit(f"phase 16: the shards spread as {encodes}")
+            if not _until(lambda: all(len(env.ec_shard_locations(v)) == 14
+                                      and not master.master.topo.lookup(GW_COL, v)
+                                      for v in vids)):
+                raise SystemExit("phase 16: the master never saw every volume's 14 shards")
+            victim = next(t for t, sids in encodes[vids[0]].items() if sids == [1, 5, 9, 13])
+            eng.stop(by_url[victim])
+            stopped.add(victim)
+            if not _until(lambda: not any(victim in urls for v in vids for urls in
+                                          master.master.lookup_ec_volume(v)[
+                                              "shard_id_locations"].values()), timeout=60):
+                raise SystemExit(f"phase 16: the master still names {victim} as a shard holder")
+            filer.chunk_cache = type(filer.chunk_cache)()  # every read reaches the servers
+            return {"volumes": vids, "files": len(walked),
+                    "generate_s": sc.seconds["/admin/ec/generate"],
+                    "copy_s": sc.seconds["/admin/ec/copy"], "victim": victim,
+                    "victim_shards": {v: encodes[v].get(victim, []) for v in vids}}
+
+        step("e_ec_encode", seal)
+        pick = np.random.default_rng(16016)
+        dav_sample = sorted(pick.choice(sorted(dav_small), GW_SEALED_READS, replace=False))
+        ftp_sample = sorted(pick.choice(sorted(ftp_small), GW_SEALED_READS, replace=False))
+
+        def sealed_webdav() -> dict:
+            t0 = time.perf_counter()
+            bad = [p for p in dav_sample if _filer_call(dav.url, "GET", p)[1] != files[p]]
+            sec = time.perf_counter() - t0
+            if bad:
+                raise SystemExit(f"phase 16: sealed WebDAV reads wrong: {bad[:5]}")
+            return {"files": len(dav_sample), "read_s": sec,
+                    "bytes": sum(len(files[p]) for p in dav_sample)}
+
+        def sealed_ftp() -> dict:
+            c, bad = ftp_login(), []
+            t0 = time.perf_counter()
+            for p in ftp_sample:
+                got = io.BytesIO()
+                c.retrbinary(f"RETR {p}", got.write, blocksize=MiB)
+                if got.getvalue() != files[p]:
+                    bad.append(p)
+            sec = time.perf_counter() - t0
+            c.quit()
+            if bad:
+                raise SystemExit(f"phase 16: sealed FTP reads wrong: {bad[:5]}")
+            return {"files": len(ftp_sample), "read_s": sec,
+                    "bytes": sum(len(files[p]) for p in ftp_sample)}
+
+        def sealed_wfs() -> dict:
+            t0 = time.perf_counter()
+            back = new_wfs(use_meta_cache=False).read_file("/mnt16/random64.bin")
+            sec = time.perf_counter() - t0
+            if back != files["/mnt16/random64.bin"]:
+                raise SystemExit(f"phase 16: the sealed WFS read gave {len(back)} bytes, "
+                                 "not the file")
+            return {"bytes": len(back), "read_s": sec, "MBps": len(back) / sec / 1e6}
+
+        def sealed_fuse() -> dict:
+            # the small files, not the 64 MiB one: each 128 KiB kernel read
+            # refetches its whole 8 MiB chunk, rebuilt anew once sealed (a
+            # cut: PERF.md section 4)
+            mp = os.path.join(work, "fuse")
+            fm, why = _fuse_mount(new_wfs(), mp, "/fuse16")
+            if fm is None:  # it mounted in step c: a refusal now is a failure
+                raise SystemExit(f"phase 16: the FUSE remount failed: {why}")
+            mounts.append(fm)
+            names = sorted(p.rsplit("/", 1)[1] for p in files if p.startswith("/fuse16/small/"))
+            t0 = time.perf_counter()
+            cat = subprocess.run(["cat", *names], cwd=os.path.join(mp, "small"),
+                                 capture_output=True)
+            sec = time.perf_counter() - t0
+            listed = sorted(os.listdir(os.path.join(mp, "small")))
+            mounts.remove(fm)
+            fm.unmount()
+            want = b"".join(files[f"/fuse16/small/{n}"] for n in names)
+            if cat.returncode or cat.stdout != want or listed != names:
+                raise SystemExit(f"phase 16: the sealed FUSE read gave {len(cat.stdout)} "
+                                 f"bytes of {len(want)}: {cat.stderr[-200:]!r}")
+            return {"files": len(names), "bytes": len(want), "read_s": sec}
+
+        def sealed_broker() -> dict:
+            nonlocal broker
+            broker.stop()  # a fresh broker holds nothing in memory: every read is a segment's
+            broker = Broker(host="127.0.0.1", port=_free_port(), filer_url=filer.url).start()
+            t0 = time.perf_counter()
+            got = _replay(MessagingClient([broker.url]), 0)
+            sec = time.perf_counter() - t0
+            md5 = hashlib.md5(b"".join(v for _, v in got)).hexdigest()
+            if got != payloads[0] or md5 != published[0]:
+                raise SystemExit(f"phase 16: the sealed replay of partition 0 gave "
+                                 f"{len(got)} messages of {len(payloads[0])}")
+            return {"partition": 0, "messages": len(got), "read_s": sec, "md5": md5}
+
+        step("e_sealed_webdav", sealed_webdav)
+        step("e_sealed_ftp", sealed_ftp)
+        step("e_sealed_wfs", sealed_wfs)
+        if fuse_ran:
+            step("e_sealed_fuse", sealed_fuse)
+        step("e_sealed_broker", sealed_broker)
+    finally:
+        for fm in mounts:
+            fm.unmount()
+        for w in wfs_list:
+            w.close()
+        for srv in (broker, ftp_srv, dav, filer):
+            if srv is not None:
+                srv.stop()
+        for url, vs in by_url.items():
+            if url not in stopped:
+                eng.stop(vs)
+        master.stop()
+    sealed = {k: v["launches"] for k, v in steps.items() if k.startswith("e_sealed_")}
+    out.update(turbo=eng.totals(), steps={k: {"s": v["s"], "launches": v["launches"]}
+                                          for k, v in steps.items()},
+               sealed_read_launches=sealed, wall_s=time.perf_counter() - t_start,
+               launches=gm.gf_matmul.launches - state["l_phase"], nvidia_smi=state["smi"])
+    emit(out)
+    if not steps["e_ec_encode"]["launches"] or not sum(sealed.values()):
+        raise SystemExit(f"phase 16: no kernel launch in the seal or the sealed reads: "
+                         f"{out['steps']}")
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -4531,7 +5142,7 @@ def _free_port() -> int:
 
 
 MAIN_PATH = (phase2, phase3, phase4, phase5, phase6, phase7, phase8, phase9, phase10,
-             phase11, phase12, phase13, phase14, phase15)
+             phase11, phase12, phase13, phase14, phase15, phase16)
 
 
 def main() -> int:

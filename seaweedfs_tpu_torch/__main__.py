@@ -1,6 +1,6 @@
 """Command line: ``python -m seaweedfs_tpu_torch
-master|volume|filer|s3|filer.sync|filer.replicate|watch|shell|upload|download|delete|backup|
-compact|volume.tail|benchmark ...``.
+master|volume|filer|s3|webdav|ftp|msgBroker|mount|filer.copy|filer.sync|filer.replicate|watch|
+shell|upload|download|delete|backup|compact|volume.tail|benchmark ...``.
 
 - ``master`` runs a master with the flags of ``weed master``: ``-ip -port
   -volumeSizeLimitMB -defaultReplication -peers -mdir``. ``-peers A,B,C``
@@ -35,6 +35,20 @@ compact|volume.tail|benchmark ...``.
   and with a CA mutual TLS; ``security.toml``'s ``[tls.s3]`` and
   ``tls.ca`` are the fallback). ``-filer a,b,c`` fronts a filer fleet
   through ``filer/ring.RingFilerClient``.
+- ``webdav -filer F [-ip -port 7333 -root /]`` runs the WebDAV gateway
+  (class 2: locks, dead properties) over a filer, with ``s3``'s TLS flags
+  (``security.toml``'s ``[tls.webdav]`` the fallback).
+- ``ftp -filer F [-ip -port 8021 -root / -users U.json]`` runs the FTP
+  gateway (passive mode; ``-users`` a JSON ``{"user": "password"}``, none:
+  anonymous).
+- ``msgBroker -filer F [-ip -port 17777]`` runs the pub/sub broker, its
+  segments kept under the filer's ``/topics``.
+- ``mount -filer F -dir D [-filer.path /] [-collection] [-mode
+  auto|fuse|sync] [-scanSeconds 1]`` mounts a filer tree: through FUSE
+  (libfuse 2.x and ``/dev/fuse``), or with ``-mode sync`` (and ``auto``
+  where FUSE is missing, said on stderr) as a two-way sync of a local
+  directory. ``-mode fuse`` without FUSE exits 1.
+- ``filer.copy -filer F [-filer.path /] DIR`` uploads a local tree.
 - ``filer.sync -a A -b B [-a.path -b.path -isActivePassive]`` keeps two
   filer clusters in sync (``replication/filer_sync.py``), both ways unless
   ``-isActivePassive``.
@@ -652,6 +666,81 @@ def cmd_s3(args) -> None:
     _serve_until_signalled(api)
 
 
+def cmd_webdav(args) -> None:
+    from .server.webdav_server import WebDavServer
+
+    cert, key, ca = _tls_triplet(args, "webdav")
+    srv = WebDavServer(host=args.ip, port=args.port, filer_url=args.filer, root=args.root,
+                       tls_cert=cert, tls_key=key, tls_ca=ca).start()
+    scheme = "https" if cert else "http"
+    print(f"webdav on {scheme}://{srv.url} -> filer {args.filer}", flush=True)
+    _serve_until_signalled(srv)
+
+
+def cmd_ftp(args) -> None:
+    import json
+
+    from .server.ftp_server import FtpServer
+
+    users = {}
+    if args.users:
+        with open(args.users) as f:
+            users = json.load(f)
+    srv = FtpServer(host=args.ip, port=args.port, filer_url=args.filer, root=args.root,
+                    users=users).start()
+    print(f"ftp on {srv.url} -> filer {args.filer}", flush=True)
+    _serve_until_signalled(srv)
+
+
+def cmd_msg_broker(args) -> None:
+    from .messaging import Broker
+
+    b = Broker(host=args.ip, port=args.port, filer_url=args.filer).start()
+    print(f"message broker on {b.url} -> filer {args.filer}", flush=True)
+    _serve_until_signalled(b)
+
+
+def cmd_mount(args) -> None:
+    """weed mount: a kernel-visible FUSE filesystem over the filer when
+    libfuse and /dev/fuse are present (filesys/wfs.go), else (``-mode
+    auto``) the FUSE-less two-way sync of a local directory."""
+    import sys
+
+    if args.mode != "sync":
+        from .mount.fuse_mount import FuseMount, fuse_available
+
+        if fuse_available():
+            from .mount.wfs import WFS
+
+            wfs = WFS(args.filer, collection=args.collection)
+            fm = FuseMount(wfs, args.dir, root=args.filer_path).mount()
+            print(f"FUSE-mounted {args.filer}{args.filer_path} at {args.dir}", flush=True)
+            try:
+                _serve_until_signalled()
+            finally:
+                fm.unmount()
+                wfs.close()
+            return
+        if args.mode == "fuse":
+            print("fuse unavailable (no libfuse or /dev/fuse)", file=sys.stderr)
+            sys.exit(1)
+        print("fuse unavailable; falling back to sync mode", file=sys.stderr)
+    from .mount.sync import MountSync
+
+    ms = MountSync(args.filer, args.filer_path, args.dir,
+                   scan_seconds=args.scan_seconds).start()
+    print(f"mounted {args.filer}{args.filer_path} <-> {args.dir}", flush=True)
+    _serve_until_signalled(ms)
+
+
+def cmd_filer_copy(args) -> None:
+    """Upload a local tree to the filer (weed filer.copy)."""
+    from .mount.sync import copy_to_filer
+
+    n = copy_to_filer(args.dir, args.filer, args.filer_path)
+    print(f"copied {n} files from {args.dir} to {args.filer}{args.filer_path}")
+
+
 def _add_tls_flags(parser) -> None:
     parser.add_argument("-cert.file", dest="cert", default="",
                         help="TLS certificate (enables https)")
@@ -795,6 +884,45 @@ def main(argv=None) -> None:
     s3.add_argument("-config", default="", help="identities json (s3.json)")
     _add_tls_flags(s3)
     s3.set_defaults(fn=cmd_s3)
+
+    wd = sub.add_parser("webdav", help="run the WebDAV gateway over a filer")
+    wd.add_argument("-ip", default="127.0.0.1")
+    wd.add_argument("-port", type=int, default=7333)
+    wd.add_argument("-filer", default="127.0.0.1:8888")
+    wd.add_argument("-root", default="/")
+    _add_tls_flags(wd)
+    wd.set_defaults(fn=cmd_webdav)
+
+    ftp = sub.add_parser("ftp", help="run the FTP gateway over a filer")
+    ftp.add_argument("-ip", default="127.0.0.1")
+    ftp.add_argument("-port", type=int, default=8021)
+    ftp.add_argument("-filer", default="127.0.0.1:8888")
+    ftp.add_argument("-root", default="/")
+    ftp.add_argument("-users", default="",
+                     help='JSON file {"user": "password"}; empty = anonymous')
+    ftp.set_defaults(fn=cmd_ftp)
+
+    mb = sub.add_parser("msgBroker", help="run the pub/sub message broker")
+    mb.add_argument("-ip", default="127.0.0.1")
+    mb.add_argument("-port", type=int, default=17777)
+    mb.add_argument("-filer", default="127.0.0.1:8888")
+    mb.set_defaults(fn=cmd_msg_broker)
+
+    mnt = sub.add_parser("mount", help="mount the filer (FUSE, or local-dir sync)")
+    mnt.add_argument("-filer", dest="filer", default="127.0.0.1:8888")
+    mnt.add_argument("-filer.path", dest="filer_path", default="/")
+    mnt.add_argument("-dir", dest="dir", required=True)
+    mnt.add_argument("-collection", default="")
+    mnt.add_argument("-mode", choices=("auto", "fuse", "sync"), default="auto",
+                     help="auto = FUSE when libfuse + /dev/fuse exist")
+    mnt.add_argument("-scanSeconds", dest="scan_seconds", type=float, default=1.0)
+    mnt.set_defaults(fn=cmd_mount)
+
+    fcp = sub.add_parser("filer.copy", help="upload a local tree to the filer")
+    fcp.add_argument("-filer", dest="filer", default="127.0.0.1:8888")
+    fcp.add_argument("-filer.path", dest="filer_path", default="/")
+    fcp.add_argument("dir")
+    fcp.set_defaults(fn=cmd_filer_copy)
 
     fsync = sub.add_parser("filer.sync", help="sync two filer clusters")
     fsync.add_argument("-a", required=True, help="filer A host:port")

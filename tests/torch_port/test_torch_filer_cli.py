@@ -18,8 +18,15 @@ one filer's tree into another's (and only that way), ``filer.replicate``
 mirrors a subtree into a directory, and ``watch`` prints the meta events.
 ``upload`` splits a file past ``-maxMB`` into chunks and a manifest,
 ``download`` reads it back whole, and ``delete`` removes it.
+
+The filer's client gateways over an in-process port filer: ``webdav``,
+``ftp`` (``-users``), ``msgBroker``, ``mount -mode sync`` and ``filer.copy``
+each start and serve, and ``mount -mode fuse`` mounts where the FUSE tests
+can (gated as they are); each of the five takes the reference parser's flags
+and defaults.
 """
 
+import argparse
 import json
 import os
 import signal
@@ -34,6 +41,8 @@ import torch
 from seaweedfs_tpu_torch.server.http_util import http_bytes, http_json
 from seaweedfs_tpu_torch.server.master_server import MasterServer
 from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+
+from gateway_pair import can_mount
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -332,3 +341,204 @@ def test_upload_download_delete(tmp_path, cluster):
     assert r.returncode == 0 and "deleted 1/1" in r.stdout, r.stdout + r.stderr
     r = _cli(tmp_path, "download", "-master", master.url, "-o", "gone.bin", fid)
     assert r.returncode != 0
+
+
+# -- the filer's client gateways: webdav, ftp, msgBroker, mount, filer.copy --
+
+GATEWAY_COMMANDS = ("webdav", "ftp", "msgBroker", "mount", "filer.copy")
+
+
+def _subparser(main, name: str) -> argparse.ArgumentParser:
+    """``name``'s parser as ``main`` builds it (caught at ``parse_args``)."""
+    got = {}
+
+    class Caught(Exception):
+        pass
+
+    def grab(self, args=None, namespace=None):
+        got["parser"] = self
+        raise Caught
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(argparse.ArgumentParser, "parse_args", grab)
+        with pytest.raises(Caught):
+            main([name])
+    sub = next(a for a in got["parser"]._actions
+               if isinstance(a, argparse._SubParsersAction))
+    return sub.choices[name]
+
+
+def _flags(parser: argparse.ArgumentParser) -> list:
+    return [(a.option_strings, a.dest, a.default, getattr(a.type, "__name__", a.type),
+             a.choices, a.required, a.nargs, a.const) for a in parser._actions
+            if not isinstance(a, argparse._HelpAction)]
+
+
+@pytest.mark.parametrize("name", GATEWAY_COMMANDS)
+def test_gateway_flags_equal_the_reference(name):
+    from seaweedfs_tpu.__main__ import main as j_main
+    from seaweedfs_tpu_torch.__main__ import main as p_main
+
+    assert _flags(_subparser(p_main, name)) == _flags(_subparser(j_main, name))
+
+
+@pytest.fixture(scope="module")
+def filer(cluster, tmp_path_factory):
+    from seaweedfs_tpu_torch.server.filer_server import FilerServer
+
+    master, _ = cluster
+    fs = FilerServer(port=free_port(), master_url=master.url, query_backend="cpu",
+                     db_path=str(tmp_path_factory.mktemp("gwfiler") / "filer.db")).start()
+    yield fs
+    fs.stop()
+
+
+def _serve(cwd, *args, ready):
+    """Start ``python -m seaweedfs_tpu_torch ARGS`` and wait for ``ready()``."""
+    proc = subprocess.Popen([sys.executable, "-m", "seaweedfs_tpu_torch", *args], cwd=cwd,
+                            env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    deadline = time.time() + 60
+    while time.time() < deadline:
+        if proc.poll() is not None:
+            raise AssertionError(f"{args[0]} exited {proc.returncode}:\n{proc.stdout.read()}")
+        try:
+            if ready():
+                return proc
+        except OSError:
+            pass
+        time.sleep(0.2)
+    _stop(proc)
+    raise AssertionError(f"{args[0]} never got ready")
+
+
+def test_webdav_cli_serves(tmp_path, filer):
+    port = free_port()
+    proc = _serve(tmp_path, "webdav", "-filer", filer.url, "-port", str(port),
+                  ready=lambda: http_bytes("OPTIONS", f"http://127.0.0.1:{port}/")[0] == 200)
+    try:
+        assert http_bytes("PUT", f"http://127.0.0.1:{port}/cli-dav/a.txt", b"dav")[0] == 201
+        assert http_bytes("GET", f"http://{filer.url}/cli-dav/a.txt") == (200, b"dav")
+    finally:
+        _stop(proc)
+    assert f"webdav on http://127.0.0.1:{port}" in proc.stdout.read()
+
+
+def test_ftp_cli_serves(tmp_path, filer):
+    import ftplib
+    import io
+
+    (tmp_path / "users.json").write_text(json.dumps({"weed": "haystack"}))
+    port = free_port()
+
+    def ready():
+        with socket.create_connection(("127.0.0.1", port), timeout=2) as s:
+            return s.recv(64).startswith(b"220")
+
+    proc = _serve(tmp_path, "ftp", "-filer", filer.url, "-port", str(port),
+                  "-users", "users.json", ready=ready)
+    try:
+        ftp = ftplib.FTP()
+        ftp.connect("127.0.0.1", port, timeout=15)
+        with pytest.raises(ftplib.error_perm):
+            ftp.login("weed", "wrong")
+        ftp.login("weed", "haystack")
+        ftp.storbinary("STOR /cli-ftp/a.bin", io.BytesIO(b"ftp bytes"))
+        got = io.BytesIO()
+        ftp.retrbinary("RETR /cli-ftp/a.bin", got.write)
+        ftp.quit()
+        assert got.getvalue() == b"ftp bytes"
+        assert http_bytes("GET", f"http://{filer.url}/cli-ftp/a.bin") == (200, b"ftp bytes")
+    finally:
+        _stop(proc)
+
+
+def test_msg_broker_cli_serves(tmp_path, filer):
+    from seaweedfs_tpu_torch.filer.client import FilerClient
+    from seaweedfs_tpu_torch.messaging import MessagingClient
+
+    port = free_port()
+    proc = _serve(tmp_path, "msgBroker", "-filer", filer.url, "-port", str(port),
+                  ready=lambda: http_bytes("GET", f"http://127.0.0.1:{port}/topics/x/y")[0] == 404)
+    try:
+        mc = MessagingClient([f"127.0.0.1:{port}"])
+        mc.create_topic("cli", "t", partitions=2)
+        for i in range(5):
+            mc.publish("cli", "t", b"m%d" % i, partition=1)
+        msgs, _ = mc.fetch("cli", "t", 1)
+        assert [m["value"] for m in msgs] == [b"m%d" % i for i in range(5)]
+        assert http_bytes("POST", f"http://127.0.0.1:{port}/_flush")[0] == 200
+        fc = FilerClient(filer.url)
+        deadline = time.time() + 10
+        while time.time() < deadline and not fc.list("/topics/cli/t/01"):
+            time.sleep(0.1)
+        names = [e["name"] for e in fc.list("/topics/cli/t/01")]
+        assert len(names) == 1 and names[0].endswith(".seg"), names
+    finally:
+        _stop(proc)
+
+
+def test_filer_copy_cli(tmp_path, filer):
+    src = tmp_path / "tree"
+    (src / "sub").mkdir(parents=True)
+    (src / "a.txt").write_bytes(b"alpha")
+    (src / "sub" / "b.bin").write_bytes(bytes(range(256)) * 300)
+    r = _cli(tmp_path, "filer.copy", "-filer", filer.url, "-filer.path", "/cli-copy", str(src))
+    assert r.returncode == 0, r.stderr
+    assert f"copied 2 files from {src} to {filer.url}/cli-copy" in r.stdout
+    assert http_bytes("GET", f"http://{filer.url}/cli-copy/a.txt") == (200, b"alpha")
+    assert http_bytes("GET", f"http://{filer.url}/cli-copy/sub/b.bin") == \
+        (200, bytes(range(256)) * 300)
+
+
+def test_mount_cli_sync_mode(tmp_path, filer):
+    assert http_bytes("POST", f"http://{filer.url}/cli-sync/remote.txt", b"remote")[0] == 201
+    local = tmp_path / "mnt"
+    proc = _serve(tmp_path, "mount", "-filer", filer.url, "-filer.path", "/cli-sync",
+                  "-dir", str(local), "-mode", "sync", "-scanSeconds", "0.2",
+                  ready=lambda: (local / "remote.txt").exists()
+                  and (local / "remote.txt").read_bytes() == b"remote")
+    try:
+        assert (local / "remote.txt").read_bytes() == b"remote"
+        (local / "local.txt").write_bytes(b"local")
+        deadline = time.time() + 20
+        while time.time() < deadline and \
+                http_bytes("GET", f"http://{filer.url}/cli-sync/local.txt") != (200, b"local"):
+            time.sleep(0.1)  # a scan may catch the file half written: it pushes it again
+        assert http_bytes("GET", f"http://{filer.url}/cli-sync/local.txt") == (200, b"local")
+    finally:
+        _stop(proc)
+    assert "mounted" in proc.stdout.read()
+
+
+@pytest.mark.skipif(not can_mount(), reason="libfuse / /dev/fuse / mount privileges missing")
+def test_mount_cli_fuse_mode(tmp_path, filer):
+    assert http_bytes("POST", f"http://{filer.url}/cli-fuse/remote.txt", b"remote")[0] == 201
+    mp = tmp_path / "mnt"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "seaweedfs_tpu_torch", "mount", "-filer", filer.url,
+         "-filer.path", "/cli-fuse", "-dir", str(mp), "-mode", "fuse"],
+        cwd=tmp_path, env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        # the mountpoint is left alone until the command says it is mounted
+        said = ""
+        for line in proc.stdout:  # ends when the command exits
+            said += line
+            if "FUSE-mounted" in line:
+                break
+        if "FUSE-mounted" not in said:  # the environment refused the mount
+            proc.kill()
+            pytest.skip(f"fuse mount refused here: {(said + proc.communicate()[0])[-500:]}")
+        assert os.path.ismount(mp)
+        assert os.listdir(mp) == ["remote.txt"]
+        assert subprocess.run(["cat", str(mp / "remote.txt")], capture_output=True,
+                              timeout=30).stdout == b"remote"
+        (mp / "through.txt").write_bytes(b"via the kernel")
+        assert http_bytes("GET", f"http://{filer.url}/cli-fuse/through.txt") == \
+            (200, b"via the kernel")
+    finally:
+        if proc.poll() is None:
+            _stop(proc)
+        if os.path.ismount(mp):
+            subprocess.run(["fusermount", "-uz", str(mp)], capture_output=True)
+    assert not os.path.ismount(mp)

@@ -65,7 +65,10 @@ def test_port_imports_nothing_of_jax():
                  "filer.reshard", "filer.redis_store", "filer.sdk_stores", "util.resp",
                  "util.mini_redis", "replication", "replication.notification",
                  "replication.sink", "replication.cloud_sinks", "replication.replicator",
-                 "replication.filer_sync", "replication.controller"):
+                 "replication.filer_sync", "replication.controller", "mount",
+                 "mount.dirty_pages", "mount.meta_cache", "mount.wfs", "mount.sync",
+                 "mount.fuse_mount", "server.webdav_server", "server.ftp_server",
+                 "messaging.log_buffer", "messaging.broker", "messaging.client"):
         assert "seaweedfs_tpu_torch." + name in walked, name
     assert lines["BAD"] == "[]", r.stdout
     assert lines["NEW_THREADS"] == "0", r.stdout
