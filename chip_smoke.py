@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's erasure-coding, query, cluster, filer, S3, mesh,
-filer-fleet and client-gateway paths on one NVIDIA GPU.
+filer-fleet, client-gateway and operator-tool paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -212,6 +212,27 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    partition through a restarted broker, byte for byte. The seal and the
    sealed reads (together) must launch the kernel.
 
+17. the operator's tools: ``python -m seaweedfs_tpu_torch -cpuprofile=P server
+   -dir D -max 14 -filer -s3 -webdav`` as a subprocess (CUDA backend, ports
+   from ``util/netports``). a. the stack comes up; b. from 8 threads
+   through its filer 1 024 files of phase 6's sizes (printable text) under
+   16 directories, a 32 MiB CSV of phase 7's schema, and 16 orphan needles
+   (``/dir/assign`` and a POST, no filer entry); c. ``shell -master M
+   -filer F -c ...``: ``fs.cd/pwd/ls/du/tree/cat/mv``, ``fs.meta.cat``,
+   ``fs.meta.save``, ``fs.configure`` (a write under the prefix lands in
+   its collection), ``bucket.create/list/delete`` (seen through the S3
+   port), ``volume.fsck`` (exactly the 16 orphans; ``-apply`` purges none
+   inside its 300 s cutoff); d. the stand-alone ``ec.encode`` of the CSV's
+   volume, the shell's ``ec.encode`` of the filer's volumes but one,
+   shards {1, 5, 9, 13} lost on the CSV's volume and on the fullest small
+   files' volume, 64 ``fs.cat``s of that volume's files in one shell
+   session (bytes equal), the probe by ``query`` (rows equal to the cpu
+   backend's) and ``trace`` of it; e. SIGTERM (the cpu profile loads with
+   ``pstats``), then on the data directory ``dump.idx -ext .ecx``,
+   ``dump.dat``, ``export``, ``fix`` (the .idx equal), ``change.superblock``,
+   ``scaffold`` and ``version``. The server's launches (its ``/status``)
+   count; the seal and the sealed reads must launch the kernel.
+
 Phases 6, 8, 9, 10, 12, 13, 15 and 16 run with the JAX package's default serving stack: the
 native turbo engine (built from ``seaweedfs_tpu_torch/csrc/turbo.cpp``)
 owns each volume server's public port, the asyncio core serves the rest.
@@ -224,10 +245,10 @@ servers of phase 8 share the card so, and the fleet scheduler runs up to
 four generate jobs together); each result must equal the plain version's.
 
 Every phase prints one JSON line with its numbers and kernel launches.
-Phases 2-16 are the main path: the launch counts are zeroed before phase 2
-and read after phase 16 (phase 14's child ranks count in their own
-processes and report theirs), and every phase must have launched the
-kernel. The
+Phases 2-17 are the main path: the launch counts are zeroed before phase 2
+and read after phase 17 (phase 14's child ranks and phase 17's server count
+in their own processes and report theirs), and every phase must have
+launched the kernel. The
 line before last lists each kernel with its launches, error and times; the
 last line is the device record. Any mismatch or error exits non-zero.
 """
@@ -246,10 +267,12 @@ import os
 import re
 import resource
 import shutil
+import signal
 import socket
 import statistics
 import subprocess
 import sys
+import tarfile
 import threading
 import time
 import urllib.parse
@@ -5135,6 +5158,520 @@ def phase16(state) -> None:
                          f"{out['steps']}")
 
 
+P17_FILES = 1024  # files of 1 KiB-1 MiB, log-uniform (phase 6's mix), printable text
+P17_DIRS = 16  # /p17/d00 ... /p17/d15
+P17_CSV = 32 * MiB  # one CSV of phase 7's schema: one 32 MiB chunk, pushed down
+P17_ORPHANS = 16  # needles written with /dir/assign and a POST, no filer entry
+P17_SEALED_CATS = 64  # files of a sealed volume read with fs.cat
+P17_LOST = [1, 5, 9, 13]
+P17_THREADS = 8
+P17_MAX = 14  # the server's -max (weed server's 7, doubled: a cut, PERF.md section 4)
+P17_SERVER_FLAGS: list = []  # e.g. ["-ec.backend", "cpu"] to rehearse on the CPU
+P17_ENV: dict = {}  # e.g. {"SWEED_QUERY_BACKEND": "cpu"} to rehearse on the CPU
+
+
+class _Cli:
+    """``python -m seaweedfs_tpu_torch`` runs, each to its end and timed;
+    one that exits non-zero fails the phase."""
+
+    def __init__(self, cwd: str, env: dict):
+        self.cwd, self.env = cwd, dict(os.environ, PYTHONPATH=HERE, **env)
+
+    def run(self, *args) -> tuple:
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch", *args], cwd=self.cwd,
+                           env=self.env, capture_output=True, text=True, timeout=600)
+        sec = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise SystemExit(f"phase 17: {' '.join(args)[:200]} exited {r.returncode}: "
+                             f"{(r.stdout + r.stderr)[-1500:]}")
+        return r, sec
+
+    def shell(self, master: str, filer: str, command: str) -> tuple:
+        """One ``shell -c`` batch: (stdout, seconds)."""
+        r, sec = self.run("shell", "-master", master, "-filer", filer, "-c", command)
+        return r.stdout, sec
+
+
+class _ShellSession:
+    """``shell -master M -filer F`` on a pipe, a command at a time: each
+    reply is read to its known length and the next prompt, so a command's
+    time is the operator's, without a process start."""
+
+    def __init__(self, cli: _Cli, master: str, filer: str):
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "seaweedfs_tpu_torch", "shell", "-master", master,
+             "-filer", filer], cwd=cli.cwd, env=cli.env, stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL)
+        got = b""
+        while not got.endswith(b"> "):  # the banner, then the first prompt
+            piece = self.proc.stdout.read1(1 << 16)
+            if not piece:
+                raise SystemExit(f"phase 17: the shell session ended: {got[-300:]!r}")
+            got += piece
+
+    def _expect(self, want: bytes) -> None:
+        got = self.proc.stdout.read(len(want))
+        if got != want:
+            raise SystemExit(f"phase 17: the shell printed {len(got)} bytes that differ "
+                             f"from the {len(want)} expected: {got[-200:]!r}")
+
+    def cat(self, path: str, want: bytes) -> float:
+        """``fs.cat path``: its seconds; fails unless it printed ``want``."""
+        t0 = time.perf_counter()
+        self.proc.stdin.write(f"fs.cat {path}\n".encode())
+        self.proc.stdin.flush()
+        self._expect(want + b"\n> ")
+        return time.perf_counter() - t0
+
+    def close(self) -> None:
+        try:
+            self.proc.stdin.close()
+            self.proc.wait(timeout=30)
+        except (OSError, subprocess.TimeoutExpired):
+            self.proc.kill()
+            self.proc.wait()
+
+
+def _json_docs(text: str) -> list:
+    """The JSON values a ``shell -c`` batch printed, one after another."""
+    dec, docs, i = json.JSONDecoder(), [], 0
+    while i < len(text):
+        if text[i].isspace():
+            i += 1
+            continue
+        value, i = dec.raw_decode(text, i)
+        docs.append(value)
+    return docs
+
+
+def _printable(rng, n: int) -> list:
+    """Phase 6's mix of sizes as printable text, so that ``fs.cat`` prints
+    the bytes as they were written."""
+    sizes = [int(np.exp(rng.uniform(np.log(1024), np.log(MiB)))) for _ in range(n)]
+    return [rng.integers(32, 127, s, dtype=np.uint8).tobytes() for s in sizes]
+
+
+def phase17(state) -> None:
+    """The operator's tools: ``python -m seaweedfs_tpu_torch -cpuprofile=P
+    server -dir D -max 14 -filer -s3 -webdav`` as a subprocess on the card
+    (ports from ``util/netports``; ``weed server``'s defaults but ``-max``).
+    a. the stack starts. b. through the filer from 8 threads: 1 024 text
+    files of phase 6's sizes under ``/p17/d00``-``/d15``, a 32 MiB CSV of
+    phase 7's schema, and 16 orphans (``/dir/assign`` and a POST, no filer
+    entry). c. ``shell -master M -filer F -c ...`` batches: ``fs.cd``,
+    ``fs.pwd``, ``fs.ls``, ``fs.du``, ``fs.tree``, ``fs.cat``, ``fs.mv``,
+    ``fs.meta.cat``, ``fs.meta.save``; ``fs.configure -locationPrefix=/p17/
+    cold/ -collection=cold17 -apply`` and a write that lands in ``cold17``;
+    ``bucket.create``/``list``/``delete`` with the bucket seen through the S3
+    port between; ``volume.fsck`` listing exactly the 16 orphans, and with
+    ``-apply`` purging none (inside its 300 s cutoff). d. the stand-alone
+    ``ec.encode -master M -volume N`` of the CSV's volume (14 shards, .ecx,
+    .vif); the shell's ``ec.encode`` of the filer's volumes but one, kept
+    plain; shards {1, 5, 9, 13} deleted on the CSV's volume and on the
+    volume with the most small files (the filer mints fids from leases of
+    128 keys a volume, so they gather on a few); then in one shell session
+    ``fs.cat`` of a seeded 64 files of that volume (bytes equal), ``query``
+    with phase 12's probe on the CSV (rows equal to the cpu backend's) and
+    ``trace`` of that query. e. the server stopped by SIGTERM (its cpu
+    profile loads with ``pstats``), then on its data directory: ``dump.idx
+    -ext .ecx`` of the sealed fs.cat volume, ``dump.dat`` and ``export`` of
+    the plain one, ``fix`` of a copy without its .idx (the .idx equal to the
+    original), ``change.superblock -replication=001`` and back, ``scaffold
+    -config=security`` and ``version``. The server's kernel launches (its
+    volume server's ``/status``) count to the main path."""
+    import pstats
+
+    from seaweedfs_tpu_torch.util import netports
+
+    t_start = time.perf_counter()
+    work = os.path.join(WORK, "17op")
+    data_dir = os.path.join(work, "data")
+    os.makedirs(data_dir)
+    ports = netports.load_or_allocate(os.path.join(work, "ports.json"),
+                                      ["master", "volume", "filer", "s3", "webdav"])
+    urls = {k: f"127.0.0.1:{p}" for k, p in ports.items()}
+    murl, vurl, furl = urls["master"], urls["volume"], urls["filer"]
+    profile = os.path.join(work, "server.prof")
+    cli = _Cli(work, P17_ENV)
+    out: dict = {"phase": 17, "ports": ports, "client_threads": P17_THREADS,
+                 "server_flags": ["-max", str(P17_MAX), *P17_SERVER_FLAGS]}
+    steps: dict = {}
+    shell_ms: list = []
+    server = session = None
+    log = open(os.path.join(work, "server.log"), "wb")
+
+    def status() -> dict:
+        code, body, _ = _call(vurl, "GET", "/status")
+        if code != 200:
+            raise SystemExit(f"phase 17: the volume server's /status answered {code}")
+        return json.loads(body)
+
+    def launches() -> int:
+        return status()["gf_matmul"]["launches"]
+
+    def step(name: str, fn):
+        l0, t0 = state["p17_launches"], time.perf_counter()
+        res = fn() or {}
+        if server is not None and server.poll() is None:
+            state["p17_launches"] = launches()
+        steps[name] = {"s": time.perf_counter() - t0,
+                       "launches": state["p17_launches"] - l0}
+        emit({"phase": 17, "step": name, **steps[name], **res})
+        return res
+
+    def sh(command: str) -> str:
+        stdout, sec = cli.shell(murl, furl, command)
+        shell_ms.append(sec * 1e3 / (command.count(";") + 1))
+        return stdout
+
+    state["p17_launches"] = 0
+    try:
+        # a. the stack
+        def start() -> dict:
+            nonlocal server
+            server = subprocess.Popen(
+                [sys.executable, "-m", "seaweedfs_tpu_torch", f"-cpuprofile={profile}",
+                 "server", "-dir", "data", "-master.port", str(ports["master"]),
+                 "-port", str(ports["volume"]), "-max", str(P17_MAX),
+                 "-filer", "-filer.port", str(ports["filer"]),
+                 "-s3", "-s3.port", str(ports["s3"]),
+                 "-webdav", "-webdav.port", str(ports["webdav"]), *P17_SERVER_FLAGS],
+                cwd=work, env=cli.env, stdout=log, stderr=subprocess.STDOUT)
+
+            def up() -> bool:
+                if server.poll() is not None:
+                    raise SystemExit(f"phase 17: the server exited {server.returncode}")
+                try:
+                    return (_call(furl, "GET", "/_status")[0] == 200
+                            and _call(urls["webdav"], "OPTIONS", "/")[0] < 500
+                            and _call(urls["s3"], "GET", "/")[0] == 200
+                            and bool(json.loads(_call(murl, "GET", "/dir/status")[1])[
+                                "topology"]["data_centers"]))
+                except OSError:
+                    return False
+
+            if not _until(up, timeout=120):
+                raise SystemExit("phase 17: the server never came up")
+            netports.record(os.path.join(work, "ports.json"), ports)
+            st = status()
+            state["p17_launches"] = st["gf_matmul"]["launches"]
+            return {"turbo": st["turbo"]["on"], "launches_at_start": state["p17_launches"]}
+
+        step("a_start", start)
+
+        # b. the fill
+        rng = np.random.default_rng(17)
+        files = {f"/p17/d{i % P17_DIRS:02d}/f{i:04d}.txt": b
+                 for i, b in enumerate(_printable(rng, P17_FILES))}
+        csv_path, csv = "/p17/data.csv", query_csv(1717, P17_CSV)
+        orphans: set = set()
+
+        def fill() -> dict:
+            put_ms, bad = [], []
+
+            def put(path: str) -> None:
+                status, _, sec = _filer_call(furl, "POST", path, files[path])
+                put_ms.append(sec * 1e3)
+                if status != 201:
+                    bad.append((path, status))
+
+            put_s = _parallel(put, list(files), P17_THREADS)
+            status, _, csv_s = _filer_call(furl, "POST", csv_path, csv)
+            if bad or status != 201:
+                raise SystemExit(f"phase 17: the fill failed: {bad[:5]}, csv {status}")
+            for i in range(P17_ORPHANS):
+                a = json.loads(_call(murl, "GET", "/dir/assign")[1])
+                if _call(a["url"], "POST", "/" + a["fid"], rng.bytes(512 + 64 * i))[0] != 201:
+                    raise SystemExit(f"phase 17: the orphan {a['fid']} was refused")
+                vid, rest = a["fid"].split(",")
+                orphans.add((int(vid), int(rest[:-8], 16)))
+            nbytes = sum(map(len, files.values()))
+            return {"files": len(files), "bytes": nbytes, "put_s": put_s,
+                    "MBps": nbytes / put_s / 1e6, "put_ms_p50": _pct(put_ms, 50),
+                    "put_ms_p99": _pct(put_ms, 99), "csv_MBps": len(csv) / csv_s / 1e6,
+                    "orphans": len(orphans)}
+
+        step("b_fill", fill)
+
+        def volume_of(path: str) -> int:
+            meta = json.loads(_call(furl, "GET", path + "?meta=true")[1])
+            return int(meta["chunks"][0]["file_id"].split(",")[0])
+
+        # c. the shell
+        cat_path = "/p17/d00/f0000.txt"
+        moved_from = sorted(p for p in files if p.startswith("/p17/d15/"))[0]
+        moved_to = "/p17/moved/" + moved_from.rsplit("/", 1)[1]
+
+        def shell_tools() -> dict:
+            lines = sh("fs.cd /p17; fs.pwd; fs.ls").splitlines()
+            listed = json.loads("\n".join(lines[2:]))
+            if lines[:2] != ["/p17", "/p17"] or sorted(e["name"] for e in listed) != \
+                    sorted([f"d{i:02d}" for i in range(P17_DIRS)] + ["data.csv"]):
+                raise SystemExit(f"phase 17: fs.cd/pwd/ls printed {lines[:4]}")
+            du = json.loads(sh("fs.du /p17"))
+            want_du = {"path": "/p17", "bytes": sum(map(len, files.values())) + len(csv),
+                       "files": len(files) + 1, "dirs": P17_DIRS}
+            if du != want_du:
+                raise SystemExit(f"phase 17: fs.du gave {du}, not {want_du}")
+            tree = sh("fs.tree /p17/d03").splitlines()
+            in_d03 = sorted(p.rsplit("/", 1)[1] for p in files if p.startswith("/p17/d03/"))
+            if tree[0] != "/p17/d03" or [t[4:] for t in tree[1:]] != in_d03:
+                raise SystemExit(f"phase 17: fs.tree printed {tree[:3]}")
+            if sh(f"fs.cat {cat_path}") != files[cat_path].decode() + "\n":
+                raise SystemExit("phase 17: fs.cat printed other bytes")
+            mv = sh(f"fs.mv {moved_from} {moved_to}; fs.meta.cat {moved_to}")
+            moved, meta = _json_docs(mv)
+            if moved != {"moved": moved_from, "to": moved_to} \
+                    or meta["full_path"] != moved_to \
+                    or sum(c["size"] for c in meta["chunks"]) != len(files[moved_from]):
+                raise SystemExit(f"phase 17: fs.mv/fs.meta.cat printed {mv[:300]}")
+            files[moved_to] = files.pop(moved_from)
+            dump = os.path.join(work, "meta.jsonl")
+            saved = json.loads(sh(f"fs.meta.save -o={dump} /p17"))
+            if saved != {"saved": len(files) + 1, "file": dump}:
+                raise SystemExit(f"phase 17: fs.meta.save gave {saved}")
+            return {"batches": len(shell_ms), "tree_entries": len(tree) - 1,
+                    "meta_saved": saved["saved"]}
+
+        step("c_fs", shell_tools)
+
+        def configure() -> dict:
+            conf = json.loads(sh("fs.configure -locationPrefix=/p17/cold/ -collection=cold17 "
+                                 "-apply"))
+            if {"location_prefix": "/p17/cold/", "collection": "cold17"}.items() - \
+                    conf["locations"][0].items():
+                raise SystemExit(f"phase 17: fs.configure gave {conf}")
+            body = rng.bytes(4096)
+
+            def landed() -> bool:
+                if _filer_call(furl, "POST", "/p17/cold/x.bin", body)[0] != 201:
+                    return False
+                vid = volume_of("/p17/cold/x.bin")
+                return any(v["id"] == vid and v["collection"] == "cold17"
+                           for v in status()["volumes"])
+
+            if not _until(landed, timeout=30):
+                raise SystemExit("phase 17: a write under /p17/cold/ never landed in cold17")
+            if _filer_call(furl, "GET", "/p17/cold/x.bin")[1] != body:
+                raise SystemExit("phase 17: the cold17 write read back other bytes")
+            return {"cold_volume": volume_of("/p17/cold/x.bin")}
+
+        step("c_configure", configure)
+
+        def buckets() -> dict:
+            made = _json_docs(sh("bucket.create -name=b17; bucket.list"))
+            s3_list = _call(urls["s3"], "GET", "/")[1]
+            gone = _json_docs(sh("bucket.delete -name=b17; bucket.list"))
+            s3_after = _call(urls["s3"], "GET", "/")[1]
+            if made != [{"created": "b17"}, ["b17"]] or b"<Name>b17</Name>" not in s3_list \
+                    or gone != [{"deleted": "b17"}, []] or b"<Name>b17</Name>" in s3_after:
+                raise SystemExit(f"phase 17: buckets: {made} {s3_list[:300]!r} {gone}")
+            return {"s3_listed": True}
+
+        step("c_buckets", buckets)
+
+        def fsck() -> dict:
+            t0 = time.perf_counter()
+            found = json.loads(sh("volume.fsck"))
+            fsck_s = time.perf_counter() - t0
+            got = {(o["vid"], o["key"]) for o in found["orphans"]}
+            if got != orphans or found["purged"] != 0:
+                raise SystemExit(f"phase 17: volume.fsck listed {sorted(got)[:20]}, "
+                                 f"planted {sorted(orphans)[:20]}")
+            applied = json.loads(sh("volume.fsck -apply=true"))
+            if applied["purged"] != 0 or len(applied["orphans"]) != P17_ORPHANS:
+                raise SystemExit(f"phase 17: volume.fsck -apply purged {applied['purged']}")
+            scanned = sum(v["file_count"] for v in status()["volumes"])
+            return {"orphans": len(got), "fsck_s": fsck_s, "needles_scanned": scanned,
+                    "needles_per_s": scanned / fsck_s, "apply_purged": applied["purged"]}
+
+        step("c_fsck", fsck)
+        out["shell_ms_p50"] = _pct(shell_ms, 50)
+
+        # d. the seal
+        vol_of: dict = {}
+
+        def locate(path: str) -> None:
+            vol_of[path] = volume_of(path)
+
+        _parallel(locate, [*files, csv_path], P17_THREADS)
+        csv_vid = vol_of[csv_path]
+        by_vid = collections.Counter(vol_of[p] for p in files)
+        # the filer mints fids from leases of 128 keys on one volume each,
+        # so the small files gather on a few volumes: the fs.cat sample
+        # comes from the one with the most, which loses shards too
+        cat_vid = by_vid.most_common(1)[0][0]
+        # one volume of the filer's collection stays plain for the offline
+        # tools: the fullest that is neither of those two
+        plain_vid = max((v["id"] for v in status()["volumes"] if v["collection"] == ""
+                         and v["id"] not in (csv_vid, cat_vid)),
+                        key=lambda v: (by_vid[v], v))
+
+        def standalone_encode() -> dict:
+            r, sec = cli.run("ec.encode", "-master", murl, "-volume", str(csv_vid))
+            made = set(os.listdir(data_dir))
+            want = {f"{csv_vid}{shard_ext(i)}" for i in range(14)} | \
+                {f"{csv_vid}.ecx", f"{csv_vid}.vif"}
+            if "error" in r.stdout or not want <= made:
+                raise SystemExit(f"phase 17: ec.encode printed {r.stdout[:300]}; "
+                                 f"missing {sorted(want - made)}")
+            return {"volume": csv_vid, "cli_s": sec, "files_by_volume": dict(by_vid)}
+
+        step("d_ec_encode_cli", standalone_encode)
+        seal = sorted((set(by_vid) | {csv_vid}) - {plain_vid})
+        lost = sorted({csv_vid, cat_vid})
+
+        def shell_encode() -> dict:
+            stdout = sh("; ".join(f"ec.encode -volumeId={v}" for v in seal))
+            vols = {v["id"] for v in status()["volumes"]}
+            if vols & set(seal) or stdout.count('"spread"') != len(seal):
+                raise SystemExit(f"phase 17: the shell's ec.encode left {vols & set(seal)}")
+            for vid in lost:
+                removed = _admin(vurl, f"/admin/ec/delete_shards?volume={vid}"
+                                       f"&shards={','.join(map(str, P17_LOST))}")
+                if removed.get("removed") != P17_LOST:
+                    raise SystemExit(f"phase 17: delete_shards of {vid} removed {removed}")
+            return {"volumes": seal, "plain_volume": plain_vid, "shards_lost": P17_LOST,
+                    "on_volumes": lost}
+
+        step("d_ec_encode_shell", shell_encode)
+        # cat_path was read in step c: the filer's chunk cache holds it
+        on_vid = sorted(p for p in files if p != cat_path and vol_of[p] == cat_vid)
+        pick = np.random.default_rng(17017)
+        sample = sorted(pick.choice(on_vid, min(P17_SEALED_CATS, len(on_vid)), replace=False))
+
+        def sealed_cat() -> dict:
+            nonlocal session
+            session = _ShellSession(cli, murl, furl)
+            ms = [session.cat(p, files[p]) * 1e3 for p in sample]
+            session.close()
+            session = None
+            return {"volume": cat_vid, "files": len(ms),
+                    "bytes": sum(len(files[p]) for p in sample),
+                    "ms_p50": _pct(ms, 50), "ms_p99": _pct(ms, 99)}
+
+        res = step("d_sealed_cat", sealed_cat)
+        out["sealed_cat"] = {**res, "launches": steps["d_sealed_cat"]["launches"]}
+        want_rows = execute_request(csv, {"input": "csv", "sql": FILER_PROBE_SQL},
+                                    backend="cpu")[1]["rows"]
+
+        def sealed_query() -> dict:
+            stdout, sec = cli.shell(murl, furl, f'query -path={csv_path} "{FILER_PROBE_SQL}"')
+            rows = json.loads(stdout)["rows"]
+            if rows != want_rows:
+                raise SystemExit(f"phase 17: the sealed query gave {len(rows)} rows, the cpu "
+                                 f"backend {len(want_rows)}")
+            return {"rows": len(rows), "query_ms": sec * 1e3}
+
+        step("d_sealed_query", sealed_query)
+
+        def trace() -> dict:
+            spans = json.loads(_call(furl, "GET", "/_debug/traces?limit=4096")[1])["spans"]
+            roots = [s for s in spans if not s.get("parent_id") and "_query" in s["name"]]
+            if not roots:
+                raise SystemExit("phase 17: no /_query root span in the filer's ring")
+            tid = max(roots, key=lambda s: s["start"])["trace_id"]
+            got = json.loads(sh(f"trace {tid}"))
+            if got["trace_id"] != tid or got["span_count"] < 2 or got["unreachable"]:
+                raise SystemExit(f"phase 17: trace gave {got}")
+            return {"trace_id": tid, "spans": got["span_count"],
+                    "daemons_queried": got["daemons_queried"]}
+
+        step("d_trace", trace)
+
+        # e. the offline tools, the server stopped
+        def stop() -> dict:
+            nonlocal server
+            state["p17_launches"] = launches()
+            server.send_signal(signal.SIGTERM)
+            code = server.wait(timeout=120)
+            server = None
+            if code not in (0, 143, -signal.SIGTERM):
+                raise SystemExit(f"phase 17: the server exited {code} on SIGTERM")
+            stats = pstats.Stats(profile)
+            return {"exit": code, "profile_bytes": os.path.getsize(profile),
+                    "profile_functions": len(stats.stats)}
+
+        step("e_stop", stop)
+
+        def offline() -> dict:
+            tools: dict = {}
+            plain = os.path.join(data_dir, str(plain_vid))
+            size = os.path.getsize(plain + ".dat")
+
+            def tool(name: str, *args, nbytes: int = size, cwd_dir: str = data_dir) -> str:
+                r, sec = cli.run(name, "-dir", cwd_dir, *args)
+                tools[name if name not in tools else f"{name}2"] = {
+                    "s": sec, "MBps": nbytes / sec / 1e6}
+                return r.stdout
+
+            ecx = tool("dump.idx", "-volumeId", str(cat_vid), "-ext", ".ecx",
+                       nbytes=os.path.getsize(os.path.join(data_dir, f"{cat_vid}.ecx")))
+            dat = tool("dump.dat", "-volumeId", str(plain_vid))
+            tar = os.path.join(work, "export.tar")
+            exp = tool("export", "-volumeId", str(plain_vid), "-o", tar)
+            fixdir = os.path.join(work, "fix")
+            os.makedirs(fixdir)
+            shutil.copy(plain + ".dat", fixdir)
+            fixed = tool("fix", "-volumeId", str(plain_vid), cwd_dir=fixdir)
+            fixed_equal = _sha256(os.path.join(fixdir, f"{plain_vid}.idx")) == \
+                _sha256(plain + ".idx")
+            sb = tool("change.superblock", "-volumeId", str(plain_vid), "-replication=001",
+                      cwd_dir=fixdir)
+            back = tool("change.superblock", "-volumeId", str(plain_vid), cwd_dir=fixdir)
+            scaffold, sec = cli.run("scaffold", "-config=security")
+            version, _ = cli.run("version")
+            tools["scaffold"] = {"s": sec}
+            with tarfile.open(tar) as tf:
+                members = len(tf.getmembers())
+            live = sum(vol_of[p] == plain_vid for p in files)
+            n_ecx = int(ecx.strip().rsplit("# ", 1)[1].split()[0])
+            checks = {
+                "ecx_entries": n_ecx >= by_vid[cat_vid],
+                "dat_records": "# " in dat and "records" in dat.splitlines()[-1],
+                "export_members": members >= live,
+                "fix_idx_equal": fixed_equal and "fixed" in fixed,
+                "superblock": "Changing replication to: 001" in sb
+                and "Current Volume Replication: 001" in back,
+                "scaffold": "[jwt.signing]" in scaffold.stdout,
+                "version": version.stdout.startswith("seaweedfs_tpu_torch "),
+                "exported": exp.startswith("exported "),
+            }
+            if not all(checks.values()):
+                raise SystemExit(f"phase 17: offline tools: {checks}")
+            return {"tools": tools, "volume_bytes": size, "ecx_entries": n_ecx,
+                    "export_members": members}
+
+        res = step("e_offline", offline)
+        out["offline"] = res["tools"]
+    except BaseException:
+        if os.path.exists(os.path.join(work, "server.log")):
+            log.flush()
+            with open(os.path.join(work, "server.log"), "rb") as f:
+                sys.stderr.write(f.read()[-4000:].decode("utf-8", "replace"))
+        raise
+    finally:
+        if session is not None:
+            session.close()
+        if server is not None and server.poll() is None:
+            server.send_signal(signal.SIGTERM)
+            try:
+                server.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                server.kill()
+                server.wait()
+        log.close()
+    state["child_launches"] = state.get("child_launches", 0) + state["p17_launches"]
+    out.update(steps={k: {"s": v["s"], "launches": v["launches"]} for k, v in steps.items()},
+               wall_s=time.perf_counter() - t_start, launches=state["p17_launches"],
+               nvidia_smi=state["smi"])
+    emit(out)
+    if not steps["d_ec_encode_shell"]["launches"] + steps["d_sealed_cat"]["launches"]:
+        raise SystemExit(f"phase 17: no kernel launch in the seal or the sealed reads: "
+                         f"{out['steps']}")
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -5142,7 +5679,7 @@ def _free_port() -> int:
 
 
 MAIN_PATH = (phase2, phase3, phase4, phase5, phase6, phase7, phase8, phase9, phase10,
-             phase11, phase12, phase13, phase14, phase15, phase16)
+             phase11, phase12, phase13, phase14, phase15, phase16, phase17)
 
 
 def main() -> int:
@@ -5159,14 +5696,20 @@ def main() -> int:
         phase_s = {}
         for i, phase in enumerate(MAIN_PATH, start=2):
             state["l_phase"] = gm.gf_matmul.launches
+            children = state.get("child_launches", 0)
             t0 = time.perf_counter()
             phase(state)
             phase_s[i] = time.perf_counter() - t0
-            if gm.gf_matmul.launches == state["l_phase"]:
+            # a phase's launches: this process's, and those its child
+            # processes counted and reported (phase 14's ranks, phase 17's
+            # server)
+            if gm.gf_matmul.launches == state["l_phase"] and \
+                    state.get("child_launches", 0) == children:
                 raise SystemExit(f"phase {i}: the kernel was never launched")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    # the launches of phase 14's child ranks, counted in their processes
+    # the launches of phase 14's child ranks and phase 17's server, counted
+    # in their processes
     main_launches = gm.gf_matmul.launches + state.get("child_launches", 0)
     kern = state["kernel"]
     emit({"phase_s": phase_s})

@@ -7,3 +7,5 @@ GF(2^8) matrix product run by a hand-written CUDA kernel for Hopper
 package. Entry points run on the GPU unless the caller passes
 ``device="cpu"``.
 """
+
+__version__ = "0.1.0"

@@ -1,7 +1,14 @@
-"""Command line: ``python -m seaweedfs_tpu_torch
-master|volume|filer|s3|webdav|ftp|msgBroker|mount|filer.copy|filer.sync|filer.replicate|watch|
-shell|upload|download|delete|backup|compact|volume.tail|benchmark ...``.
+"""Command line: ``python -m seaweedfs_tpu_torch [global flags]
+master|volume|server|filer|s3|webdav|ftp|msgBroker|mount|filer.copy|filer.sync|
+filer.replicate|watch|shell|upload|download|delete|backup|compact|volume.tail|
+benchmark|ec.encode|scaffold|fix|export|dump.dat|dump.idx|diff.servers|
+change.superblock|version ...``: the JAX package's 30 subcommands, with its
+flags.
 
+- The global flags come before the subcommand: glog's ``-v -vmodule
+  -logtostderr -logdir -stderrthreshold`` (``util/glog.py``), and
+  ``-cpuprofile F`` / ``-memprofile F`` (``util/profiling.py``: cProfile
+  stats and tracemalloc's top lines, written at exit and on SIGTERM).
 - ``master`` runs a master with the flags of ``weed master``: ``-ip -port
   -volumeSizeLimitMB -defaultReplication -peers -mdir``. ``-peers A,B,C``
   (this master's own address among them) elects one leader of the set;
@@ -16,7 +23,15 @@ shell|upload|download|delete|backup|compact|volume.tail|benchmark ...``.
   kernel, and EC requests fail without a card), ``mesh`` (the kernel on
   every local card, ``ec/sharded.py``) or ``cpu`` (the kernel's plain
   PyTorch version). ``SWEED_MESH=1`` makes the server a mesh member
-  (``server/volume_server.py``).
+  (``server/volume_server.py``). ``master`` and ``volume`` take
+  ``-metrics.address host:port`` (a Prometheus push gateway, every
+  ``-metrics.intervalSeconds``).
+- ``server`` runs a master and a volume server in one process (`weed
+  server`): ``-ip -master.port -port -dir -max -ec.backend``, and with
+  ``-filer`` a filer (``-filer.port -filer.db``, ``filer.toml`` and
+  ``notification.toml`` as for ``filer``), ``-s3`` (``-s3.port
+  -s3.config``) and ``-webdav`` (``-webdav.port``) over it, each implying
+  ``-filer``. ``-ec.backend`` is ``cuda`` by default, as for ``volume``.
 - ``filer`` runs a filer with the flags of ``weed filer``: ``-ip -port
   -master -chunkSizeMB -db -collection -replication -encryptVolumeData
   -peers -metaLogDir``. Its store is ``-db`` (a sqlite file, or
@@ -57,12 +72,25 @@ shell|upload|download|delete|backup|compact|volume.tail|benchmark ...``.
 - ``watch -filer F [-v]`` prints a filer's meta events as they come.
 - ``upload -master [-maxMB] FILE...``, ``download -master [-o] FID`` and
   ``delete -master FID...`` are the object-store client of ``operation.py``.
-- ``shell`` runs the admin shell against ``-master``; ``-c "cmd; cmd"``
-  runs the commands and exits 1 if one failed.
+- ``shell`` runs the admin shell against ``-master`` (and ``-filer``, for
+  ``fs.*``, ``bucket.*``, ``volume.fsck``, ``query`` and ``trace``);
+  ``-c "cmd; cmd"`` runs the commands and exits 1 if one failed.
+- ``ec.encode -master -volume N`` seals a volume on its holder.
 - ``backup -master -volume -dir [-collection]`` makes or brings up to date
   a local copy of a volume (`weed backup`): one incremental pass.
 - ``compact -dir -volumeId [-collection]`` compacts a volume offline
   (`weed compact`).
+- The offline tools work on a volume's files (``-dir -collection
+  -volumeId``), its server stopped: ``fix`` rebuilds the .idx from the
+  .dat, ``export -o T.tar [-newer ISO]`` writes the live needles to a tar,
+  ``dump.dat`` and ``dump.idx [-ext .ecx] [-offsetSize 4|5]`` print every
+  record, ``change.superblock [-replication xyz] [-ttl T]`` prints or
+  rewrites the superblock. ``diff.servers -volumeServers A,B -volumeId N``
+  compares one volume's needles across live servers (exit 1 on a
+  difference).
+- ``scaffold -config security|master|filer|replication|backend|
+  notification|s3`` prints a configuration template; ``version`` the
+  package's version.
 - ``volume.tail -master -volumeId`` follows a volume's appended needles
   through ``/admin/tail``: ``+`` lines for writes, ``-`` for deletes.
 - ``benchmark -master -n -c -size -collection -assign.batch -deletePercent``
@@ -77,6 +105,7 @@ The daemons run until SIGINT or SIGTERM, then stop cleanly.
 from __future__ import annotations
 
 import argparse
+import gzip
 import signal
 import threading
 import time
@@ -101,6 +130,26 @@ def _serve_until_signalled(*servers) -> None:
             server.stop()
 
 
+def _maybe_start_pusher(args, job: str, instance: str):
+    """``-metrics.address`` -> the push-gateway loop (stats/metrics.go:69);
+    ``/metrics`` serves for pulls either way."""
+    if not args.metrics_address:
+        return None
+    from .stats.metrics import MetricsPusher, default_registry
+
+    return MetricsPusher(default_registry, args.metrics_address, job, instance,
+                         interval_seconds=args.metrics_interval).start()
+
+
+def _security_conf() -> dict:
+    """The JWT keys of ``security.toml`` (the scaffold's ``[jwt.signing]``)."""
+    from .util.config import load_configuration
+
+    sec = load_configuration("security")
+    return {"jwt_signing_key": sec.get("jwt.signing.key", "") or "",
+            "jwt_read_key": sec.get("jwt.signing.read.key", "") or ""}
+
+
 def cmd_master(args) -> None:
     from .server.master_server import MasterServer
 
@@ -113,14 +162,15 @@ def cmd_master(args) -> None:
         peers=peers or None,
         meta_dir=args.mdir or None,
     ).start()
+    pusher = _maybe_start_pusher(args, "master", ms.url)
     print(f"master listening on {ms.url}", flush=True)
-    _serve_until_signalled(ms)
+    _serve_until_signalled(*filter(None, (pusher, ms)))
 
 
 def cmd_shell(args) -> None:
     from .shell.shell import run_shell
 
-    run_shell(args.master, command=args.command)
+    run_shell(args.master, args.filer, command=args.command)
 
 
 def cmd_backup(args) -> None:
@@ -813,17 +863,351 @@ def cmd_volume(args) -> None:
         needle_map_kind=args.index,
     )
     vs.start()
+    pusher = _maybe_start_pusher(args, "volumeServer", f"{vs.host}:{vs.port}")
     print(f"volume server on {vs.host}:{vs.port} -> master {args.mserver} "
           f"(ec backend {vs.store.ec_backend})", flush=True)
-    _serve_until_signalled(vs)
+    _serve_until_signalled(*filter(None, (pusher, vs)))
+
+
+def cmd_server(args) -> None:
+    """Master and volume server in one process (`weed server`,
+    command/server.go:119), with ``-filer``, and ``-s3`` / ``-webdav`` over
+    that filer (each implies it). The filer's store and queue come from
+    ``filer.toml`` and ``notification.toml`` as for the ``filer`` command."""
+    from .server.master_server import MasterServer
+    from .server.volume_server import VolumeServer
+
+    servers = []
+    try:
+        ms = MasterServer(host=args.ip, port=args.master_port).start()
+        servers.append(ms)
+        vs = VolumeServer(args.dir.split(","), host=args.ip, port=args.port,
+                          master_url=ms.url, max_volume_count=args.max,
+                          ec_backend=args.ec_backend).start()
+        servers.append(vs)
+        parts = [f"master {ms.url}", f"volume {vs.host}:{vs.port} "
+                 f"(ec backend {vs.store.ec_backend})"]
+        if args.filer or args.s3 or args.webdav:
+            from .server.filer_server import FilerServer
+
+            db_path, store = _filer_store_from_conf(args.filer_db)
+            sec = _security_conf()
+            fs = FilerServer(host=args.ip, port=args.filer_port, master_url=ms.url,
+                             db_path=db_path, store=store,
+                             jwt_signing_key=sec["jwt_signing_key"],
+                             jwt_read_key=sec["jwt_read_key"]).start()
+            servers.append(fs)
+            _filer_notifications(fs)
+            parts.append(f"filer {fs.url}")
+            if args.s3:
+                import json
+
+                from .s3api import IAM, S3ApiServer
+
+                iam = IAM()
+                if args.s3_config:
+                    with open(args.s3_config) as f:
+                        iam = IAM.from_config(json.load(f))
+                s3 = S3ApiServer(host=args.ip, port=args.s3_port, filer_url=fs.url,
+                                 iam=iam).start()
+                servers.append(s3)
+                parts.append(f"s3 {s3.url}")
+            if args.webdav:
+                from .server.webdav_server import WebDavServer
+
+                wd = WebDavServer(host=args.ip, port=args.webdav_port,
+                                  filer_url=fs.url).start()
+                servers.append(wd)
+                parts.append(f"webdav {wd.url}")
+    except BaseException:
+        for server in reversed(servers):
+            server.stop()
+        raise
+    print("server: " + ", ".join(parts), flush=True)
+    _serve_until_signalled(*reversed(servers))  # gateways stop first
+
+
+def cmd_ec_encode(args) -> None:
+    """Seal one volume where it lives (``/admin/ec/generate`` on its first
+    holder, which runs the GF(2^8) product on its backend)."""
+    import sys
+
+    from . import operation
+    from .server.http_util import http_json
+
+    locs = operation.lookup(args.master, args.volume)
+    if not locs:
+        print(f"volume {args.volume} not found", file=sys.stderr)
+        sys.exit(1)
+    r = http_json("POST", f"http://{locs[0]['url']}/admin/ec/generate?volume={args.volume}")
+    print(r)
+
+
+def cmd_scaffold(args) -> None:
+    """Print a configuration template (`weed scaffold` -> <name>.toml)."""
+    from .util.config import SCAFFOLDS
+
+    templates = dict(SCAFFOLDS)
+    templates["s3"] = (
+        "# s3.json — identities for the S3 gateway\n"
+        '{\n  "identities": [\n    {\n      "name": "admin",\n'
+        '      "credentials": [{"accessKey": "AKEXAMPLE", '
+        '"secretKey": "SKEXAMPLE"}],\n      "actions": ["Admin"]\n'
+        "    }\n  ]\n}\n"
+    )
+    print(templates.get(args.config, f"unknown config {args.config!r}; "
+                                     f"choose from {sorted(templates)}"))
+
+
+def cmd_fix(args) -> None:
+    """Rebuild a volume's .idx from its .dat (`weed fix`, command/fix.go)."""
+    import os
+
+    from .storage.volume import Volume, volume_file_name
+
+    base = volume_file_name(args.dir, args.collection, args.volume_id)
+    idx = base + ".idx"
+    if not (os.path.exists(base + ".dat") or os.path.exists(base + ".tier")):
+        # checked before the index is touched: a mistyped -dir must not
+        # destroy a stray .idx it cannot rebuild
+        raise SystemExit(f"no volume data at {base}.dat")
+    if os.path.exists(idx):
+        os.unlink(idx)  # fix.go wants the index gone; the load redoes it
+    v = Volume(args.dir, collection=args.collection, vid=args.volume_id,
+               create_if_missing=False)
+    try:
+        print(f"fixed {idx}: {v.file_count()} entries ({v.deleted_count()} tombstones)")
+    finally:
+        v.close()
+
+
+def cmd_export(args) -> None:
+    """The live needles of a volume as a tar (`weed export`,
+    command/export.go): named by their stored name, else ``<vid>_<key>``,
+    ungzipped; ``-newer`` keeps those modified after an ISO time."""
+    import tarfile
+    from datetime import datetime
+    from io import BytesIO
+
+    from .storage.types import size_is_valid
+    from .storage.volume import Volume
+
+    newer_than = datetime.fromisoformat(args.newer).timestamp() if args.newer else 0.0
+    v = Volume(args.dir, collection=args.collection, vid=args.volume_id,
+               create_if_missing=False)
+    count = skipped = 0
+    try:
+        with tarfile.open(args.output, "w") as tf:
+            for n, offset, _ in v.scan_needles():
+                nv = v.nm.get(n.id)
+                if (nv is None or not size_is_valid(nv.size)  # deleted
+                        or nv.offset != offset  # overwritten later
+                        or not n.data):
+                    continue
+                # a needle without a time fails the cutoff too, as export.go's
+                # unconditional compare
+                if newer_than and n.last_modified < newer_than:
+                    skipped += 1
+                    continue
+                name = n.name.decode("utf-8", "replace") if n.name else f"{v.id:d}_{n.id:x}"
+                data = bytes(n.data)
+                if n.is_compressed:
+                    data = gzip.decompress(data)
+                info = tarfile.TarInfo(name=name)
+                info.size = len(data)
+                info.mtime = n.last_modified or int(time.time())
+                tf.addfile(info, BytesIO(data))
+                count += 1
+    finally:
+        v.close()
+    print(f"exported {count} files to {args.output} ({skipped} skipped)")
+
+
+def cmd_dump_dat(args) -> None:
+    """Every record of a volume's .dat, by walking its bytes (the see_dat
+    tool, `unmaintained/see_dat/see_dat.go:1`). Read-only: no needle map is
+    built and no .idx is made or touched, so it is safe on a forensic
+    copy."""
+    import struct
+    from datetime import datetime
+
+    from .storage.needle import NEEDLE_HEADER_SIZE, Needle, needle_body_length, \
+        parse_needle_header
+    from .storage.super_block import SuperBlock
+    from .storage.volume import volume_file_name
+
+    base = volume_file_name(args.dir, args.collection, args.volume_id)
+    with open(base + ".dat", "rb") as f:
+        # the 8-byte header carries extra_size, which can push the first
+        # record past a fixed slice
+        head = f.read(8)
+        extra_size = struct.unpack(">H", head[6:8])[0] if len(head) == 8 else 0
+        f.seek(0)
+        sb = SuperBlock.from_bytes(f.read(8 + extra_size))
+        offset = sb.block_size()
+        f.seek(0, 2)
+        size = f.tell()
+        print(f"# volume {args.volume_id} version {sb.version} "
+              f"replication {sb.replica_placement} "
+              f"compactRevision {sb.compaction_revision} size {size}")
+        count = 0
+        while offset + NEEDLE_HEADER_SIZE <= size:
+            f.seek(offset)
+            hdr = f.read(NEEDLE_HEADER_SIZE)
+            if len(hdr) < NEEDLE_HEADER_SIZE:
+                break
+            cookie, nid, nsize = parse_needle_header(hdr)
+            body_len = needle_body_length(max(nsize, 0), sb.version)
+            total = NEEDLE_HEADER_SIZE + body_len
+            if offset + total > size:
+                print(f"# torn record at offset {offset} (truncated write?)")
+                break
+            n = Needle(cookie=cookie, id=nid, size=nsize)
+            ts = ""
+            try:
+                n.read_body_bytes(f.read(body_len), sb.version)
+                if n.append_at_ns:
+                    ts = " appendedAt " + datetime.fromtimestamp(
+                        n.append_at_ns / 1e9).isoformat()
+            except Exception as e:  # noqa: BLE001 — forensics keeps walking
+                ts = f" BODY-ERROR {e}"
+            # the .dat alone cannot tell an empty put from a deletion
+            # marker (both append size-0 records); only the .idx can
+            kind = "size 0 (empty-or-tombstone)" if nsize <= 0 else f"size {nsize}"
+            print(f"{args.volume_id},{nid:x}{cookie:08x} offset {offset} "
+                  f"{kind} data {len(n.data)}B{ts}")
+            count += 1
+            offset += total
+        print(f"# {count} records")
+
+
+def cmd_dump_idx(args) -> None:
+    """Every .idx (or .ecx) entry in file order (the see_idx tool,
+    `unmaintained/see_idx/see_idx.go:1`)."""
+    from .storage import idx as idx_mod
+    from .storage.types import TOMBSTONE_FILE_SIZE
+    from .storage.volume import volume_file_name
+
+    path = volume_file_name(args.dir, args.collection, args.volume_id) + args.ext
+    count = 0
+    with open(path, "rb") as f:
+        for key, offset, size in idx_mod.iter_index_file(f, args.offset_size):
+            tag = " (tombstone)" if size == TOMBSTONE_FILE_SIZE or offset == 0 else ""
+            print(f"key:{key:x} offset:{offset} size:{size}{tag}")
+            count += 1
+    print(f"# {count} entries")
+
+
+def cmd_diff_servers(args) -> None:
+    """One volume's needles across servers (the diff_volume_servers tool,
+    `unmaintained/diff_volume_servers/diff_volume_servers.go:34`): for each
+    needle that differs, ``<vid>,<key> <server> missing|deleted|
+    notDeleted|wrongSize`` against the other servers' majority; exit 1 if
+    any differs."""
+    import io
+
+    from .server.http_util import http_bytes
+    from .storage import idx as idx_mod
+    from .storage.types import TOMBSTONE_FILE_SIZE
+
+    servers = [s for s in args.volume_servers.split(",") if s]
+    if len(servers) < 2:
+        raise SystemExit("need at least two -volumeServers to diff")
+    vid = args.volume_id
+    states: dict[str, dict[int, int]] = {}  # server -> {key: size, -1 deleted}
+    for addr in servers:
+        status, data = http_bytes("GET", f"http://{addr}/admin/file?volume={vid}"
+                                         f"&collection={args.collection}&ext=.idx")
+        if status != 200:
+            raise SystemExit(f"{addr}: fetching volume {vid} idx: HTTP {status}")
+        live: dict[int, int] = {}
+        for key, offset, size in idx_mod.iter_index_file(io.BytesIO(data), args.offset_size):
+            live[key] = -1 if offset == 0 or size == TOMBSTONE_FILE_SIZE else size
+        states[addr] = live
+    every: set[int] = set()
+    for live in states.values():
+        every.update(live)
+    diffs = 0
+    for key in sorted(every):
+        vals = {addr: states[addr].get(key) for addr in servers}
+        if len(set(vals.values())) <= 1:
+            continue  # the same everywhere
+        # what is wrong on each server, against the others' majority view
+        for addr, val in vals.items():
+            others = [ov for a, ov in vals.items() if a != addr]
+            ref = max(set(others), key=others.count)
+            if val == ref:
+                continue
+            if val is None:
+                msg = "missing"
+            elif ref is None:
+                # this server has it; those lacking it get their own
+                # 'missing' lines (a wrongSize here would be a phantom)
+                continue
+            elif val == -1:
+                msg = "deleted"
+            elif ref == -1:
+                msg = "notDeleted"
+            else:
+                msg = "wrongSize"
+            print(f"{vid},{key:x} {addr} {msg}")
+            diffs += 1
+    print(f"# {diffs} differences across {len(servers)} servers")
+    if diffs:
+        raise SystemExit(1)
+
+
+def cmd_change_superblock(args) -> None:
+    """Rewrite the replication and TTL bytes of a volume's superblock in
+    place (the change_superblock tool, `unmaintained/change_superblock/
+    change_superblock.go:41`); with neither flag, print them only. The
+    server holding the .dat must be stopped first, as in the reference."""
+    from .storage.replica_placement import ReplicaPlacement
+    from .storage.super_block import SUPER_BLOCK_SIZE, SuperBlock
+    from .storage.ttl import read_ttl
+    from .storage.volume import volume_file_name
+
+    base = volume_file_name(args.dir, args.collection, args.volume_id)
+    with open(base + ".dat", "r+b") as f:
+        # extra_size is a u16 and from_bytes slices what the header
+        # declares, so reading its maximum is always enough
+        sb = SuperBlock.from_bytes(f.read(SUPER_BLOCK_SIZE + 0xFFFF))
+        print(f"Current Volume Replication: {sb.replica_placement}")
+        print(f"Current Volume TTL: {sb.ttl}")
+        changed = False
+        if args.replication:
+            sb.replica_placement = ReplicaPlacement.from_string(args.replication)
+            print(f"Changing replication to: {sb.replica_placement}")
+            changed = True
+        if args.ttl:
+            sb.ttl = read_ttl(args.ttl)
+            print(f"Changing ttl to: {sb.ttl}")
+            changed = True
+        if changed:
+            blob = sb.to_bytes()
+            # both live in the fixed 8-byte header; the extra section is
+            # untouched, so no record moves
+            assert len(blob) == sb.block_size()
+            f.seek(0)
+            f.write(blob)
+            print("Done.")
+
+
+def cmd_version(args) -> None:
+    from . import __version__
+
+    print(f"seaweedfs_tpu_torch {__version__}")
 
 
 def main(argv=None) -> None:
     from .util import glog
 
     p = argparse.ArgumentParser(prog="seaweedfs_tpu_torch")
-    p.add_argument("-v", type=int, default=0, metavar="LEVEL",
-                   help="log verbosity for V-gated messages")
+    glog.add_flags(p)  # global flags, before the subcommand (as in weed)
+    p.add_argument("-cpuprofile", default="",
+                   help="write a CPU profile (cProfile stats) on exit")
+    p.add_argument("-memprofile", default="",
+                   help="write a memory profile (tracemalloc top) on exit")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     m = sub.add_parser("master", help="run the master")
@@ -836,6 +1220,7 @@ def main(argv=None) -> None:
                    help="dir for durable election/sequence state (weed master -mdir)")
     m.add_argument("-peers", default="",
                    help="comma-separated master peers for HA (weed master -peers)")
+    _add_metrics_flags(m)
     m.set_defaults(fn=cmd_master)
 
     v = sub.add_parser("volume", help="run a volume server")
@@ -855,7 +1240,32 @@ def main(argv=None) -> None:
                    choices=["cuda", "cpu", "mesh"],
                    help="cuda: the hand-written GPU kernel; cpu: its plain version; "
                         "mesh: the kernel on every local GPU (ec/sharded.py)")
+    _add_metrics_flags(v)
     v.set_defaults(fn=cmd_volume)
+
+    s = sub.add_parser("server", help="master + volume (+ filer/s3/webdav) in one process")
+    s.add_argument("-ip", default="127.0.0.1")
+    s.add_argument("-master.port", dest="master_port", type=int, default=9333)
+    s.add_argument("-port", type=int, default=8080)
+    s.add_argument("-dir", default="./data")
+    s.add_argument("-max", type=int, default=7)
+    s.add_argument("-ec.backend", dest="ec_backend", default="cuda",
+                   choices=["cuda", "cpu", "mesh"],
+                   help="the volume server's codec, as volume's -ec.backend")
+    s.add_argument("-filer", action="store_true",
+                   help="also run a filer (command/server.go -filer)")
+    s.add_argument("-filer.port", dest="filer_port", type=int, default=8888)
+    s.add_argument("-filer.db", dest="filer_db", default="",
+                   help="sqlite path (default ./filer.db; ':memory:' for ephemeral; "
+                        "filer.toml's store when unset, as filer -db)")
+    s.add_argument("-s3", action="store_true", help="also run the S3 gateway (implies -filer)")
+    s.add_argument("-s3.port", dest="s3_port", type=int, default=8333)
+    s.add_argument("-s3.config", dest="s3_config", default="",
+                   help="identities json for the embedded S3 gateway")
+    s.add_argument("-webdav", action="store_true",
+                   help="also run the WebDAV gateway (implies -filer)")
+    s.add_argument("-webdav.port", dest="webdav_port", type=int, default=7333)
+    s.set_defaults(fn=cmd_server)
 
     f = sub.add_parser("filer", help="run a filer server")
     f.add_argument("-ip", default="127.0.0.1")
@@ -969,6 +1379,8 @@ def main(argv=None) -> None:
 
     sh = sub.add_parser("shell", help="run the admin shell")
     sh.add_argument("-master", default="127.0.0.1:9333")
+    sh.add_argument("-filer", default="",
+                    help="filer url for fs.*/bucket.*/fsck/query/trace commands")
     sh.add_argument("-c", dest="command", default="",
                     help="run these ';'-separated commands and exit")
     sh.set_defaults(fn=cmd_shell)
@@ -981,9 +1393,7 @@ def main(argv=None) -> None:
     bk.set_defaults(fn=cmd_backup)
 
     cp = sub.add_parser("compact", help="offline-compact a volume")
-    cp.add_argument("-dir", default=".")
-    cp.add_argument("-collection", default="")
-    cp.add_argument("-volumeId", dest="volume_id", type=int, required=True)
+    _add_volume_file_flags(cp)
     cp.set_defaults(fn=cmd_compact)
 
     vt = sub.add_parser("volume.tail", help="follow a volume's appended needles")
@@ -1010,9 +1420,77 @@ def main(argv=None) -> None:
                    help="percent of written files to delete (timed) before the read phase")
     b.set_defaults(fn=cmd_benchmark)
 
+    e = sub.add_parser("ec.encode", help="erasure-code a volume")
+    e.add_argument("-master", default="127.0.0.1:9333")
+    e.add_argument("-volume", type=int, required=True)
+    e.set_defaults(fn=cmd_ec_encode)
+
+    sc = sub.add_parser("scaffold", help="print config templates")
+    sc.add_argument("-config", default="security")
+    sc.set_defaults(fn=cmd_scaffold)
+
+    fx = sub.add_parser("fix", help="rebuild a volume's .idx from its .dat")
+    _add_volume_file_flags(fx)
+    fx.set_defaults(fn=cmd_fix)
+
+    ex = sub.add_parser("export", help="export volume contents to a tar")
+    _add_volume_file_flags(ex)
+    ex.add_argument("-o", dest="output", required=True, help="output .tar")
+    ex.add_argument("-newer", default="", help="only files newer than ISO timestamp")
+    ex.set_defaults(fn=cmd_export)
+
+    dd = sub.add_parser("dump.dat", help="print every .dat record (see_dat analog)")
+    _add_volume_file_flags(dd)
+    dd.set_defaults(fn=cmd_dump_dat)
+
+    di = sub.add_parser("dump.idx", help="print every .idx entry (see_idx analog)")
+    _add_volume_file_flags(di)
+    di.add_argument("-ext", default=".idx", choices=[".idx", ".ecx"])
+    di.add_argument("-offsetSize", dest="offset_size", type=int, default=4, choices=[4, 5])
+    di.set_defaults(fn=cmd_dump_idx)
+
+    ds = sub.add_parser("diff.servers",
+                        help="diff a volume across servers (diff_volume_servers analog)")
+    ds.add_argument("-volumeServers", dest="volume_servers", required=True,
+                    help="comma-delimited host:port list")
+    ds.add_argument("-volumeId", dest="volume_id", type=int, required=True)
+    ds.add_argument("-collection", default="")
+    ds.add_argument("-offsetSize", dest="offset_size", type=int, default=4, choices=[4, 5])
+    ds.set_defaults(fn=cmd_diff_servers)
+
+    cs = sub.add_parser("change.superblock",
+                        help="edit replication/TTL bits of a sealed .dat in place "
+                             "(change_superblock analog)")
+    _add_volume_file_flags(cs)
+    cs.add_argument("-replication", default="",
+                    help="target xyz replication; empty = print only")
+    cs.add_argument("-ttl", default="", help="target TTL (e.g. 3d); empty = print only")
+    cs.set_defaults(fn=cmd_change_superblock)
+
+    ver = sub.add_parser("version")
+    ver.set_defaults(fn=cmd_version)
+
     args = p.parse_args(argv)
-    glog.set_verbosity(args.v)
+    glog.init_from_flags(args)
+    if args.cpuprofile or args.memprofile:
+        from .util.profiling import setup_profiling
+
+        setup_profiling(args.cpuprofile, args.memprofile)
     args.fn(args)
+
+
+def _add_metrics_flags(parser) -> None:
+    parser.add_argument("-metrics.address", dest="metrics_address", default="",
+                        help="Prometheus push gateway host:port (push loop)")
+    parser.add_argument("-metrics.intervalSeconds", dest="metrics_interval", type=float,
+                        default=15.0)
+
+
+def _add_volume_file_flags(parser) -> None:
+    """The flags that name a volume's files on disk (the offline tools)."""
+    parser.add_argument("-dir", default=".")
+    parser.add_argument("-collection", default="")
+    parser.add_argument("-volumeId", dest="volume_id", type=int, required=True)
 
 
 if __name__ == "__main__":

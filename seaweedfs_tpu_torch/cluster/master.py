@@ -204,6 +204,13 @@ class Master:
             events = [e for v, e in self._loc_log if v > since]
             return {"version": self._loc_version, "events": events}
 
+    def release_watchers(self) -> None:
+        """Wake every ``location_deltas`` long-poll now: a stopping master's
+        watchers get what there is, instead of holding their handler
+        threads (and the process's exit) for up to their timeout."""
+        with self._loc_cond:
+            self._loc_cond.notify_all()
+
     # -- assignment (master_server_handlers.go:96-150) -----------------------
     def assign(
         self,

@@ -18,7 +18,6 @@ import urllib.request
 from datetime import datetime, timezone
 from typing import Optional
 
-from ..query.select import iter_events
 from ..server.http_util import http_bytes_headers
 from ..util.parsers import tolerant_uint
 from .xml_util import find_text, parse_xml, to_xml
@@ -282,6 +281,11 @@ class S3Client:
         if status != 200:
             code = find_text(parse_xml(data), "Code", "InternalError")
             raise IOError(f"select {bucket}/{key}: {code} (HTTP {status})")
+        # imported here: the query package loads torch, which the client's
+        # other users (the cold tier under every Volume, the offline tools)
+        # do not need
+        from ..query.select import iter_events
+
         records, stats = [], {}
         for ev in iter_events(data):
             etype = ev["headers"].get(":event-type", "")

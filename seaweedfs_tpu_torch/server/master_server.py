@@ -589,6 +589,7 @@ class MasterServer:
         self.fid_leases.close()
         if self._srv:
             self._srv.shutdown()
+            self.master.release_watchers()  # no new request comes in now
             self._srv.server_close()
         if self._reaper:
             self._reaper.join()

@@ -89,6 +89,7 @@ from ..ec import encoder
 from ..ec.constants import TOTAL_SHARDS, shard_ext
 from ..ec.decoder import decode_to_volume
 from ..ec.ec_volume import rebuild_ecx_file
+from ..ec.gf_matmul import gf_matmul
 from ..query import execute_request
 from ..security import Guard, gen_jwt, read_auth_query, verify_fid_jwt
 from ..stats import trace
@@ -115,7 +116,7 @@ from ..storage.store import Store
 from ..storage.ttl import read_ttl
 from ..storage.types import NEEDLE_HEADER_SIZE
 from ..storage.volume import DeletedError, NotFoundError, volume_file_name
-from ..util import faultpoints, glog
+from ..util import faultpoints, glog, images
 from ..util.needle_cache import NeedleCache
 from ..util.parsers import tolerant_uint
 from .http_util import (
@@ -296,7 +297,13 @@ class VolumeServer:
 
     def _h_get_timed(self, h, path, q):
         vid, nid, cookie = self._parse_fid_path(path)
-        if self.ncache.enabled:
+        # ?width=zz or a negative width is ignored, as the reference ignores
+        # Atoi failures (resizing.go): such a request is served as if the
+        # parameter were absent, Range and gzip included
+        width = tolerant_uint(q.get("width"), None) or None
+        height = tolerant_uint(q.get("height"), None) or None
+        wants_resize = bool(width or height)
+        if self.ncache.enabled and not wants_resize:
             cached = self.ncache.get(vid, nid, cookie)
             if cached is not None:
                 # a RAM hit is the bytes a disk read of this plain needle
@@ -313,7 +320,8 @@ class VolumeServer:
         n = Needle(id=nid)
         ext = None
         try:
-            ext = self._needle_extent(vid, n)
+            # a resize needs the bytes in userspace: never the zero-copy path
+            ext = None if wants_resize else self._needle_extent(vid, n)
             if ext is None:
                 self.store.read_volume_needle(vid, n)
         except Exception as e:  # noqa: BLE001 — the reference's 404 mapping
@@ -350,19 +358,25 @@ class VolumeServer:
             # server-side chunked-file resolution
             # (volume_server_handlers_read.go:181)
             return self._serve_chunked_manifest(h, data)
-        if self.ncache.would_cache(len(data)) and not n.is_compressed:
+        if self.ncache.would_cache(len(data)) and not n.is_compressed \
+                and not wants_resize:
             # plain needles only, so a hit needs no metadata decisions
             self.ncache.put(vid, nid, cookie, data)
         serving_gzip = False
         if n.is_compressed:
-            # gzip goes out as stored only to clients that asked for it
-            if "gzip" in h.headers.get("Accept-Encoding", ""):
+            # gzip goes out as stored only to clients that asked for it,
+            # and never resized: a resize works on the plain bytes
+            if "gzip" in h.headers.get("Accept-Encoding", "") and not wants_resize:
                 h.extra_headers = {"Content-Encoding": "gzip"}
                 serving_gzip = True
             else:
                 data = gzip.decompress(data)
+        if wants_resize:
+            # on-read resize of an image needle (images/resizing.go)
+            mime = n.mime.decode() if n.mime else "image/jpeg"
+            data = images.resized(data, mime, width, height, q.get("mode", ""))
         rng = h.headers.get("Range", "")
-        if rng and not serving_gzip:  # ranges address the plain bytes
+        if rng and not wants_resize and not serving_gzip:  # ranges address the plain bytes
             return self._range_reply(h, data, rng)
         h.extra_headers = (h.extra_headers or {}) | {"Accept-Ranges": "bytes"}
         return 200, data
@@ -421,6 +435,8 @@ class VolumeServer:
             vid, nid, cookie = self._parse_fid_path(path)
         except ValueError:
             return NATIVE_FALLBACK
+        if tolerant_uint(q.get("width"), None) or tolerant_uint(q.get("height"), None):
+            return NATIVE_FALLBACK  # a resize needs the bytes in userspace
         t0 = time.monotonic()
         if self.ncache.enabled:
             cached = self.ncache.get(vid, nid, cookie)
@@ -1031,6 +1047,10 @@ class VolumeServer:
         hb["serving"] = SERVING.snapshot()
         hb["queries_served"] = self.queries_served
         hb["trace"] = trace.trace_stats()
+        # the process's launches of the GF(2^8) kernel (every EC step and
+        # degraded read of every store in this process): how a run of the
+        # CLI's daemons shows that its EC work reached the card
+        hb["gf_matmul"] = {"launches": gf_matmul.launches}
         return 200, hb
 
     def turbo_status(self) -> dict:

@@ -1,7 +1,5 @@
-"""Admin shell commands over the master/volume HTTP surfaces.
-
-The EC and volume-maintenance subset of `weed/shell/`, ported from the JAX
-package's shell:
+"""Admin shell commands over the master, volume server and filer HTTP
+surfaces, ported from the JAX package's shell (`weed/shell/`):
     volume.list, volume.delete, volume.mark (readonly|writable)
     volume.vacuum (the master's /vol/vacuum), volume.copy, volume.move,
     volume.mount / volume.unmount, volume.configure.replication,
@@ -15,21 +13,37 @@ package's shell:
     volume.tier.upload / volume.tier.download (the S3-class cold tier)
     lifecycle.status / lifecycle.pause / lifecycle.resume (the autopilot)
     collection.list / collection.delete, cluster.status, lock / unlock
+    volume.fsck (command_volume_fsck.go — orphan needles against the filer)
+    fs.cd/pwd/ls/du/tree/cat/mv, fs.meta.cat/save/load/notify,
+    fs.configure (command_fs_*.go, over the filer)
+    bucket.list/create/delete (command_bucket_*.go)
+    query (the filer's /_query), trace (the daemons' span rings),
+    remote.dlq (the replication dead-letter queues)
 
 Every command is a plain function usable programmatically; ``shell.py``
 wraps them in the REPL. Each EC step runs on the volume servers' admin
-endpoints, where the GF(2^8) product goes through the store's codec.
+endpoints, where the GF(2^8) product goes through the store's codec; a
+``query`` runs the scan on the filer's (or the needle's volume server's)
+device.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import time
 import urllib.parse
 from dataclasses import dataclass
 from typing import Optional
 
 from ..ec.constants import TOTAL_SHARDS
-from ..server.http_util import http_json
+from ..filer.filer_conf import FILER_CONF_PATH, FilerConf
+from ..server.http_util import http_bytes, http_json
+from ..stats.trace import assemble_tree, format_tree
+from ..storage.file_id import format_needle_id_cookie, parse_path
 from ..storage.replica_placement import ReplicaPlacement
+from ..util import glog
+from ..util.config import load_configuration
 from ..wdclient import find_reachable_master
 
 
@@ -37,6 +51,8 @@ from ..wdclient import find_reachable_master
 class CommandEnv:
     master: str
     token: Optional[str] = None
+    filer: str = ""  # the filer of fs.*, bucket.*, volume.fsck, query and trace
+    cwd: str = "/"  # the fs.* working directory (command_fs_cd.go)
 
     def __post_init__(self):
         # -master accepts a comma list (shell.go ShellOptions.Masters); pin
@@ -814,3 +830,417 @@ def volume_server_evacuate(env: CommandEnv, server: str, apply: bool = True) -> 
             http_json("POST", f"http://{server}/admin/ec/unmount?volume={vid}")
         ec_moves.append({"vid": vid, "shards": sids, "to": target})
     return {"volumes": moves, "ec": ec_moves}
+
+
+# -- trace (the collector over the daemons' span rings) -----------------------
+def trace_collect(env: CommandEnv, trace_id: str) -> dict:
+    """One distributed trace, assembled from every daemon's span ring (weed
+    shell has no such command; the JAX package's collector).
+
+    Asks the master, every volume server of the topology and the filer
+    (``/_debug/traces``: the filer's own routes keep user paths free).
+    A daemon that does not answer is listed and contributes nothing: a
+    partial tree still renders, its orphan spans promoted to roots."""
+    endpoints = [f"http://{env.master}/debug/traces"]
+    try:
+        endpoints += [f"http://{n['url']}/debug/traces" for n in env.data_nodes()]
+    except Exception as e:  # noqa: BLE001 — the master down: the filer may hold the spans
+        glog.warning("trace: topology unavailable via %s: %s", env.master, e)
+    if env.filer:
+        endpoints.append(f"http://{env.filer}/_debug/traces")
+    spans: dict[str, dict] = {}  # span id -> span (daemons of one process
+    unreachable = []             # share a ring: each span once)
+    for url in endpoints:
+        try:
+            r = http_json("GET", f"{url}?trace={trace_id}")
+        except Exception:  # noqa: BLE001 — a daemon down is reported, not fatal
+            unreachable.append(url)
+            continue
+        for s in r.get("spans", []):
+            spans.setdefault(s["span_id"], s)
+    return {
+        "trace_id": trace_id,
+        "span_count": len(spans),
+        "daemons_queried": len(endpoints),
+        "unreachable": unreachable,
+        "tree": format_tree(assemble_tree(list(spans.values()))),
+    }
+
+
+# -- volume.fsck (command_volume_fsck.go) --------------------------------------
+_PAGE = 1000  # listing page size of the filer walks
+
+
+def _walk_filer(filer: str, path: str = "/"):
+    """Every file entry (``meta=true``: with chunks) under ``path`` as
+    ``(full path, entry)``, recursively, paging through ``lastFileName`` so
+    that a huge directory is covered whole. The trailing slash asks for a
+    listing; a path without it and ``meta=true`` answers the entry itself."""
+    cursor = ""
+    while True:
+        r = http_json("GET", f"http://{filer}{path.rstrip('/')}/?limit={_PAGE}&meta=true"
+                             f"&lastFileName={cursor}")
+        entries = r.get("entries", [])
+        for e in entries:
+            child = (path.rstrip("/") + "/" + e["name"]) or "/"
+            if e.get("is_directory"):
+                yield from _walk_filer(filer, child)
+            else:
+                yield child, e
+        if len(entries) < _PAGE:
+            return
+        cursor = r.get("lastFileName", "") or entries[-1]["name"]
+
+
+def volume_fsck(env: CommandEnv, filer: str, apply: bool = False,
+                cutoff_seconds: float = 300.0) -> dict:
+    """Orphan needles: in a volume, but referenced by no filer entry
+    (command_volume_fsck.go). ``apply`` purges them through the normal
+    delete path.
+
+    Race safety (the reference's cutoffTimeNs): the volumes are scanned
+    before the filer walk, so a needle uploaded after the scan cannot be
+    flagged, and a purge skips any needle appended within
+    ``cutoff_seconds``: an upload whose filer entry has not landed yet is
+    never deleted."""
+    cutoff_ns = (time.time() - cutoff_seconds) * 1e9
+    # 1. the volumes' needles first
+    volume_needles: list[dict] = []
+    for v in volume_list(env):
+        r = http_json("GET", f"http://{v['server']}/admin/needle_ids?volume={v['id']}"
+                             "&cookies=true")
+        for n in r.get("needles", []):
+            volume_needles.append({**n, "vid": v["id"], "server": v["server"]})
+    # 2. then every fid the filer references
+    referenced: dict[int, set[int]] = {}
+    for _, e in _walk_filer(filer):
+        for c in e.get("chunks", []):
+            fid = c.get("file_id", "")
+            if "," not in fid:
+                continue
+            vid_s, rest = fid.split(",", 1)
+            try:
+                key, _cookie = parse_path(rest)
+            except ValueError:
+                continue
+            referenced.setdefault(int(vid_s), set()).add(key)
+    orphans = [{"vid": n["vid"], "key": n["key"], "size": n["size"],
+                "cookie": n.get("cookie", 0), "server": n["server"]}
+               for n in volume_needles if n["key"] not in referenced.get(n["vid"], set())]
+    purged = 0
+    if apply:
+        for o in orphans:
+            info = http_json("GET", f"http://{o['server']}/admin/needle_info"
+                                    f"?volume={o['vid']}&key={o['key']}")
+            if info.get("append_ns", 0) > cutoff_ns:
+                continue  # too fresh: may be an upload in flight
+            fid = f"{o['vid']},{format_needle_id_cookie(o['key'], o['cookie'])}"
+            status, _ = http_bytes("DELETE", f"http://{o['server']}/{fid}")
+            if status in (200, 202, 204):
+                purged += 1
+    return {"orphans": orphans, "purged": purged}
+
+
+# -- fs.* (command_fs_*.go) ------------------------------------------------------
+def _fs_resolve(env: CommandEnv, path: Optional[str]) -> str:
+    """``path`` against the working directory, ``.`` and ``..`` folded."""
+    cwd = env.cwd or "/"
+    if not path:
+        return cwd
+    if not path.startswith("/"):
+        path = cwd.rstrip("/") + "/" + path
+    parts: list[str] = []
+    for seg in path.split("/"):
+        if seg in ("", "."):
+            continue
+        if seg == "..":
+            if parts:
+                parts.pop()
+        else:
+            parts.append(seg)
+    return "/" + "/".join(parts)
+
+
+def _list_dir(filer: str, path: str) -> list[dict]:
+    """A whole directory listing, paging through ``lastFileName`` (one page
+    would truncate a huge directory)."""
+    cursor = ""
+    out: list[dict] = []
+    while True:
+        r = http_json("GET", f"http://{filer}{path.rstrip('/') or ''}/?limit={_PAGE}"
+                             f"&lastFileName={cursor}")
+        if r.get("error"):
+            raise RuntimeError(r["error"])
+        entries = r.get("entries", [])
+        out.extend(entries)
+        if len(entries) < _PAGE:
+            return out
+        cursor = r.get("lastFileName", "") or entries[-1]["name"]
+
+
+def fs_cd(env: CommandEnv, path: str) -> str:
+    target = _fs_resolve(env, path)
+    r = http_json("GET", f"http://{env.filer}{target}?limit=1")
+    if r.get("error") and target != "/":
+        raise RuntimeError(f"no such directory {target}")
+    env.cwd = target
+    return target
+
+
+def fs_ls(env: CommandEnv, path: Optional[str] = None) -> list[dict]:
+    target = _fs_resolve(env, path)
+    # meta=true on a path without its trailing slash answers the entry (a
+    # file or a directory) as JSON: a bare GET of a file streams its bytes
+    r = http_json("GET", f"http://{env.filer}{target}?meta=true")
+    if r.get("error"):
+        raise RuntimeError(r["error"])
+    if "entries" in r:  # "/" keeps its slash: already a listing
+        return _list_dir(env.filer, target)
+    if not r.get("is_directory"):
+        return [r]  # a file
+    return _list_dir(env.filer, target)
+
+
+def fs_pwd(env: CommandEnv) -> str:
+    """command_fs_pwd.go."""
+    return env.cwd or "/"
+
+
+def fs_cat(env: CommandEnv, path: str) -> str:
+    """A file's content (command_fs_cat.go)."""
+    target = _fs_resolve(env, path)
+    status, body = http_bytes("GET", f"http://{env.filer}{target}")
+    if status != 200:
+        raise RuntimeError(f"cat {target}: HTTP {status}")
+    return body.decode("utf-8", "replace")
+
+
+def fs_mv(env: CommandEnv, src: str, dst: str) -> dict:
+    """The filer's atomic rename of a file or a whole directory
+    (command_fs_mv.go -> AtomicRenameEntry)."""
+    s, d = _fs_resolve(env, src), _fs_resolve(env, dst)
+    r = http_json("POST", f"http://{env.filer}{s}?mv.to={d}")
+    if r.get("error"):
+        raise RuntimeError(r["error"])
+    return {"moved": s, "to": d}
+
+
+def fs_meta_cat(env: CommandEnv, path: str) -> dict:
+    """One entry's whole metadata (command_fs_meta_cat.go)."""
+    target = _fs_resolve(env, path)
+    r = http_json("GET", f"http://{env.filer}{target}?meta=true")
+    if r.get("error"):
+        raise RuntimeError(r["error"])
+    return r
+
+
+def fs_configure(env: CommandEnv, location_prefix: str = "", collection: str = "",
+                 replication: str = "", ttl: str = "", fsync: bool = False,
+                 apply: bool = False, delete: bool = False) -> dict:
+    """Read or change the path-prefix storage rules the filer applies to
+    uploads (command_fs_configure.go -> /etc/seaweedfs/filer.conf, which
+    the filer reloads when it is written)."""
+    status, raw = http_bytes("GET", f"http://{env.filer}{FILER_CONF_PATH}")
+    conf = FilerConf.from_bytes(raw) if status == 200 and raw else FilerConf()
+    if location_prefix:
+        if delete:
+            conf.delete_prefix(location_prefix)
+        else:
+            conf.set_rule(location_prefix, collection=collection,
+                          replication=replication, ttl=ttl, fsync=fsync)
+        if apply:
+            st, _ = http_bytes("PUT", f"http://{env.filer}{FILER_CONF_PATH}",
+                               conf.to_bytes())
+            if st not in (200, 201):
+                raise RuntimeError(f"writing filer.conf: HTTP {st}")
+    return conf.to_dict()
+
+
+def fs_meta_notify(env: CommandEnv, path: Optional[str] = None) -> dict:
+    """Publish every entry under ``path`` as a create event to the queue of
+    ``notification.toml`` (command_fs_meta_notify.go), which seeds a new
+    replication consumer with the existing tree. The events carry whole
+    metadata, chunks included (a summary listing has none, and a
+    ``Replicator`` would make empty files of it), in the envelope the
+    ``NotificationBus`` sends."""
+    # imported here, as in the JAX package: the replication package
+    # registers its metric families when it loads
+    from ..replication.notification import make_queue
+
+    queue = make_queue(load_configuration("notification"))
+    if queue is None:
+        raise RuntimeError("notification.toml: no queue enabled")
+    target = _fs_resolve(env, path)
+    probe = http_json("GET", f"http://{env.filer}{target}?meta=true")
+    if probe.get("error"):
+        raise RuntimeError(f"{target}: {probe['error']}")
+    if "entries" not in probe and not probe.get("is_directory"):
+        raise RuntimeError(f"{target} is not a directory")
+    dirs = files = 0
+
+    def walk(p: str) -> None:
+        nonlocal dirs, files
+        cursor = ""
+        while True:
+            r = http_json("GET", f"http://{env.filer}{p.rstrip('/')}/?limit={_PAGE}"
+                                 f"&meta=true&lastFileName={cursor}")
+            entries = r.get("entries", [])
+            for e in entries:
+                child = p.rstrip("/") + "/" + e["name"]
+                queue.send(child, {"ts_ns": time.time_ns(),
+                                   "directory": child.rsplit("/", 1)[0] or "/",
+                                   "old_entry": None,
+                                   "new_entry": e | {"full_path": child},
+                                   "delete_chunks": False})
+                if e.get("is_directory"):
+                    dirs += 1
+                    walk(child)
+                else:
+                    files += 1
+            if len(entries) < _PAGE:
+                return
+            cursor = r.get("lastFileName", "") or entries[-1]["name"]
+
+    walk(target)
+    return {"path": target, "notified_dirs": dirs, "notified_files": files}
+
+
+def fs_du(env: CommandEnv, path: Optional[str] = None) -> dict:
+    """Bytes, files and directories under ``path`` (command_fs_du.go)."""
+    target = _fs_resolve(env, path)
+    total, files, dirs = 0, 0, 0
+    stack = [target]
+    while stack:
+        p = stack.pop()
+        for e in _list_dir(env.filer, p):
+            if e.get("is_directory"):
+                dirs += 1
+                stack.append(p.rstrip("/") + "/" + e["name"])
+            else:
+                files += 1
+                total += e.get("size", 0)
+    return {"path": target, "bytes": total, "files": files, "dirs": dirs}
+
+
+def fs_tree(env: CommandEnv, path: Optional[str] = None) -> str:
+    """The directory tree, drawn (command_fs_tree.go)."""
+    target = _fs_resolve(env, path)
+    lines = [target]
+
+    def rec(p: str, indent: str) -> None:
+        entries = _list_dir(env.filer, p)
+        for i, e in enumerate(entries):
+            last = i == len(entries) - 1
+            lines.append(f"{indent}{'└── ' if last else '├── '}{e['name']}"
+                         + ("/" if e.get("is_directory") else ""))
+            if e.get("is_directory"):
+                rec(p.rstrip("/") + "/" + e["name"], indent + ("    " if last else "│   "))
+
+    rec(target, "")
+    return "\n".join(lines)
+
+
+def fs_meta_save(env: CommandEnv, out_path: str, path: Optional[str] = None) -> dict:
+    """Every file entry's whole metadata under ``path`` as JSON lines
+    (command_fs_meta_save.go; the reference writes protobuf)."""
+    target = _fs_resolve(env, path)
+    n = 0
+    with open(out_path, "w") as f:
+        for full, e in _walk_filer(env.filer, target):
+            f.write(json.dumps(dict(e, full_path=full)) + "\n")
+            n += 1
+    return {"saved": n, "file": out_path}
+
+
+def fs_meta_load(env: CommandEnv, in_path: str) -> dict:
+    """Replay a ``fs.meta.save`` dump into the filer
+    (command_fs_meta_load.go): entries with their chunks, no data uploaded
+    again, through the filer's raw metadata write (``POST
+    <path>?meta=true``), so filer.conf reloads and peer signatures take the
+    normal path."""
+    n = 0
+    with open(in_path) as f:
+        for line in f:
+            if not line.strip():
+                continue
+            d = json.loads(line)
+            r = http_json("POST", f"http://{env.filer}{d['full_path']}?meta=true",
+                          json.dumps(d).encode())
+            if r.get("error"):
+                raise RuntimeError(f"{d.get('full_path')}: {r['error']}")
+            n += 1
+    return {"loaded": n}
+
+
+# -- bucket.* (command_bucket_*.go) ------------------------------------------
+BUCKETS_PATH = "/buckets"
+
+
+def bucket_list(env: CommandEnv) -> list[str]:
+    r = http_json("GET", f"http://{env.filer}{BUCKETS_PATH}?limit=10000")
+    return [e["name"] for e in r.get("entries", []) if e.get("is_directory")]
+
+
+def bucket_create(env: CommandEnv, name: str) -> dict:
+    r = http_json("POST", f"http://{env.filer}{BUCKETS_PATH}/{name}/?mkdir=true")
+    if r.get("error"):
+        raise RuntimeError(r["error"])
+    return {"created": name}
+
+
+def bucket_delete(env: CommandEnv, name: str) -> dict:
+    status, _ = http_bytes("DELETE", f"http://{env.filer}{BUCKETS_PATH}/{name}?recursive=true")
+    if status not in (200, 204):
+        raise RuntimeError(f"delete bucket {name}: http {status}")
+    return {"deleted": name}
+
+
+# -- query (the filer's /_query) ---------------------------------------------------
+def query(env: CommandEnv, sql: str, path: str, input_format: str = "csv") -> dict:
+    """An S3-Select scan of a stored CSV or JSON-lines file (a query path
+    `weed/shell` never grew): the filer's ``/_query`` pushes a one-chunk
+    plain file down to the volume server holding its needle and scans
+    anything else itself, on its device."""
+    if not sql:
+        raise RuntimeError("query needs a SQL string argument")
+    if not path:
+        raise RuntimeError("query needs -path=FILE")
+    r = http_json("POST", f"http://{env.filer}/_query",
+                  {"path": _fs_resolve(env, path), "sql": sql, "input": input_format},
+                  timeout=600)
+    if r.get("error"):
+        raise RuntimeError(r["error"])
+    return r
+
+
+# -- remote.dlq (the replication dead-letter queues) ----------------------------
+def remote_dlq(env: CommandEnv, dlq_dir: str, replay: bool = False,
+               direction: str = "") -> dict:
+    """List, or replay, the replication dead-letter queues under ``dlq_dir``
+    (a ``dlq.<direction>.jsonl`` a sync direction, written by
+    ``ReplicationController``). Listing is read-only; ``replay`` applies
+    each parked event to its recorded target again, and what fails again
+    stays parked."""
+    from ..replication.controller import DeadLetterQueue  # as make_queue above
+
+    if not dlq_dir:
+        raise RuntimeError("remote.dlq needs -dir=DLQ_DIR")
+    out: dict = {}
+    for fname in sorted(os.listdir(dlq_dir)):
+        if not (fname.startswith("dlq.") and fname.endswith(".jsonl")):
+            continue
+        name = fname[len("dlq."):-len(".jsonl")]
+        if direction and name != direction:
+            continue
+        dlq = DeadLetterQueue(os.path.join(dlq_dir, fname))
+        if replay:
+            out[name] = dlq.replay()
+        else:
+            out[name] = {
+                "depth": dlq.depth(),
+                "entries": [{"path": r.get("path"), "ts_ns": r.get("ts_ns"),
+                             "target": r.get("target"), "error": r.get("error"),
+                             "parked_unix": r.get("parked_unix")}
+                            for r in dlq.entries()],
+            }
+    return out

@@ -1,9 +1,10 @@
 """Interactive admin REPL (reference: `weed shell`, shell/commands.go).
 
-The port runs the EC and volume-maintenance commands and what they stand on
-(see ``HELP``). Every other command of the JAX package's shell raises an
-error that names it as not ported yet, so a script that calls one fails
-instead of doing nothing.
+The port runs every command of the JAX package's shell (see ``HELP``), with
+its flags: the EC and volume-maintenance commands over the master and the
+volume servers, and with ``-filer`` the filer's ``fs.*``, ``bucket.*``,
+``volume.fsck``, ``query`` and ``trace``; ``remote.dlq`` reads the
+replication dead-letter queues on the local disk.
 """
 
 from __future__ import annotations
@@ -28,34 +29,40 @@ HELP = """commands:
   volume.copy -volumeId=N -target=host:port [-source=host:port]
   volume.mount|volume.unmount -volumeId=N -node=host:port
   volume.configure.replication -volumeId=N -replication=XYZ
+  volume.tier.upload -volumeId=N [-backend=s3.default|-endpoint=..] [-bucket=B]
+  volume.tier.download -volumeId=N
   volume.balance [-collection=C] [-force=true] [-heat]  plan (and apply) even
                  spread; -heat moves replicas off hot nodes (EWMA heat)
   volumeServer.evacuate -node=host:port         drain a server
   volumeServer.leave -node=host:port            deregister a server now
+  volume.fsck [-apply=true]                     find orphan needles vs filer
   ec.encode -volumeId=N[,M..] [-collection=C] [-fleet]
                  erasure-code + spread volume(s); -fleet hands the batch to
                  the master's scheduler, which fans generate jobs across
-                 the volume servers in parallel
+                 the mesh-registered volume servers in parallel
   ec.decode -volumeId=N [-collection=C]   turn an EC volume back to normal
-  ec.rebuild -volumeId=N [-collection=C]  rebuild missing shards
-  ec.balance [-collection=C]              even out shard spread
-  volume.tier.upload -volumeId=N [-backend=s3.default|-endpoint=..] [-bucket=B]
-                 [-keepLocal=true]   move a sealed volume's .dat to an S3 tier
-  volume.tier.download -volumeId=N    bring a tiered volume's .dat back
-  lifecycle.status | lifecycle.pause | lifecycle.resume   the master's autopilot
+  ec.rebuild -volumeId=N                  rebuild missing shards
+  ec.balance                              even out shard spread
   collection.list | collection.delete -collection=C
+  fs.cd PATH | fs.pwd | fs.ls [PATH] | fs.du [PATH] | fs.tree [PATH]
+  fs.cat FILE | fs.mv SRC DST | fs.meta.cat FILE
+  fs.meta.save -o=FILE [PATH] | fs.meta.load -i=FILE | fs.meta.notify [PATH]
+  fs.configure [-locationPrefix=/p/ -collection=C -replication=XYZ
+                -ttl=T -apply=true|-delete=true]
+  bucket.list | bucket.create -name=B | bucket.delete -name=B
+  query -path=FILE [-input=csv|json] 'SELECT ... FROM s3object [WHERE ...]'
+  remote.dlq -dir=DLQ_DIR [-direction=a_to_b] [-replay]
+                 list (or -replay) events parked by cross-cluster sync
+  trace TRACE_ID          assemble one distributed trace (filer→assign→
+                 volume span tree with per-hop timings) from every
+                 daemon's /debug/traces ring
+  lifecycle.status        cycle counters, interlock state, last plan, and
+                 journal recovery summary of the master's lifecycle autopilot
+  lifecycle.pause | lifecycle.resume  halt / restart autopilot scheduling
+                 (in-flight actions finish; they are staged-commit safe)
   lock | unlock
   help | exit
 """
-
-# the JAX package's commands that the port does not run yet
-NOT_PORTED = frozenset({
-    "volume.fsck", "fs.cd", "fs.pwd", "fs.ls", "fs.du", "fs.tree", "fs.cat", "fs.mv",
-    "fs.meta.cat", "fs.meta.save", "fs.meta.load", "fs.meta.notify",
-    "fs.configure", "bucket.list", "bucket.create", "bucket.delete", "query",
-    "remote.dlq", "trace",
-})
-
 
 def _flags(parts: list[str]) -> dict[str, str]:
     out = {}
@@ -73,8 +80,11 @@ def _flags(parts: list[str]) -> dict[str, str]:
 # mutating command (ec.encode's multi-step spread, volume.delete, ...) may
 # have PARTIALLY executed before the connection error — auto-retrying would
 # re-issue completed steps, so those surface the error with the new master.
-_RETRY_SAFE = {"help", "cluster.status", "volume.list", "collection.list",
-               "lifecycle.status"}
+_RETRY_SAFE = {
+    "help", "cluster.status", "volume.list", "collection.list",
+    "bucket.list", "fs.ls", "fs.du", "fs.tree", "fs.cat", "fs.pwd",
+    "fs.meta.cat", "query", "trace", "lifecycle.status",
+}
 
 
 def run_command_with_failover(env: CommandEnv, line: str) -> object:
@@ -116,13 +126,11 @@ def run_command(env: CommandEnv, line: str) -> object:
     if not parts:
         return None
     cmd, flags = parts[0], _flags(parts[1:])
+    args = [p for p in parts[1:] if not p.startswith("-")]
     if cmd in ("exit", "quit"):
         raise EOFError
     if cmd == "help":
         return HELP
-    if cmd in NOT_PORTED:
-        raise NotImplementedError(
-            f"{cmd} is not ported yet (the JAX package's shell runs it)")
     if cmd == "cluster.status":
         return C.cluster_status(env)
     if cmd == "volume.list":
@@ -202,6 +210,55 @@ def run_command(env: CommandEnv, line: str) -> object:
         return C.collection_list(env)
     if cmd == "collection.delete":
         return C.collection_delete(env, flags["collection"])
+    if cmd == "volume.fsck":
+        return C.volume_fsck(env, env.filer, apply=flags.get("apply") == "true")
+    if cmd == "fs.cd":
+        return C.fs_cd(env, args[0] if args else "/")
+    if cmd == "fs.pwd":
+        return C.fs_pwd(env)
+    if cmd == "fs.ls":
+        return C.fs_ls(env, args[0] if args else None)
+    if cmd == "fs.du":
+        return C.fs_du(env, args[0] if args else None)
+    if cmd == "fs.tree":
+        return C.fs_tree(env, args[0] if args else None)
+    if cmd == "fs.cat":
+        return C.fs_cat(env, args[0])
+    if cmd == "fs.mv":
+        return C.fs_mv(env, args[0], args[1])
+    if cmd == "fs.meta.cat":
+        return C.fs_meta_cat(env, args[0])
+    if cmd == "fs.meta.save":
+        return C.fs_meta_save(env, flags["o"], args[0] if args else None)
+    if cmd == "fs.meta.load":
+        return C.fs_meta_load(env, flags["i"])
+    if cmd == "fs.meta.notify":
+        return C.fs_meta_notify(env, args[0] if args else None)
+    if cmd == "fs.configure":
+        return C.fs_configure(env, location_prefix=flags.get("locationPrefix", ""),
+                              collection=flags.get("collection", ""),
+                              replication=flags.get("replication", ""),
+                              ttl=flags.get("ttl", ""),
+                              fsync=flags.get("fsync") == "true",
+                              apply=flags.get("apply") == "true",
+                              delete=flags.get("delete") == "true")
+    if cmd == "bucket.list":
+        return C.bucket_list(env)
+    if cmd == "bucket.create":
+        return C.bucket_create(env, flags["name"])
+    if cmd == "bucket.delete":
+        return C.bucket_delete(env, flags["name"])
+    if cmd == "query":
+        return C.query(env, args[0] if args else "", flags.get("path", ""),
+                       flags.get("input", "csv"))
+    if cmd == "trace":
+        tid = flags.get("id", "") or (args[0] if args else "")
+        if not tid:
+            raise ValueError("usage: trace TRACE_ID (or trace -id=TRACE_ID)")
+        return C.trace_collect(env, tid)
+    if cmd == "remote.dlq":
+        return C.remote_dlq(env, flags.get("dir", ""), replay=flags.get("replay") == "true",
+                            direction=flags.get("direction", ""))
     if cmd == "lock":
         return env.lock()
     if cmd == "unlock":
@@ -219,8 +276,8 @@ def _print_result(result) -> None:
         )
 
 
-def run_shell(master: str, command: str = "") -> None:
-    env = CommandEnv(master)
+def run_shell(master: str, filer: str = "", command: str = "") -> None:
+    env = CommandEnv(master, filer=filer)
     if command:
         # one-shot mode (weed shell accepts piped commands the same way)
         failed = False

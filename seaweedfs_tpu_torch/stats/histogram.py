@@ -1,4 +1,5 @@
-"""Latency histograms: Prometheus cumulative buckets + quantile estimates.
+"""Latency histograms: Prometheus cumulative buckets, quantile estimates and
+exemplars.
 
 The reference's `weed/stats/metrics.go` histogramVec usage as a type the
 status sections read percentiles from (the master's assign summary in
@@ -9,18 +10,24 @@ status sections read percentiles from (the master's assign summary in
 - ``quantile()``/``summary()`` — p50/p99 estimated by linear interpolation
   inside the owning bucket (the estimate PromQL's ``histogram_quantile``
   computes server-side), so a status page answers without a scrape
-  pipeline.
-
+  pipeline;
+- exemplars — each bucket keeps the last (trace id, value) observed into
+  it, and ``expose()`` appends it OpenMetrics-style (``... #
+  {trace_id="..."} 0.0031``): the way from "p99 regressed" to the shell's
+  ``trace <id>``. The trace id is the ambient span's (``stats/trace.py``)
+  unless one is passed, and never a label, so it adds no cardinality.
 - ``expose()`` — the Prometheus text lines ``/metrics`` serves
-  (``stats/metrics.py`` registers the histograms). The JAX package's
-  exemplars (the ambient span's trace id per bucket) are not ported yet.
+  (``stats/metrics.py`` registers the histograms), in the JAX package's
+  format.
 """
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Optional
+
+from ..util.locks import make_lock
+from .trace import current_trace_id
 
 _DEFAULT_BUCKETS = (
     0.0001, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
@@ -53,9 +60,14 @@ class Histogram:
         self._counts: dict[tuple, list[int]] = {}
         self._sum: dict[tuple, float] = {}
         self._total: dict[tuple, int] = {}
-        self._lock = threading.Lock()
+        # per label set, per bucket: the last (trace_id, value) that landed
+        # in it (None until one does); index len(buckets) is +Inf
+        self._exemplars: dict[tuple, list] = {}
+        self._lock = make_lock("Histogram._lock")
 
-    def observe(self, value: float, **labels) -> None:
+    def observe(self, value: float, trace_id: Optional[str] = None, **labels) -> None:
+        if trace_id is None:
+            trace_id = current_trace_id()
         key = tuple(sorted(labels.items()))
         # the first bucket the value fits; cumulative counts bump every
         # bucket at or above it
@@ -70,6 +82,9 @@ class Histogram:
                 counts[i] += 1
             self._sum[key] = self._sum.get(key, 0.0) + value
             self._total[key] = self._total.get(key, 0) + 1
+            if trace_id:
+                ex = self._exemplars.setdefault(key, [None] * (len(self.buckets) + 1))
+                ex[slot] = (trace_id, value)
 
     def time(self, **labels):
         """with hist.time(op="read"): ..."""
@@ -131,21 +146,34 @@ class Histogram:
         }
 
     def expose(self) -> list[str]:
-        """Prometheus text lines: cumulative ``_bucket`` counts per ``le``,
-        then ``_sum`` and ``_count``, per label set."""
+        """Prometheus text lines: cumulative ``_bucket`` counts per ``le``
+        (each with its exemplar, if any), then ``_sum`` and ``_count``, per
+        label set."""
         out = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} histogram"]
         with self._lock:
             keys = sorted(self._counts)
             counts = {k: list(v) for k, v in self._counts.items()}
             totals = dict(self._total)
             sums = dict(self._sum)
+            exemplars = {k: list(v) for k, v in self._exemplars.items()}
         for key in keys:
             labels = dict(key)
+            ex = exemplars.get(key)
             for i, b in enumerate(self.buckets):
                 lb = {**labels, "le": repr(b)}
-                out.append(f"{self.name}_bucket{_fmt_labels(lb)} {counts[key][i]}")
+                out.append(f"{self.name}_bucket{_fmt_labels(lb)} {counts[key][i]}"
+                           + _exemplar_suffix(ex, i))
             lb = {**labels, "le": "+Inf"}
-            out.append(f"{self.name}_bucket{_fmt_labels(lb)} {totals[key]}")
+            out.append(f"{self.name}_bucket{_fmt_labels(lb)} {totals[key]}"
+                       + _exemplar_suffix(ex, len(self.buckets)))
             out.append(f"{self.name}_sum{_fmt_labels(labels)} {sums[key]}")
             out.append(f"{self.name}_count{_fmt_labels(labels)} {totals[key]}")
         return out
+
+
+def _exemplar_suffix(ex, i: int) -> str:
+    """The OpenMetrics exemplar tail of one bucket line, or ''."""
+    if not ex or ex[i] is None:
+        return ""
+    trace_id, value = ex[i]
+    return f' # {{trace_id="{_escape_label_value(trace_id)}"}} {value:.6g}'

@@ -24,10 +24,10 @@ counters under the reference's names:
   register no family, as in the JAX package: ``/dir/status`` reports them.
 
 Counters and gauges are bumped and read from request and background
-threads, so each takes its own lock. Not ported: the gauges of features the
-port has not got yet (the lock sanitizer, hedged reads), the
-push-gateway
-client, and the host probes (``disk_status``, ``memory_status``), which
+threads, so each takes its own lock. ``MetricsPusher`` pushes a registry
+to a Prometheus push gateway (``-metrics.address``). Not ported: the gauges
+of features the port has not got yet (the lock sanitizer, hedged reads),
+and the host probes (``disk_status``, ``memory_status``), which
 nothing in the JAX package's daemons prints.
 """
 
@@ -145,6 +145,49 @@ class Registry:
 
 
 default_registry = Registry()
+
+
+class MetricsPusher:
+    """Pushes a registry's exposition to a Prometheus push gateway every
+    ``interval_seconds`` (stats/metrics.go:69 startPushingMetric, behind
+    ``-metrics.address``); the ``/metrics`` pull page serves either way."""
+
+    def __init__(self, registry: Registry, gateway_url: str, job: str,
+                 instance: str = "", interval_seconds: float = 15.0):
+        self.registry = registry
+        url = gateway_url.rstrip("/")
+        if not url.startswith("http"):
+            url = "http://" + url
+        self.url = f"{url}/metrics/job/{job}"
+        if instance:
+            self.url += f"/instance/{instance}"
+        self.interval = interval_seconds
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def push_once(self) -> bool:
+        from ..server.http_util import http_bytes  # stats must not import the server at import
+
+        try:
+            status, _ = http_bytes("POST", self.url, body=self.registry.expose().encode(),
+                                   headers={"Content-Type": "text/plain"}, timeout=10)
+            return status < 300
+        except Exception:  # noqa: BLE001 — a gateway down: keep trying, pull still works
+            return False
+
+    def start(self) -> "MetricsPusher":
+        def loop():
+            while not self._stop.wait(self.interval):
+                self.push_once()
+
+        self._thread = threading.Thread(target=loop, daemon=True, name="metrics-push")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread:
+            self._thread.join(timeout=2)
 
 
 def _gauges(reg: Registry, snap: Callable[[str], float], specs) -> None:

@@ -13,6 +13,8 @@ The port reads ``backend.toml`` (the named remote tiers of
 ``storage/backend_config.py``), for the ``filer`` command ``filer.toml``
 (its store) and ``notification.toml`` (its event queue), and for
 ``filer.replicate`` ``replication.toml`` (its sink).
+``SCAFFOLDS`` holds the starter templates that ``scaffold -config=<name>``
+prints, the JAX package's text for text.
 """
 
 from __future__ import annotations
@@ -72,3 +74,157 @@ def load_configuration(name: str) -> Configuration:
             glog.V(1).info("loaded %s", path)
             return Configuration(data, name, path)
     return Configuration({}, name)
+
+
+# the templates `weed scaffold -config=<name>` prints (the JAX package's)
+SCAFFOLDS = {
+    "security": """\
+# security.toml — put in ., ~/.seaweedfs_tpu, or /etc/seaweedfs
+# (reference: weed scaffold -config=security → security.toml)
+
+[jwt.signing]
+# shared secret: volume servers verify fid-scoped write JWTs minted by the
+# master when this is non-empty
+key = ""
+expires_after_seconds = 10
+
+[jwt.signing.read]
+key = ""
+
+[guard]
+# ip whitelist for admin/write surfaces; empty = allow all
+white_list = []
+
+[tls]
+# cluster CA; when set, TLS-enabled servers REQUIRE CA-signed client
+# certificates (mTLS, like the reference's [grpc] ca)
+ca = ""
+
+[tls.s3]
+cert = ""
+key = ""
+
+[tls.webdav]
+cert = ""
+key = ""
+
+[tls.client]
+cert = ""
+key = ""
+""",
+    "master": """\
+# master.toml
+
+[master.volume_growth]
+# how many volumes to grow per type when one fills
+copy_1 = 7
+copy_2 = 6
+copy_3 = 3
+
+[master.maintenance]
+garbage_threshold = 0.3
+""",
+    "filer": """\
+# filer.toml — filer store selection (first enabled store wins)
+
+[sqlite]
+enabled = true
+dbFile = "./filer.db"
+
+[memory]
+enabled = false
+
+[redis]
+enabled = false
+address = "localhost:6379"
+password = ""
+database = 0
+
+[sql]
+# any DB-API 2.0 driver importable by name (mysql/postgres clients);
+# remaining keys in this table are passed to driver.connect(**kwargs)
+enabled = false
+driver = "pymysql"
+""",
+    "replication": """\
+# replication.toml — sink for weed filer.replicate
+
+[sink.local]
+enabled = false
+directory = "/backup"
+
+[sink.filer]
+enabled = false
+grpcAddress = "localhost:8888"
+
+[sink.s3]
+enabled = false
+endpoint = "http://127.0.0.1:8333"
+bucket = "mirror"
+
+[sink.gcs]
+# GCS XML/interop API with HMAC keys
+enabled = false
+bucket = "mirror"
+access_key = ""
+secret_key = ""
+directory = ""
+
+[sink.backblaze]
+# B2 via its S3-compatible endpoint
+enabled = false
+bucket = "mirror"
+b2_account_id = ""
+b2_master_application_key = ""
+region = "us-west-004"
+
+[sink.azure]
+# native Blob REST with SharedKey signing
+enabled = false
+account_name = ""
+account_key = ""
+container = "mirror"
+directory = ""
+""",
+    "backend": """\
+# backend.toml — named remote storage backends for cloud tiering.
+# Volumes tiered with -backend=s3.default store only the backend NAME in
+# their .tier descriptor; the credentials live here, not in the data dirs.
+
+[s3.default]
+endpoint = "https://s3.us-east-1.amazonaws.com"
+access_key = ""
+secret_key = ""
+""",
+    "notification": """\
+# notification.toml — filer event bus (first enabled queue wins)
+
+[notification.log]
+enabled = true
+
+[notification.file]
+enabled = false
+path = "./events.jsonl"
+
+[notification.webhook]
+enabled = false
+url = "http://127.0.0.1:9000/events"
+
+[notification.aws_sqs]
+enabled = false
+aws_access_key_id = ""
+aws_secret_access_key = ""
+region = "us-east-1"
+sqs_queue_url = ""
+
+[notification.kafka]
+enabled = false
+hosts = ["kafka1:9092"]
+topic = "seaweedfs_filer"
+
+[notification.google_pub_sub]
+enabled = false
+project_id = ""
+topic = "seaweedfs_filer"
+""",
+}

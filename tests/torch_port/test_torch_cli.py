@@ -8,10 +8,15 @@ device, and leaves no shard, index or staging file behind.
 
 The port-only cluster: a ``master`` and a ``volume`` process, then ``shell
 -c`` lists the volume and the topology. ``master -peers`` elects one
-leader of a pair and ``-mdir`` keeps the master's state across a restart; a
-shell command the port lacks fails with exit 1, naming it as not ported
-yet. On that cluster the volume maintenance runs from the
-command line: ``shell -c "volume.vacuum ..."`` compacts, ``backup`` copies
+leader of a pair and ``-mdir`` keeps the master's state across a restart.
+``server -filer`` runs the stack in one process, and the shell's filer
+commands (``query``, ``fs.ls``, ``volume.fsck``), once refused as not
+ported, run against it through ``shell -filer``; the stand-alone
+``ec.encode`` seals a volume of it into the JAX encoder's shards, and the
+reference's all-in-one ``server`` case is replayed. ``scaffold``,
+``version`` and the two parsers (the same 30 subcommands and the same flags
+in each) are held against the JAX package's. On a port-only cluster the
+volume maintenance runs from the command line: ``shell -c "volume.vacuum ..."`` compacts, ``backup`` copies
 the volume locally, ``volume.tail`` prints its appended needles and
 ``volumeServer.leave`` retires the server. The offline ``compact`` writes the
 same files as the JAX package's ``compact``.
@@ -26,12 +31,15 @@ import sys
 import threading
 import time
 
+import numpy as np
 import pytest
 import torch
 
 from seaweedfs_tpu.server.http_util import http_bytes, http_json
 from seaweedfs_tpu.server.master_server import MasterServer
 from seaweedfs_tpu.shell.commands import CommandEnv
+
+import gateway_pair
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -224,15 +232,65 @@ def test_master_refuses_unported_flags(flag, tmp_path):
         _stop(proc)
 
 
+def _start_server(tmp_path, *flags):
+    """``server -filer -ec.backend cpu`` (plus ``flags``) as a subprocess;
+    returns (process, {"master", "volume", "filer"}: urls) once the filer
+    answers."""
+    ports = {k: free_port() for k in ("master", "volume", "filer")}
+    (tmp_path / "data").mkdir(exist_ok=True)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "seaweedfs_tpu_torch", "server", "-dir", "data",
+         "-master.port", str(ports["master"]), "-port", str(ports["volume"]), "-filer",
+         "-filer.port", str(ports["filer"]), "-ec.backend", "cpu", *flags],
+        cwd=str(tmp_path), env=dict(os.environ, PYTHONPATH=REPO), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    urls = {k: f"127.0.0.1:{p}" for k, p in ports.items()}
+    deadline = time.time() + 60
+    while time.time() < deadline:
+        if proc.poll() is not None:
+            raise AssertionError(f"server exited {proc.returncode}:\n{proc.stdout.read()}")
+        try:
+            if http_bytes("GET", f"http://{urls['filer']}/_status", timeout=2)[0] == 200 and \
+                    CommandEnv(urls["master"]).data_nodes():
+                return proc, urls
+        except OSError:
+            pass
+        time.sleep(0.2)
+    _stop(proc)
+    raise AssertionError("server never answered")
+
+
+@pytest.fixture(scope="module")
+def server(tmp_path_factory):
+    proc, urls = _start_server(tmp_path_factory.mktemp("server"))
+    yield urls
+    _stop(proc)
+
+
 @pytest.mark.parametrize("command", ["query", "fs.ls /", "volume.fsck"])
-def test_shell_unported_command_fails(command):
-    mproc, murl = _start_master(free_port())
-    try:
-        r = _shell(murl, command)
-        assert r.returncode == 1, r.stdout
-        assert "not ported yet" in r.stdout and command.split()[0] in r.stdout
-    finally:
-        _stop(mproc)
+def test_shell_unported_command_fails(command, server):
+    """Once refused as not ported, each command now runs through ``shell
+    -master M -filer F`` against a ``server`` subprocess: ``query`` scans a
+    CSV, ``fs.ls /`` lists it, ``volume.fsck`` finds no orphan."""
+    path = f"/cli/{command.split()[0]}.csv"
+    assert http_bytes("POST", f"http://{server['filer']}{path}",
+                      b"id,name\n1,a\n2,b\n3,c\n")[0] == 201
+    line = {"query": f'query -path={path} "SELECT name FROM s3object WHERE id > 1"',
+            "fs.ls /": "fs.ls /", "volume.fsck": "volume.fsck"}[command]
+    r = subprocess.run(
+        [sys.executable, "-m", "seaweedfs_tpu_torch", "shell", "-master", server["master"],
+         "-filer", server["filer"], "-c", line],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True, text=True,
+        timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "not ported yet" not in r.stdout
+    out = json.loads(r.stdout)
+    if command == "query":
+        assert out["rows"] == [{"name": "b"}, {"name": "c"}], out
+    elif command == "fs.ls /":
+        assert "cli" in [e["name"] for e in out]
+    else:
+        assert out == {"orphans": [], "purged": 0}
 
 
 def _cli(*args):
@@ -368,3 +426,181 @@ def test_benchmark_flags_and_report_are_the_reference_ones(capsys):
                        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu"),
                        capture_output=True, text=True, timeout=120)
     assert r.stdout.replace("seaweedfs_tpu_torch", "seaweedfs_tpu").split() == j.stdout.split()
+
+
+CLI_SMOKE = gateway_pair.ref_module("test_cli_smoke")
+
+
+def test_reference_allinone_server_subcommand(tmp_path):
+    """The reference's ``test_allinone_server_subcommand`` against the
+    port's ``server`` (its ``_spawn`` runs the port's CLI, with ``-ec.backend
+    cpu`` on a machine without a card)."""
+    def spawn(cwd, *args):
+        return subprocess.Popen(
+            [sys.executable, "-m", "seaweedfs_tpu_torch", *args, "-ec.backend", "cpu"],
+            env=dict(os.environ, PYTHONPATH=REPO), cwd=str(cwd),
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(CLI_SMOKE, "_spawn", spawn)
+        CLI_SMOKE.test_allinone_server_subcommand(tmp_path)
+
+
+def test_server_without_a_card_answers_ec_with_500(tmp_path):
+    """``server`` takes the CUDA backend by default, as ``volume`` does:
+    with no card an EC request answers 500 naming the device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default backend runs the kernel")
+    ports = {k: free_port() for k in ("m", "v")}
+    (tmp_path / "data").mkdir()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "seaweedfs_tpu_torch", "server", "-dir", "data",
+         "-master.port", str(ports["m"]), "-port", str(ports["v"])],
+        cwd=str(tmp_path), env=dict(os.environ, PYTHONPATH=REPO), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    vurl = f"127.0.0.1:{ports['v']}"
+    try:
+        deadline = time.time() + 60
+        while time.time() < deadline:
+            try:
+                if http_bytes("GET", f"http://{vurl}/status", timeout=2)[0] == 200:
+                    break
+            except OSError:
+                time.sleep(0.2)
+        assert http_json("POST", f"http://{vurl}/admin/assign_volume?volume=4") == {}
+        assert http_bytes("POST", f"http://{vurl}/4,0100000001", b"x" * 5000)[0] == 201
+        r = http_json("POST", f"http://{vurl}/admin/ec/generate?volume=4")
+        assert r["_status"] == 500 and "CUDA device" in r["error"], r
+    finally:
+        _stop(proc)
+
+
+def test_standalone_ec_encode_writes_the_reference_shards(tmp_path):
+    """``ec.encode -master M -volume N`` seals a volume of a ``server``
+    subprocess; its shards and .ecx equal the JAX package's encoder's on the
+    same .dat and .idx, and the .vif is written."""
+    import shutil
+
+    from seaweedfs_tpu.ec import encoder as jencoder
+    from seaweedfs_tpu.ec.codec import get_codec as j_get_codec
+
+    proc, urls = _start_server(tmp_path)
+    try:
+        assert http_json("POST", f"http://{urls['master']}/vol/grow?count=1") == {"count": 1}
+        a = http_json("GET", f"http://{urls['master']}/dir/assign")
+        vid, key = int(a["fid"].split(",")[0]), int(a["fid"].split(",")[1][:-8], 16)
+        rng = np.random.default_rng(7)
+        for i in range(40):
+            fid = f"{vid},{key + i:x}{0x5eed:08x}"
+            assert http_bytes("POST", f"http://{a['url']}/{fid}",
+                              rng.bytes(int(rng.integers(1, 200_000))))[0] == 201
+        r = _cli("ec.encode", "-master", urls["master"], "-volume", str(vid))
+        assert r.returncode == 0 and "error" not in r.stdout, r.stdout + r.stderr
+        data = tmp_path / "data"
+        names = set(os.listdir(data))
+        assert {f"{vid}.ec{i:02d}" for i in range(14)} | {f"{vid}.ecx", f"{vid}.vif"} <= names
+        ref = tmp_path / "ref"
+        ref.mkdir()
+        for ext in (".dat", ".idx"):
+            shutil.copy(data / f"{vid}{ext}", ref / f"{vid}{ext}")
+    finally:
+        _stop(proc)
+    jencoder.write_ec_files(str(ref / str(vid)), j_get_codec("numpy"))
+    jencoder.write_sorted_file_from_idx(str(ref / str(vid)))
+    for ext in [f".ec{i:02d}" for i in range(14)] + [".ecx"]:
+        assert (data / f"{vid}{ext}").read_bytes() == (ref / f"{vid}{ext}").read_bytes(), ext
+
+
+SCAFFOLD_NAMES = ["security", "master", "filer", "replication", "backend", "notification",
+                  "s3", "nosuch"]
+
+
+@pytest.mark.parametrize("name", SCAFFOLD_NAMES)
+def test_scaffold_prints_the_reference_templates(name, capsys):
+    from seaweedfs_tpu.__main__ import main as jmain
+    from seaweedfs_tpu_torch.__main__ import main as pmain
+
+    pmain(["scaffold", "-config", name])
+    port = capsys.readouterr().out
+    jmain(["scaffold", "-config", name])
+    assert port == capsys.readouterr().out
+    assert ("unknown config" in port) == (name == "nosuch")
+
+
+def test_version():
+    from seaweedfs_tpu_torch import __version__
+
+    r = _cli("version")
+    assert r.returncode == 0 and r.stdout == f"seaweedfs_tpu_torch {__version__}\n"
+
+
+def _parser(main):
+    """The argparse parser ``main`` builds, caught at its parse."""
+    import argparse
+
+    class Built(Exception):
+        pass
+
+    def caught(self, *args, **kwargs):
+        raise Built(self)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(argparse.ArgumentParser, "parse_args", caught)
+        with pytest.raises(Built) as got:
+            main([])
+    return got.value.args[0]
+
+
+def _flags(parser) -> dict:
+    """{subcommand: sorted (option, dest) pairs}, "" for the global flags."""
+    import argparse
+
+    out = {"": sorted((o, a.dest) for a in parser._actions for o in a.option_strings)}
+    for action in parser._actions:
+        if isinstance(action, argparse._SubParsersAction):
+            for name, sub in action.choices.items():
+                out[name] = sorted((o, a.dest) for a in sub._actions
+                                   for o in (a.option_strings or [a.dest]))
+    return out
+
+
+def test_parsers_have_the_same_subcommands_and_flags():
+    from seaweedfs_tpu.__main__ import main as jmain
+    from seaweedfs_tpu_torch.__main__ import main as pmain
+
+    jax, port = _flags(_parser(jmain)), _flags(_parser(pmain))
+    assert sorted(port) == sorted(jax) and len(port) == 31  # 30 and the global flags
+    for name in jax:
+        assert port[name] == jax[name], name
+    for flag in ("-vmodule", "-logdir", "-stderrthreshold", "-logtostderr", "-cpuprofile",
+                 "-memprofile"):
+        assert flag in dict(port[""])
+
+
+def test_stopping_master_releases_its_watchers():
+    """A ``/cluster/watch`` long-poll in flight ends when its master stops,
+    so ``server`` (whose filer keeps one open) exits promptly on SIGTERM
+    instead of holding its exit for the poll's 10 s."""
+    from seaweedfs_tpu_torch.server.http_util import http_json as p_http_json
+    from seaweedfs_tpu_torch.server.master_server import MasterServer as PMasterServer
+
+    m = PMasterServer(port=free_port(), node_timeout=60).start()
+    version = p_http_json("GET", f"http://{m.url}/cluster/watch?since=-1")["version"]
+    done = {}
+
+    def poll():
+        t0 = time.monotonic()
+        try:
+            p_http_json("GET", f"http://{m.url}/cluster/watch?since={version}&timeout=10",
+                        timeout=30)
+        except OSError:
+            pass
+        done["s"] = time.monotonic() - t0
+
+    t = threading.Thread(target=poll)
+    t.start()
+    time.sleep(0.5)
+    t0 = time.monotonic()
+    m.stop()
+    t.join(timeout=15)
+    assert time.monotonic() - t0 < 3 and done["s"] < 4, done

@@ -68,7 +68,9 @@ def test_port_imports_nothing_of_jax():
                  "replication.filer_sync", "replication.controller", "mount",
                  "mount.dirty_pages", "mount.meta_cache", "mount.wfs", "mount.sync",
                  "mount.fuse_mount", "server.webdav_server", "server.ftp_server",
-                 "messaging.log_buffer", "messaging.broker", "messaging.client"):
+                 "messaging.log_buffer", "messaging.broker", "messaging.client",
+                 "util.images", "util.netports", "util.glog", "util.profiling",
+                 "__main__"):
         assert "seaweedfs_tpu_torch." + name in walked, name
     assert lines["BAD"] == "[]", r.stdout
     assert lines["NEW_THREADS"] == "0", r.stdout
