@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's erasure-coding, query, cluster, filer, S3, mesh,
-filer-fleet, client-gateway and operator-tool paths on one NVIDIA GPU.
+filer-fleet, client-gateway and operator-tool paths on one NVIDIA GPU, the
+last under the lock-order and race sanitizers.
 
     python3 chip_smoke.py
 
@@ -38,13 +39,13 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    identical in key order). Each EC step must launch the kernel, and the
    needle CRC must be the native build;
 7. the query path: a port VolumeServer (CUDA backend) beside the port's
-   master holds eight 32 MiB CSV needles (``id,region,score,name``, the
-   query probe's schema, from a seed; needle 7 with 1 % 1e3-style scores
-   and 1 % non-ASCII names). Six /_query requests per needle (the probe's
+   master holds four 32 MiB CSV needles (``id,region,score,name``, the
+   query probe's schema, from a seed; the last, needle 3, with 1 %
+   1e3-style scores and 1 % non-ASCII names). Six /_query requests per needle (the probe's
    ``region = 'east' AND score > 995``, contains, starts_with, a
    lexicographic ``<``, ``NOT ... OR ...``, ``LIMIT``) run the scan's
    predicate tree on the card; every reply must equal the cpu backend's
-   rows, and on the first 4 MiB of needle 7 the row-at-a-time engine's.
+   rows, and on the first 4 MiB of needle 3 the row-at-a-time engine's.
    The numeric parse on the card must equal float() on an edge corpus.
    Latency p50/p99 and MB/s per query, the kernel/exact-lane split, peak
    device memory, one query's time split into its steps and the kernels per
@@ -60,8 +61,8 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    64 degraded GETs and 64 healthy remote GETs go through /dir/lookup;
    ``ec.rebuild`` copies survivors in and rebuilds the 4 lost shards on the
    card; the server with shards 3, 7, 11 stops too and ``ec.decode``
-   rebuilds data shards 3 and 7 in to_volume; every needle reads back equal
-   and the decoded .dat hashes as the original. Each EC step (encode,
+   rebuilds data shards 3 and 7 in to_volume; a seeded 1 024 needles read
+   back equal and the decoded .dat hashes as the original. Each EC step (encode,
    degraded GETs, rebuild, decode) must launch the kernel;
 9. an operator's maintenance cycle: the port's master, four port volume
    servers (CUDA backend) with the background scrub on (``SWEED_SCRUB=1``,
@@ -78,17 +79,18 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    shard reaches the master as a corrupt shard, the shard is dropped and
    ``ec.rebuild`` makes it again on the card (sha256 equal to the .vif's);
    ``volumeServer.evacuate`` and ``volumeServer.leave`` retire a server, which
-   the master drops at once; every live needle reads back through the
-   master. ``ec.encode`` and ``ec.rebuild`` must launch the kernel;
+   the master drops at once; a seeded 1 024 needles (live ones equal,
+   deleted ones 404) read back through the master. ``ec.encode`` and
+   ``ec.rebuild`` must launch the kernel;
 10. ``weed benchmark`` on the default data plane: the port's master and one
    port volume server on ``weed master``/``weed volume`` defaults (CUDA
    backend, the native turbo engine on the public port, the asyncio core
    behind it). ``run_benchmark`` at `weed/command/benchmark.go`'s defaults
-   but a quarter of its files (262 144 files of 1 KiB from 16 connections, assigns
+   but an eighth of its files (131 072 files of 1 KiB from 16 connections, assigns
    in batches of 100): no failure, a seeded 4 096 fids read back equal, the
    engine's native posts and gets covering the run and its proxied requests
    a sliver of it. The same server restarted with ``SWEED_TURBO=0`` (the
-   asyncio core alone): an 8 192-file run, 64 GETs of 256 KiB needles by
+   asyncio core alone): a 4 096-file run, 64 GETs of 256 KiB needles by
    sendfile (byte-equal, served natively on the loop), then 512 concurrent
    connections against ``SWEED_MAX_INFLIGHT=64``: every reply a 200 or a 503
    with ``Retry-After``, at least one 503, then 64 GETs all 200. The engine
@@ -110,8 +112,8 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    a 128 MiB volume never read moves to the tier, 64 reads through the tier
    warm it and it comes back; the dead master restarts from its ``-mdir``,
    the leader stops, and the restarted one, elected, replays its journal
-   without running the EC again; every live needle reads back through the
-   masters. Prints each action's seconds from its plan to done, the
+   without running the EC again; a seeded 1 024 live needles read back
+   through the masters. Prints each action's seconds from its plan to done, the
    failover's seconds, the tier's MB/s both ways and its GET p50/p99.
 12. the filer path: the port's master, four port volume servers (CUDA
    backend, the engine on) and one port filer (``weed filer`` defaults: 32
@@ -129,8 +131,8 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    (event-stream CRCs checked) on the 3-chunk and gzip'd objects; every
    reply equal to the cpu backend's. Then ``ec.encode`` seals every volume
    of the collection (4/4/3/3), the server with shards 1, 5, 9, 13 of the
-   first stops, every surviving small file and the cipher'd object read
-   back through the filer and the probe runs again on two sealed CSVs. The seal and the degraded reads
+   first stops, a seeded 256 of the small files and the cipher'd object
+   read back through the filer and the probe runs again on two sealed CSVs. The seal and the degraded reads
    must launch the kernel.
 13. the S3 gateway: the port's master, four port volume servers (CUDA
    backend, the engine on), one port filer (``weed filer`` defaults) and the
@@ -166,7 +168,7 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    members (``SWEED_MESH=1``, ``-ec.backend mesh``, the Python data plane),
    one on ``-index sqlite`` and one on ``-index mmap``, 256 MiB of phase 8's
    needle mix each; ``/ec/fleet/status`` lists both, ``ec.encode -fleet``
-   seals each volume on its member, every needle reads back; the sqlite
+   seals each volume on its member, a seeded 512 needles of each read back; the sqlite
    server restarts on ``-index sorted`` over a sealed plain volume and every
    needle of it reads back. Each step must launch the kernel.
 15. the filer fleet: the port's master, four port volume servers (CUDA
@@ -232,6 +234,21 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    ``dump.dat``, ``export``, ``fix`` (the .idx equal), ``change.superblock``,
    ``scaffold`` and ``version``. The server's launches (its ``/status``)
    count; the seal and the sealed reads must launch the kernel.
+18. the sanitizers on the card: ``python -m seaweedfs_tpu_torch server -dir D
+   -max 7 -filer`` as a subprocess under ``SWEED_LOCK_CHECK=1`` and
+   ``SWEED_RACE_CHECK=1`` with their dumps (CUDA backend, the engine on),
+   while this process computes the port analyzer's static lock graph and
+   race candidates over ``seaweedfs_tpu_torch/``. 256 files of phase 6's
+   mix through its filer from 8 threads, the shell's ``ec.encode`` of the
+   filer's volumes, shards {1, 5, 9, 13} dropped on the fullest, a seeded
+   64 of its files read back through the filer from 8 threads (byte for
+   byte); the lock counters in ``/dir/status`` and ``/_status`` non-zero
+   and the four ``sweed_lock_*`` gauges in ``/metrics``; SIGTERM. No
+   ``LockOrderError``, a clean exit, acquisitions and edges recorded, every
+   observed edge in the static graph and every race observation among the
+   static candidates. Prints the counters, the edges beyond those the CPU
+   cross-checks saw, and the fill's MB/s with both sanitizers on. The seal
+   and the sealed reads must launch the kernel.
 
 Phases 6, 8, 9, 10, 12, 13, 15 and 16 run with the JAX package's default serving stack: the
 native turbo engine (built from ``seaweedfs_tpu_torch/csrc/turbo.cpp``)
@@ -245,9 +262,9 @@ servers of phase 8 share the card so, and the fleet scheduler runs up to
 four generate jobs together); each result must equal the plain version's.
 
 Every phase prints one JSON line with its numbers and kernel launches.
-Phases 2-17 are the main path: the launch counts are zeroed before phase 2
-and read after phase 17 (phase 14's child ranks and phase 17's server count
-in their own processes and report theirs), and every phase must have
+Phases 2-18 are the main path: the launch counts are zeroed before phase 2
+and read after phase 18 (phase 14's child ranks and phase 17's and 18's
+servers count in their own processes and report theirs), and every phase must have
 launched the kernel. The
 line before last lists each kernel with its launches, error and times; the
 last line is the device record. Any mismatch or error exits non-zero.
@@ -1047,7 +1064,9 @@ def phase6(state) -> None:
 
 
 # -- phase 7: the query engine ------------------------------------------------
-QUERY_NEEDLES, QUERY_NEEDLE_BYTES = 8, 32 * MiB  # the filer's default chunk
+# four needles (eight before PR 16's cut: PERF.md section 4) of the filer's
+# default chunk size
+QUERY_NEEDLES, QUERY_NEEDLE_BYTES = 4, 32 * MiB
 ORACLE_BYTES = 4 * MiB
 # the query probe's requests (bench.py probe_query) and five more, each kind
 # of leaf once; some as where dicts, some as SQL
@@ -1248,9 +1267,9 @@ def _profile_query(data: bytes, req: dict) -> dict:
 
 def phase7(state) -> None:
     """The query path: a port VolumeServer (CUDA backend) beside the port's
-    master holds eight 32 MiB CSV needles; six /_query requests per needle
+    master holds four 32 MiB CSV needles; six /_query requests per needle
     run the scan's predicate tree on the card, each reply held against the
-    cpu backend's rows, and on 4 MiB of needle 7 against the row-at-a-time
+    cpu backend's rows, and on 4 MiB of the last against the row-at-a-time
     engine. Then the port shell's ``ec.encode -fleet`` encodes the volume
     through the master's fleet scheduler, the shard holding needle 3 is
     lost, and the probe query on needle 3 reads through gf_matmul."""
@@ -1270,7 +1289,7 @@ def phase7(state) -> None:
         _admin(url, f"/admin/assign_volume?volume={vid}&replication=000")
         t0 = time.perf_counter()
         needles = [query_csv(70 + i, QUERY_NEEDLE_BYTES) for i in range(QUERY_NEEDLES)]
-        needles[7] = exact_lane_csv(needles[7], 77, QUERY_NEEDLE_BYTES)
+        needles[-1] = exact_lane_csv(needles[-1], 77, QUERY_NEEDLE_BYTES)
         fids = [str(FileId(vid, i + 1, 0x7000 + i)) for i in range(QUERY_NEEDLES)]
         gen_s = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -1323,8 +1342,8 @@ def phase7(state) -> None:
         if not sum(q["rows_kernel"] for q in per_query.values()):
             raise SystemExit("phase 7: no row was decided on the card")
 
-        # the row-at-a-time oracle on the first 4 MiB of needle 7
-        piece = needles[7][:ORACLE_BYTES]
+        # the row-at-a-time oracle on the first 4 MiB of the last needle
+        piece = needles[-1][:ORACLE_BYTES]
         piece = piece[: piece.rfind(b"\n") + 1]
         bad_oracle = []
         t0 = time.perf_counter()
@@ -1483,6 +1502,18 @@ def _parallel(fn, items: list, threads: int) -> float:
     return time.perf_counter() - t0
 
 
+READ_BACK_SAMPLE = 1024  # needles read back at the end of phases 8, 9, 11 and 14e (a cut)
+
+
+def _sample(items: list, n: int, seed: int) -> list:
+    """A seeded ``n`` of ``items`` in their order (all of them when fewer):
+    the read-backs' cut, PERF.md section 4."""
+    if len(items) <= n:
+        return list(items)
+    return [items[i] for i in sorted(np.random.default_rng(seed).choice(len(items), n,
+                                                                         replace=False))]
+
+
 class _ShellCalls:
     """Within the block, every HTTP call the shell's commands make is timed
     by its path (``/admin/ec/copy``, ...): ``seconds[path]``, ``calls[path]``."""
@@ -1527,8 +1558,8 @@ def phase8(state) -> None:
     client's do. ``ec.rebuild`` copies survivors in over HTTP and rebuilds
     the 4 lost shards on the card. Then the server with shards 3, 7, 11
     stops too, and ``ec.decode`` collects the 11 live shards and rebuilds
-    data shards 3 and 7 on the card in ``to_volume``. Every needle is read
-    back through the master, and the decoded .dat must hash as the
+    data shards 3 and 7 on the card in ``to_volume``. A seeded 1 024 needles
+    are read back through the master, and the decoded .dat must hash as the
     original did."""
     col, k, threads, n_servers = "cluster8", 10, 8, 4
     out: dict = {"phase": 8, "servers": n_servers, "collection": col}
@@ -1712,7 +1743,8 @@ def phase8(state) -> None:
                       and not env.ec_shard_locations(vid)):
             raise SystemExit("phase 8: the decoded volume never replaced the EC one")
 
-        # every needle back through the master, 8 client threads
+        # a seeded sample of the needles back through the master, 8 client
+        # threads (every needle before PR 16's cut)
         bad_back: list = []
 
         def read_back(i: int) -> None:
@@ -1720,7 +1752,8 @@ def phase8(state) -> None:
             if status != 200 or data != blobs[i]:
                 bad_back.append(fids[i])
 
-        out.update(read_back_s=_parallel(read_back, list(range(len(blobs))), threads),
+        back = _sample(list(range(len(blobs))), READ_BACK_SAMPLE, 808)
+        out.update(read_back_s=_parallel(read_back, back, threads), read_back_needles=len(back),
                    read_back_bad=len(bad_back))
         if bad_back:
             raise SystemExit(f"phase 8: {len(bad_back)} needles read back wrong: {bad_back[:5]}")
@@ -1801,8 +1834,8 @@ def phase9(state) -> None:
     incrementally; ``ec.encode`` seals it on the card; a byte flipped in a
     shard reaches the master through the scrub, the shard is dropped and
     ``ec.rebuild`` makes it again on the card; ``volumeServer.evacuate`` and
-    ``volumeServer.leave`` retire a server; every live needle reads back
-    through the master."""
+    ``volumeServer.leave`` retire a server; a seeded 1 024 needles read back
+    through the master (live ones equal, deleted ones 404)."""
     col, threads, n_servers = "maint9", 8, 4
     out: dict = {"phase": 9, "servers": n_servers, "collection": col,
                  "scrub_rate": SCRUB_RATE}
@@ -1855,8 +1888,9 @@ def phase9(state) -> None:
     dead: set = set()
     lock = threading.Lock()
 
-    def read_back(fetch, what: str) -> float:
-        """Every live needle equal and every deleted one 404, from 8 threads."""
+    def read_back(fetch, what: str, sample: bool = False) -> float:
+        """Every live needle equal and every deleted one 404 (with
+        ``sample``, a seeded ``READ_BACK_SAMPLE`` of them), from 8 threads."""
         bad: list = []
 
         def one(item) -> None:
@@ -1866,7 +1900,10 @@ def phase9(state) -> None:
             if not ok:
                 bad.append((fid, status))
 
-        s = _parallel(one, list(live.items()) + [(f, None) for f in dead], threads)
+        items = list(live.items()) + [(f, None) for f in sorted(dead)]
+        if sample:
+            items = _sample(items, READ_BACK_SAMPLE, 909)
+        s = _parallel(one, items, threads)
         if bad:
             raise SystemExit(f"phase 9: {len(bad)} needles wrong {what}: {bad[:5]}")
         return s
@@ -2154,10 +2191,12 @@ def phase9(state) -> None:
         if leave_s >= master.node_timeout:
             raise SystemExit(f"phase 9: the master took {leave_s:.2f} s to drop the server")
 
-        # 10. every live needle of A back through the master
+        # 10. a seeded sample of A's needles back through the master (every
+        # one before PR 16's cut)
         out["read_back"] = {"needles": len(live), "deleted": len(dead),
+                            "sampled": min(READ_BACK_SAMPLE, len(live) + len(dead)),
                             "s": read_back(lambda fid: _client_get(master.url, fid)[:2],
-                                           "through the master"), "wrong": 0}
+                                           "through the master", sample=True), "wrong": 0}
     finally:
         for vs in servers:
             eng.stop(vs)
@@ -2183,11 +2222,11 @@ def phase9(state) -> None:
 # weed/command/benchmark.go's defaults (-c 16 -size 1024) with the reference's
 # -assign.batch 100, at half its -n 1048576 (a cut since phase 11 came, so
 # that the whole script stays well inside its time limit: PERF.md section 4)
-BENCH_N, BENCH_C, BENCH_SIZE, BENCH_BATCH = 1 << 18, 16, 1024, 100  # a cut: PERF.md section 4
-BENCH_N_THREADS = 1 << 13  # the run on the asyncio core alone (a cut: PERF.md section 4)
+BENCH_N, BENCH_C, BENCH_SIZE, BENCH_BATCH = 1 << 17, 16, 1024, 100  # cuts: PERF.md section 4
+BENCH_N_THREADS = 1 << 12  # the run on the asyncio core alone (cuts: PERF.md section 4)
 BENCH_SAMPLE = 4096  # fids read back and compared after the run
 SHED_WATERMARK, SHED_CONNS = 64, 512
-EC_READS = 4096  # fids of the sealed volume read back through the engine
+EC_READS = 2048  # fids of the sealed volume read back through the engine (cuts: PERF.md 4)
 
 
 def _bench_summary(run: dict, kind: str) -> dict:
@@ -2541,8 +2580,8 @@ def phase11(state) -> None:
     never read) moves to the tier; 64 reads through the tier warm it and
     the autopilot brings it back. The dead master restarts from its
     ``-mdir``, the leader stops, and the restarted master, elected, replays
-    its journal: the EC it died in is done already, and runs no more. Every
-    live needle reads back through the masters."""
+    its journal: the EC it died in is done already, and runs no more. A
+    seeded 1 024 live needles read back through the masters."""
     n_servers, threads = 4, 8
     out: dict = {"phase": 11, "servers": n_servers, "masters": 3,
                  "sizes_MiB": {k: v / MiB for k, v in AUTO_BYTES.items()},
@@ -2839,7 +2878,8 @@ def phase11(state) -> None:
         if lstatus["counters"]["resumed"] != 1 or generates[cool_vid] != 1:
             raise SystemExit(f"phase 11: the replay ran the EC again: {out['replay']}")
 
-        # 6. every live needle back through the masters
+        # 6. a seeded sample of the live needles back through the masters
+        # (every one before PR 16's cut)
         bad: list = []
 
         def back(item) -> None:
@@ -2848,8 +2888,9 @@ def phase11(state) -> None:
             if (status, data) != (200, want):
                 bad.append((fid, status))
 
-        out["read_back"] = {"needles": len(live), "s": _parallel(back, list(live.items()),
-                                                                threads)}
+        back_items = _sample(list(live.items()), READ_BACK_SAMPLE, 1111)
+        out["read_back"] = {"needles": len(live), "sampled": len(back_items),
+                            "s": _parallel(back, back_items, threads)}
         if bad:
             raise SystemExit(f"phase 11: {len(bad)} needles read back wrong: {bad[:5]}")
         out["actions_done"] = sorted({(r["kind"], r["vid"]) for r in journals.actions.values()
@@ -2897,6 +2938,7 @@ FILER_CIPHER = 64 * MiB
 # the gzip'd one is the last single-chunk CSV compressed
 FILER_CSV = (32 * MiB, 3, 96 * MiB)
 FILER_RANGED = 32  # ranged GETs on the large objects (256 before a cut: PERF.md section 4)
+FILER_SEALED_READS = 256  # small files read back after the seal (a seeded sample; a cut)
 FILER_PAGE = 50  # listing page size (limit, lastFileName)
 FILER_THREADS = 8
 FILER_QUERY_BACKEND = None  # the filer's default: $SWEED_QUERY_BACKEND, else cuda
@@ -2947,7 +2989,7 @@ def phase12(state) -> None:
     card), and the probe as ``/_select`` on the 3-chunk and gzip'd objects;
     every reply equal to the cpu backend's. Then the shell's ``ec.encode``
     seals every volume of the collection (4/4/3/3), the server with shards
-    1, 5, 9, 13 of the first stops, every surviving small file and the
+    1, 5, 9, 13 of the first stops, a seeded 256 of the small files and the
     cipher'd object read back through the filer and the probe runs again on
     a sealed single-chunk CSV and the 3-chunk one, through gf_matmul."""
     t_start = time.perf_counter()
@@ -3253,10 +3295,13 @@ def phase12(state) -> None:
         out["victim_shards"] = {v: encodes[v].get(victim, []) for v in vids}
         # an empty chunk cache: every read below reaches the volume servers
         filer.chunk_cache = type(filer.chunk_cache)()
-        # every small file and the cipher'd object (every file before a cut:
-        # PERF.md section 4)
+        # a seeded sample of the small files and the cipher'd object (every
+        # small file before PR 16's cut, every file before PR 14's: PERF.md
+        # section 4)
+        sealed_small = sorted(np.random.default_rng(1212).choice(
+            sorted(small), min(FILER_SEALED_READS, len(small)), replace=False))
         out["degraded_read"] = step("degraded_read", lambda: read_all(
-            [*small, *cipher], "degraded"))
+            [*sealed_small, *cipher], "degraded"))
         q0, r0 = served(), filer.query_routes()
         ec_bad, ec_ms = [], []
 
@@ -3880,8 +3925,8 @@ def _mesh_cluster(state, steps: dict) -> None:
     mesh``, one on ``-index sqlite`` and one on ``-index mmap`` (the Python
     data plane, so that the maps serve every request). Each takes 256 MiB of
     phase 8's needle mix; ``/ec/fleet/status`` lists both as initialized;
-    ``ec.encode -fleet`` seals each volume on its member; every needle reads
-    back. Then the sqlite server restarts on ``-index sorted`` over a sealed
+    ``ec.encode -fleet`` seals each volume on its member; a seeded 512 needles
+    of each read back. Then the sqlite server restarts on ``-index sorted`` over a sealed
     plain volume, and every needle of it reads back."""
     master = MasterServer(host="127.0.0.1", port=_free_port(), node_timeout=3.0).start()
     env = CommandEnv(master.url)
@@ -3965,7 +4010,9 @@ def _mesh_cluster(state, steps: dict) -> None:
             for kind in ("sqlite", "mmap"):
                 if not _until(lambda: len(env.ec_shard_locations(vids[kind])) == 14):
                     raise SystemExit(f"phase 14e: the shards of {kind} never all mounted")
-            sealed = {**blobs["sqlite"], **blobs["mmap"]}
+            # a seeded sample of each sealed volume (all before PR 16's cut)
+            sealed = dict(kv for kind in ("sqlite", "mmap") for kv in _sample(
+                sorted(blobs[kind].items()), READ_BACK_SAMPLE // 2, 1414))
             s, wrong = read_all(sealed)
             res["read_back_ec"] = {"needles": len(sealed), "s": s, "wrong": wrong[:5]}
             if wrong:
@@ -5174,8 +5221,9 @@ class _Cli:
     """``python -m seaweedfs_tpu_torch`` runs, each to its end and timed;
     one that exits non-zero fails the phase."""
 
-    def __init__(self, cwd: str, env: dict):
+    def __init__(self, cwd: str, env: dict, phase: int = 17):
         self.cwd, self.env = cwd, dict(os.environ, PYTHONPATH=HERE, **env)
+        self.phase = phase
 
     def run(self, *args) -> tuple:
         t0 = time.perf_counter()
@@ -5183,7 +5231,7 @@ class _Cli:
                            env=self.env, capture_output=True, text=True, timeout=600)
         sec = time.perf_counter() - t0
         if r.returncode != 0:
-            raise SystemExit(f"phase 17: {' '.join(args)[:200]} exited {r.returncode}: "
+            raise SystemExit(f"phase {self.phase}: {' '.join(args)[:200]} exited {r.returncode}: "
                              f"{(r.stdout + r.stderr)[-1500:]}")
         return r, sec
 
@@ -5672,6 +5720,297 @@ def phase17(state) -> None:
                          f"{out['steps']}")
 
 
+P18_FILES = 256  # files of 1 KiB-1 MiB, log-uniform (phase 6's mix)
+P18_DIRS = 8  # /p18/d0 ... /p18/d7
+P18_READS = 64  # files of the fullest sealed volume read back (a seeded sample)
+P18_LOST = [1, 5, 9, 13]
+P18_THREADS = 8
+P18_MAX = 7  # weed server's -max
+P18_SERVER_FLAGS: list = []  # e.g. ["-ec.backend", "cpu"] to rehearse on the CPU
+P18_ENV: dict = {}  # e.g. {"SWEED_QUERY_BACKEND": "cpu"} to rehearse on the CPU
+# The edges the CPU cross-checks (tests/torch_port/test_torch_lock_order.py
+# and test_torch_racecheck.py) recorded when this phase was written: phase
+# 18 prints the edges it sees beyond them, the ones only the card's paths
+# take. A report, not a check: the check is static ⊇ dynamic.
+P18_CPU_EDGES = frozenset(tuple(e.split(" -> ")) for e in (
+    "DiskLocation._lock -> DiskFile._lock", "DiskLocation._lock -> Volume._lock",
+    "EcJobScheduler._lock -> Histogram._lock", "Filer._lock -> MetaLog._lock",
+    "LifecycleController._lock -> Histogram._lock", "Master._lock -> MemorySequencer._lock",
+    "Master._lock -> Topology._lock", "Master._lock -> VolumeLayout._lock",
+    "MasterServer._lock -> Master._lock", "MasterServer._lock -> MemorySequencer._lock",
+    "MasterServer._lock -> Topology._lock", "MasterServer._lock -> VolumeLayout._lock",
+    "NeedleCache._resize_mu -> NeedleCache._Shard._lock", "Store._lock -> DiskFile._lock",
+    "Store._lock -> EwmaHeat._lock", "TenantGovernor._mu -> TokenBucket._mu",
+    "TopicManager._lock -> LogBuffer._lock", "Topology._lock -> VolumeLayout._lock",
+    "Volume._lock -> DiskFile._lock"))
+P18_GAUGES = ("sweed_lock_acquisitions_total", "sweed_lock_contended_total",
+              "sweed_lock_max_held_depth", "sweed_lock_order_edges")
+
+
+def _static_graph(out: dict) -> None:
+    """The port analyzer's lock-order edges and race candidates over
+    ``seaweedfs_tpu_torch/`` (one project, one lock-graph build) into
+    ``out``; an exception goes there too."""
+    import ast
+
+    from seaweedfs_tpu_torch.analysis import _iter_py_files
+    from seaweedfs_tpu_torch.analysis.callgraph import Project
+    from seaweedfs_tpu_torch.analysis.racecheck import RaceChecker
+
+    t0 = time.perf_counter()
+    try:
+        proj = Project()
+        for path, rel in _iter_py_files(os.path.join(HERE, "seaweedfs_tpu_torch")):
+            with open(path, encoding="utf-8") as f:
+                src = f.read()
+            proj.add_module(rel, ast.parse(src), src.splitlines())
+        rc = RaceChecker(proj)
+        out["edges"] = rc.lb.graph.edge_set()
+        out["races"] = {c.name for c in rc.race_candidates()}
+    except Exception as e:  # noqa: BLE001 — reported by the phase
+        out["error"] = repr(e)
+    out["s"] = time.perf_counter() - t0
+
+
+def phase18(state) -> None:
+    """The sanitizers on the card: ``python -m seaweedfs_tpu_torch server -dir
+    D -max 7 -filer`` as a subprocess with ``SWEED_LOCK_CHECK=1``,
+    ``SWEED_RACE_CHECK=1`` and their dumps (``weed server``'s defaults
+    otherwise: the CUDA backend, the engine on). The port analyzer's static
+    graph over ``seaweedfs_tpu_torch/`` is computed here while it starts.
+    a. the stack starts. b. 256 files of phase 6's mix through the filer
+    from 8 threads. c. the shell's ``ec.encode`` of the filer's volumes,
+    shards {1, 5, 9, 13} dropped on the fullest. d. a seeded 64 of its files
+    read back through the filer from 8 threads, byte for byte, so locks
+    contend on the kernel's path. e. ``/dir/status``, ``/_status`` and
+    ``/metrics``: the lock counters non-zero, the four ``sweed_lock_*``
+    gauges there. f. SIGTERM: the dumps are written at exit. The checks: no
+    ``LockOrderError`` and a clean exit; acquisitions and at least one
+    edge; every observed edge in the static graph and every race
+    observation among the static candidates; the kernel launched (the
+    server's ``/status``, counted to the main path)."""
+    from seaweedfs_tpu_torch.util import netports
+
+    t_start = time.perf_counter()
+    work = os.path.join(WORK, "18san")
+    data_dir = os.path.join(work, "data")
+    os.makedirs(data_dir)
+    ports = netports.load_or_allocate(os.path.join(work, "ports.json"),
+                                      ["master", "volume", "filer"])
+    murl, vurl, furl = (f"127.0.0.1:{ports[k]}" for k in ("master", "volume", "filer"))
+    lock_dump, race_dump = os.path.join(work, "locks.json"), os.path.join(work, "races.json")
+    cli = _Cli(work, {"SWEED_LOCK_CHECK": "1", "SWEED_RACE_CHECK": "1",
+                      "SWEED_LOCK_DUMP": lock_dump, "SWEED_RACE_DUMP": race_dump, **P18_ENV},
+               phase=18)
+    out: dict = {"phase": 18, "ports": ports, "client_threads": P18_THREADS,
+                 "server_flags": ["-max", str(P18_MAX), *P18_SERVER_FLAGS]}
+    steps: dict = {}
+    static: dict = {}
+    analyzer = threading.Thread(target=_static_graph, args=(static,))
+    analyzer.start()
+    server = None
+    log_path = os.path.join(work, "server.log")
+    log = open(log_path, "wb")
+
+    def status() -> dict:
+        code, body, _ = _call(vurl, "GET", "/status")
+        if code != 200:
+            raise SystemExit(f"phase 18: the volume server's /status answered {code}")
+        return json.loads(body)
+
+    def step(name: str, fn):
+        l0, t0 = state["p18_launches"], time.perf_counter()
+        res = fn() or {}
+        if server is not None and server.poll() is None:
+            state["p18_launches"] = status()["gf_matmul"]["launches"]
+        steps[name] = {"s": time.perf_counter() - t0,
+                       "launches": state["p18_launches"] - l0}
+        emit({"phase": 18, "step": name, **steps[name], **res})
+        return res
+
+    state["p18_launches"] = 0
+    try:
+        def start() -> dict:
+            nonlocal server
+            server = subprocess.Popen(
+                [sys.executable, "-m", "seaweedfs_tpu_torch", "server", "-dir", "data",
+                 "-master.port", str(ports["master"]), "-port", str(ports["volume"]),
+                 "-max", str(P18_MAX), "-filer", "-filer.port", str(ports["filer"]),
+                 *P18_SERVER_FLAGS],
+                cwd=work, env=cli.env, stdout=log, stderr=subprocess.STDOUT)
+
+            def up() -> bool:
+                if server.poll() is not None:
+                    raise SystemExit(f"phase 18: the server exited {server.returncode}")
+                try:
+                    return (_call(furl, "GET", "/_status")[0] == 200
+                            and bool(json.loads(_call(murl, "GET", "/dir/status")[1])[
+                                "topology"]["data_centers"]))
+                except OSError:
+                    return False
+
+            if not _until(up, timeout=120):
+                raise SystemExit("phase 18: the server never came up")
+            netports.record(os.path.join(work, "ports.json"), ports)
+            st = status()
+            state["p18_launches"] = st["gf_matmul"]["launches"]
+            return {"turbo": st["turbo"]["on"], "launches_at_start": state["p18_launches"]}
+
+        step("a_start", start)
+
+        rng = np.random.default_rng(18)
+        files = {f"/p18/d{i % P18_DIRS}/f{i:03d}.bin": b
+                 for i, b in enumerate(_log_uniform(rng, P18_FILES))}
+
+        def fill() -> dict:
+            put_ms, bad = [], []
+
+            def put(path: str) -> None:
+                code, _, sec = _filer_call(furl, "POST", path, files[path])
+                put_ms.append(sec * 1e3)
+                if code != 201:
+                    bad.append((path, code))
+
+            put_s = _parallel(put, list(files), P18_THREADS)
+            if bad:
+                raise SystemExit(f"phase 18: the fill failed: {bad[:5]}")
+            nbytes = sum(map(len, files.values()))
+            return {"files": len(files), "bytes": nbytes, "put_s": put_s,
+                    "MBps": nbytes / put_s / 1e6, "put_ms_p50": _pct(put_ms, 50),
+                    "put_ms_p99": _pct(put_ms, 99)}
+
+        fill_res = step("b_fill", fill)
+        vol_of: dict = {}
+
+        def locate(path: str) -> None:
+            meta = json.loads(_call(furl, "GET", path + "?meta=true")[1])
+            vol_of[path] = int(meta["chunks"][0]["file_id"].split(",")[0])
+
+        _parallel(locate, list(files), P18_THREADS)
+        by_vid = collections.Counter(vol_of.values())
+        fullest = by_vid.most_common(1)[0][0]
+
+        def seal() -> dict:
+            seal_vids = sorted(by_vid)
+            stdout, sec = cli.shell(murl, furl,
+                                    "; ".join(f"ec.encode -volumeId={v}" for v in seal_vids))
+            left = {v["id"] for v in status()["volumes"]} & set(seal_vids)
+            if left or stdout.count('"spread"') != len(seal_vids):
+                raise SystemExit(f"phase 18: the shell's ec.encode left {left}: {stdout[:300]}")
+            removed = _admin(vurl, f"/admin/ec/delete_shards?volume={fullest}"
+                                   f"&shards={','.join(map(str, P18_LOST))}")
+            if removed.get("removed") != P18_LOST:
+                raise SystemExit(f"phase 18: delete_shards of {fullest} removed {removed}")
+            return {"volumes": seal_vids, "shell_s": sec, "fullest": fullest,
+                    "files_on_fullest": by_vid[fullest], "shards_lost": P18_LOST}
+
+        step("c_seal", seal)
+        on_fullest = sorted(p for p in files if vol_of[p] == fullest)
+        sample = sorted(np.random.default_rng(1818).choice(
+            on_fullest, min(P18_READS, len(on_fullest)), replace=False))
+
+        def sealed_reads() -> dict:
+            ms, bad = [], []
+
+            def get(path: str) -> None:
+                code, body, sec = _filer_call(furl, "GET", path)
+                ms.append(sec * 1e3)
+                if code != 200 or body != files[path]:
+                    bad.append((path, code, len(body)))
+
+            get_s = _parallel(get, sample, P18_THREADS)
+            if bad:
+                raise SystemExit(f"phase 18: sealed reads differ: {bad[:5]}")
+            nbytes = sum(len(files[p]) for p in sample)
+            return {"files": len(sample), "bytes": nbytes, "get_s": get_s,
+                    "MBps": nbytes / get_s / 1e6, "ms_p50": _pct(ms, 50),
+                    "ms_p99": _pct(ms, 99)}
+
+        step("d_sealed_reads", sealed_reads)
+
+        def counters() -> dict:
+            got = {"master": json.loads(_call(murl, "GET", "/dir/status")[1])["locks"],
+                   "filer": json.loads(_call(furl, "GET", "/_status")[1])["locks"]}
+            gauges = {}
+            for line in _call(murl, "GET", "/metrics")[1].decode().splitlines():
+                name, _, value = line.partition(" ")
+                if name in P18_GAUGES:
+                    gauges[name] = float(value)
+            bad = [k for k, v in got.items()
+                   if not (v["enabled"] and v["acquisitions"] > 0 and v["max_held_depth"] > 0)]
+            if bad or set(gauges) != set(P18_GAUGES) or \
+                    gauges["sweed_lock_acquisitions_total"] <= 0:
+                raise SystemExit(f"phase 18: lock counters {got if bad else ''} gauges {gauges}")
+            return {"status_acquisitions": got["master"]["acquisitions"],
+                    "status_contended": got["master"]["contended"],
+                    "status_edges": len(got["master"]["edges"]), "gauges": gauges}
+
+        step("e_counters", counters)
+
+        def stop() -> dict:
+            nonlocal server
+            state["p18_launches"] = status()["gf_matmul"]["launches"]
+            server.send_signal(signal.SIGTERM)
+            code = server.wait(timeout=120)
+            server = None
+            if code not in (0, 143):
+                raise SystemExit(f"phase 18: the server exited {code} on SIGTERM")
+            return {"exit": code}
+
+        step("f_stop", stop)
+    except BaseException:
+        log.flush()
+        with open(log_path, "rb") as f:
+            sys.stderr.write(f.read()[-4000:].decode("utf-8", "replace"))
+        raise
+    finally:
+        if server is not None and server.poll() is None:
+            server.send_signal(signal.SIGTERM)
+            try:
+                server.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                server.kill()
+                server.wait()
+        log.close()
+        analyzer.join()
+    state["child_launches"] = state.get("child_launches", 0) + state["p18_launches"]
+
+    with open(log_path, "rb") as f:
+        inversions = f.read().count(b"LockOrderError")
+    if not (os.path.exists(lock_dump) and os.path.exists(race_dump)):
+        raise SystemExit("phase 18: the server wrote no sanitizer dump at exit")
+    with open(lock_dump) as f:
+        locks = json.load(f)
+    with open(race_dump) as f:
+        races = json.load(f)["observations"]
+    if "error" in static:
+        raise SystemExit(f"phase 18: the static analysis failed: {static['error']}")
+    dynamic = {tuple(e.split(" -> ")) for e in locks["edges"]}
+    missing = sorted(dynamic - static["edges"])
+    race_missing = sorted({o["name"] for o in races} - static["races"])
+    out.update(
+        acquisitions=locks["acquisitions"], contended=locks["contended"],
+        max_held_depth=locks["max_held_depth"], edges=len(dynamic),
+        edges_only_on_card=[" -> ".join(e) for e in sorted(dynamic - P18_CPU_EDGES)],
+        observations=races, inversions=inversions, static_edges=len(static["edges"]),
+        static_races=len(static["races"]), static_s=static["s"],
+        fill_MBps_sanitized=fill_res["MBps"],
+        steps={k: {"s": v["s"], "launches": v["launches"]} for k, v in steps.items()},
+        wall_s=time.perf_counter() - t_start, launches=state["p18_launches"],
+        nvidia_smi=state["smi"])
+    emit(out)
+    if inversions or not locks["enabled"] or locks["acquisitions"] <= 0 or not dynamic:
+        raise SystemExit(f"phase 18: sanitizer run: {inversions} LockOrderError(s), "
+                         f"{locks['acquisitions']} acquisitions, {len(dynamic)} edges")
+    if missing or race_missing:
+        raise SystemExit(f"phase 18: observed but not in the static graph: edges {missing}, "
+                         f"race observations {race_missing}; first sites "
+                         f"{ {k: v for k, v in locks['edge_sites'].items() if tuple(k.split(' -> ')) in missing} }")
+    if not steps["c_seal"]["launches"] + steps["d_sealed_reads"]["launches"]:
+        raise SystemExit(f"phase 18: no kernel launch in the seal or the sealed reads: "
+                         f"{out['steps']}")
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -5679,7 +6018,7 @@ def _free_port() -> int:
 
 
 MAIN_PATH = (phase2, phase3, phase4, phase5, phase6, phase7, phase8, phase9, phase10,
-             phase11, phase12, phase13, phase14, phase15, phase16, phase17)
+             phase11, phase12, phase13, phase14, phase15, phase16, phase17, phase18)
 
 
 def main() -> int:
@@ -5702,14 +6041,14 @@ def main() -> int:
             phase_s[i] = time.perf_counter() - t0
             # a phase's launches: this process's, and those its child
             # processes counted and reported (phase 14's ranks, phase 17's
-            # server)
+            # and phase 18's servers)
             if gm.gf_matmul.launches == state["l_phase"] and \
                     state.get("child_launches", 0) == children:
                 raise SystemExit(f"phase {i}: the kernel was never launched")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    # the launches of phase 14's child ranks and phase 17's server, counted
-    # in their processes
+    # the launches of phase 14's child ranks and phase 17's and 18's
+    # servers, counted in their processes
     main_launches = gm.gf_matmul.launches + state.get("child_launches", 0)
     kern = state["kernel"]
     emit({"phase_s": phase_s})

@@ -48,6 +48,7 @@ from typing import Callable, Optional
 
 from ..server.http_util import http_json
 from ..util import glog
+from ..util.locks import make_lock
 
 
 class LeaderElection:
@@ -91,11 +92,11 @@ class LeaderElection:
         # would disrupt the incumbent
         self._last_beat = time.time()
         self._last_quorum = 0.0  # leader side: last majority contact
-        self._lock = threading.Lock()
+        self._lock = make_lock("LeaderElection._lock")
         # Durable-state writer: serializes the (term, voted_for) disk
         # writes OUTSIDE self._lock so an fsync never blocks vote/beat
         # intake.  Never nested inside self._lock.
-        self._persist_lock = threading.Lock()
+        self._persist_lock = make_lock("LeaderElection._persist_lock")
         self._persist_seq = 0  # bumped under self._lock at each snapshot
         self._persisted_seq = 0  # highest seq on disk; under _persist_lock
         self._stop = threading.Event()
@@ -110,10 +111,12 @@ class LeaderElection:
         """True only while leadership is quorum-backed: an isolated leader
         whose beats stopped reaching a majority reports False (and the
         master refuses assigns) even before it formally steps down."""
+        # sweedlint: ok lock-discipline lock-free probe; a stale read flips on the next beat round
         if self.leader != self.self_url:
             return False
         if len(self.peers) == 1:
             return True
+        # sweedlint: ok lock-discipline staleness is exactly what the lease check bounds
         return (time.time() - self._last_quorum) < self.lease_seconds
 
     # -- vote intake ---------------------------------------------------------
@@ -143,6 +146,7 @@ class LeaderElection:
             with open(tmp, "w") as f:
                 json.dump({"term": term, "voted_for": voted_for}, f)
                 f.flush()
+                # sweedlint: ok blocking-under-lock dedicated IO lock held only around this write, never nested in _lock
                 os.fsync(f.fileno())
             os.replace(tmp, self.state_path)
             self._persisted_seq = seq
@@ -274,6 +278,7 @@ class LeaderElection:
         inline when a peer reports a higher term."""
         body = {
             "leader": self.self_url,
+            # sweedlint: ok lock-discipline stale term in a beat is rejected by peers and triggers step-down
             "term": self.term,
             "max_file_key": self.get_max_file_key(),
             "max_volume_id": self.get_max_volume_id(),
@@ -289,6 +294,7 @@ class LeaderElection:
                 continue
             if r.get("ok"):
                 acks += 1
+            # sweedlint: ok lock-discipline optimistic check; re-validated under the lock below
             elif r.get("term", 0) > self.term:
                 snap = None
                 with self._lock:
@@ -339,6 +345,7 @@ class LeaderElection:
     def _campaign(self) -> None:
         """Pre-vote then real vote for term+1; lead only on a
         configured-set majority."""
+        # sweedlint: ok lock-discipline optimistic; re-validated under the lock before adopting
         proposed = self.term + 1
         pre = self._collect_votes(proposed, prevote=True)
         if pre is None or pre < self.quorum:
@@ -391,6 +398,7 @@ class LeaderElection:
                     with self._lock:
                         self._last_quorum = now
                         self._last_beat = now
+                # sweedlint: ok lock-discipline only this thread writes _last_quorum between beats
                 elif now - self._last_quorum > self.lease_seconds:
                     with self._lock:
                         if self.leader == self.self_url:

@@ -29,13 +29,14 @@ from __future__ import annotations
 
 import json
 import os
-import threading
 import time
 from typing import Callable, Optional
 
 from .. import operation
 from ..storage.file_id import FileId
 from ..util import glog
+from ..util.locks import make_lock
+from ..util.racecheck import instrument
 
 
 def lease_seconds() -> float:
@@ -57,6 +58,7 @@ def lease_count() -> int:
     return int(raw)
 
 
+@instrument
 class FidLeaseManager:
     """Master-side lease table + crash-safe grant/renew/expiry journal.
 
@@ -66,7 +68,7 @@ class FidLeaseManager:
     response go on the wire."""
 
     def __init__(self, journal_path: Optional[str] = None):
-        self._lock = threading.Lock()
+        self._lock = make_lock("FidLeaseManager._lock")
         self._path = journal_path
         self._fh = None
         self._leases: dict[str, dict] = {}
@@ -86,6 +88,7 @@ class FidLeaseManager:
             self._fh = open(self._path, "a", encoding="utf-8")
         self._fh.write(json.dumps(rec, separators=(",", ":")) + "\n")
         self._fh.flush()
+        # sweedlint: ok blocking-under-lock grant durability IS the serialization point: the journal append must be ordered with the table mutation, and a lease RPC happens once per SWEED_FID_LEASE_COUNT fids
         os.fsync(self._fh.fileno())
 
     def replay(self, set_max: Callable[[int], None]) -> int:
@@ -199,7 +202,7 @@ class LeasedFidSource:
         self._grant = grant_fn
         self._fallback = fallback_fn
         self._sign = sign_fn
-        self._lock = threading.Lock()
+        self._lock = make_lock("LeasedFidSource._lock")
         self._ranges: dict[tuple, dict] = {}
         self.minted = 0
         self.leases = 0

@@ -48,6 +48,7 @@ from ..server.http_util import http_json
 from ..stats import trace as _trace
 from ..stats.metrics import default_registry
 from ..util import glog
+from ..util.locks import make_condition, make_lock
 from ..util.retry import RetryPolicy
 
 # encode can stream many GB through the codec; rebuild pulls shards first
@@ -119,7 +120,7 @@ class EcJobScheduler:
         retry_backoff_s: float = 0.5,
     ):
         self._locate = locate
-        self._lock = threading.Lock()
+        self._lock = make_lock("EcJobScheduler._lock")
         self._jobs: dict[int, EcJob] = {}
         self._queue: "queue.Queue[int]" = queue.Queue()
         self._members: dict[str, dict] = {}  # url -> mesh dict from heartbeat
@@ -138,7 +139,7 @@ class EcJobScheduler:
         self._retries = 0
         self._preempted = 0
         self._stop = threading.Event()
-        self._done = threading.Condition(self._lock)
+        self._done = make_condition(self._lock)
         self._next_id = 1
         _register(self)
 

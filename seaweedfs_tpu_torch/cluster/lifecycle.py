@@ -63,6 +63,7 @@ from ..shell import commands as C
 from ..stats.metrics import default_registry as _registry
 from ..storage.commit import atomic_write
 from ..util import faultpoints, glog
+from ..util.locks import make_lock
 from ..util.parsers import tolerant_ufloat, tolerant_uint
 from .volume_layout import classify_heat, heat_ceiling, heat_floor, tier_floor
 
@@ -388,7 +389,7 @@ class LifecycleController:
         self.interlock = interlock or LoadInterlock(self.cfg.load_fraction)
         self._lease = lease
         self._release = release
-        self._lock = threading.Lock()
+        self._lock = make_lock("LifecycleController._lock")
         self._paused = False
         self._cycle = 0
         self._next_id = 1

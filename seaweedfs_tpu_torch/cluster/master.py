@@ -11,7 +11,6 @@ compaction through injected callbacks. The HTTP wrapper is
 from __future__ import annotations
 
 import secrets
-import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -21,6 +20,7 @@ from ..storage.file_id import FileId
 from ..storage.replica_placement import ReplicaPlacement
 from ..storage.ttl import EMPTY_TTL, read_ttl
 from ..util import glog
+from ..util.locks import make_condition, make_rlock
 from .sequence import MemorySequencer
 from .topology import DataNode, Topology
 from .volume_growth import VolumeGrowOption, VolumeGrowth
@@ -62,12 +62,12 @@ class Master:
         self._admin_lock_token: Optional[str] = None
         self._admin_lock_ts = 0.0
         self._admin_lock_client = ""
-        self._lock = threading.RLock()
+        self._lock = make_rlock("Master._lock")
         # versioned VolumeLocation delta log for remote KeepConnected
         # subscribers (clients long-poll /cluster/watch against this)
         self._loc_version = 0
         self._loc_log: deque = deque(maxlen=4096)
-        self._loc_cond = threading.Condition(self._lock)
+        self._loc_cond = make_condition(self._lock)
 
     @staticmethod
     def _reject_allocate(dn, vid, option):

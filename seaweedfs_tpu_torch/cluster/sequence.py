@@ -1,8 +1,8 @@
 """Needle-id sequencers (weed/sequence/sequence.go + memory_sequencer.go)."""
 
 from __future__ import annotations
+from ..util.locks import make_lock
 
-import threading
 
 
 class MemorySequencer:
@@ -11,7 +11,7 @@ class MemorySequencer:
 
     def __init__(self, start: int = 1):
         self._counter = max(1, start)
-        self._lock = threading.Lock()
+        self._lock = make_lock("MemorySequencer._lock")
 
     def next_file_id(self, count: int = 1) -> int:
         with self._lock:
@@ -51,7 +51,7 @@ class EtcdSequencer:
             ) from e
         host, _, port = endpoint.partition(":")
         self._c = etcd3.client(host=host, port=int(port or 2379))
-        self._lock = threading.Lock()
+        self._lock = make_lock("EtcdSequencer._lock")
         self._next = 0  # local cursor within the reserved batch
         self._ceiling = 0
 
@@ -74,6 +74,7 @@ class EtcdSequencer:
                 )[0]
             )
             if ok:
+                # sweedlint: ok lock-discipline called with self._lock held by next_file_id/set_max
                 self._next, self._ceiling = max(cur, at_least), want
                 return
 

@@ -12,12 +12,13 @@ both pick the same nodes after the same seed.
 from __future__ import annotations
 
 import random
-import threading
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 from ..storage.replica_placement import ReplicaPlacement
 from ..storage.ttl import TTL
+from ..util.locks import make_rlock
+from ..util.racecheck import instrument
 
 
 @dataclass
@@ -218,11 +219,12 @@ class DataCenter(Node):
         return r
 
 
+@instrument
 class Topology(Node):
     def __init__(self, volume_size_limit: int = 30 * 1024 * 1024 * 1024):
         super().__init__("topo")
         self.volume_size_limit = volume_size_limit
-        self._lock = threading.RLock()
+        self._lock = make_rlock("Topology._lock")
         # (collection, rp_str, ttl_str) → VolumeLayout
         from .volume_layout import VolumeLayout
 

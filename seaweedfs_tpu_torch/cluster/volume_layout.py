@@ -14,11 +14,11 @@ from __future__ import annotations
 
 import os
 import random
-import threading
 from typing import TYPE_CHECKING, Optional
 
 from ..storage.replica_placement import ReplicaPlacement
 from ..storage.ttl import TTL
+from ..util.locks import make_rlock
 from ..util.parsers import tolerant_ufloat
 
 if TYPE_CHECKING:
@@ -98,7 +98,7 @@ class VolumeLayout:
         # vid → read+write heat, refreshed from every heartbeat's
         # VolumeInfo; feeds the weighted pick below
         self.volume_heat: dict[int, float] = {}
-        self._lock = threading.RLock()
+        self._lock = make_rlock("VolumeLayout._lock")
 
     # -- registration (volume_layout.go:104-200) -----------------------------
     def register_volume(self, vi: "VolumeInfo", dn: "DataNode") -> None:

@@ -274,4 +274,5 @@ def rebuild_ecx_file(base_file_name: str, offset_size: int = OFFSET_SIZE) -> Non
                 if entry is not None:
                     tombstone_sorted_index_entry(ecx, ecx_off, offset_size)
     # tombstoning is idempotent, so a crash before this just replays the journal
+    # sweedlint: ok durability post-apply cleanup; tombstoning is idempotent, a crash just replays the journal
     os.remove(ecj_path)

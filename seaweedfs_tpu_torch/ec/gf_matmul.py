@@ -25,11 +25,11 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 
 import numpy as np
 import torch
 
+from ..util.locks import make_lock
 from . import gf
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
@@ -46,10 +46,10 @@ CHUNK = 16  # kChunk in the source: data rows per launch
 PLAIN_TILE = 4 * 1024 * 1024
 
 _launch = None
-_lib_lock = threading.Lock()
+_lib_lock = make_lock("gf_matmul._lib_lock")
 # request threads of the volume server launch concurrently, and ``+=`` on
 # the counter is a read-modify-write
-_count_lock = threading.Lock()
+_count_lock = make_lock("gf_matmul._count_lock")
 
 
 def _nvcc() -> str:
@@ -81,6 +81,7 @@ def build(verbose: bool = False) -> str:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
     if verbose:
         print(res.stdout + res.stderr, flush=True)
+    # sweedlint: ok durability build artifact under csrc/build, not volume data; tmp+rename makes a concurrent build atomic
     os.replace(tmp, lib_path)  # atomic: a concurrent builder sees all or nothing
     return lib_path
 

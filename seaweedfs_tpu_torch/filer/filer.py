@@ -9,11 +9,11 @@ The port's copy of the JAX package's ``filer/filer.py``.
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Callable, Iterator, Optional
 
 from ..util import faultpoints, glog
+from ..util.locks import make_rlock
 from .entry import Entry, FileChunk
 from .filechunks import compact_file_chunks, minus_chunks
 from .filerstore import FilerStore, MemoryStore, NotFoundError
@@ -38,7 +38,7 @@ class Filer:
         # (filer_delete_entry.go ResolveChunkManifest); the server wires a
         # resolver that can actually read manifest blobs
         self.chunk_resolver: Optional[Callable[[list], list]] = None
-        self._lock = threading.RLock()
+        self._lock = make_rlock("Filer._lock")
         self._ensure_root()
 
     def _fids(self, chunks) -> list[str]:

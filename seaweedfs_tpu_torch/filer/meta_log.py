@@ -22,12 +22,12 @@ from __future__ import annotations
 
 import json
 import os
-import threading
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 from ..util import glog
+from ..util.locks import make_condition, make_lock
 
 _SEG_PREFIX = "seg-"
 _SEG_SUFFIX = ".jsonl"
@@ -81,8 +81,8 @@ class MetaLog:
         self.persist_dir = persist_dir
         self.segment_events = segment_events
         self._events: list[EventNotification] = []
-        self._lock = threading.Lock()
-        self._cond = threading.Condition(self._lock)
+        self._lock = make_lock("MetaLog._lock")
+        self._cond = make_condition(self._lock)
         self._subscribers: dict[str, Callable[[EventNotification], None]] = {}
         self._next_seq = 1
         self._last_ts_ns = 0

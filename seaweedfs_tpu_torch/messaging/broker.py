@@ -9,14 +9,13 @@ replays persisted segments then tails memory
 from __future__ import annotations
 
 import base64
-import threading
 from typing import Optional
 
 from ..filer.client import FilerClient
 from ..server.http_util import JsonHandler, start_server
+from ..util.locks import make_lock
 from ..util.parsers import tolerant_uint
 from .log_buffer import LogBuffer, decode_messages
-from ..util.locks import make_lock
 
 TOPICS_ROOT = "/topics"
 

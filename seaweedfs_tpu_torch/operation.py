@@ -171,6 +171,7 @@ def delete_files(master: str, fids: list[str], jwt_key: str = "") -> int:
     for fid in fids:
         try:
             by_vid[FileId.parse(fid).volume_id].append(fid)
+        # sweedlint: ok broad-except unparseable fids just don't count toward the delete set
         except Exception:  # noqa: BLE001 — an unparseable fid does not count
             pass
     deleted: set[str] = set()
@@ -188,6 +189,7 @@ def delete_files(master: str, fids: list[str], jwt_key: str = "") -> int:
                     f"http://{loc['url']}/_batch_delete",
                     {"fids": group, "auths": auths},
                 )
+            # sweedlint: ok broad-except one unreachable replica; the others still count
             except Exception:  # noqa: BLE001 — one unreachable replica; the others still count
                 continue
             for item in r.get("results", []):
@@ -274,6 +276,7 @@ def _submit_chunked(
         if chunks:
             try:
                 delete_files(master, [c["fid"] for c in chunks])
+            # sweedlint: ok broad-except best-effort GC; the original upload error matters more
             except Exception:  # noqa: BLE001 — best-effort sweep; the upload error matters more
                 pass
         raise

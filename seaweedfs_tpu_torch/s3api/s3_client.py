@@ -114,6 +114,7 @@ class S3Client:
                                       headers=headers)
         req = urllib.request.Request(url, data=body or None, method=method, headers=headers)
         try:
+            # sweedlint: ok deadline-not-propagated remote-S3 egress; a signed third-party request must not carry the internal deadline header
             with urllib.request.urlopen(req, timeout=30, context=self.ssl_context) as resp:
                 return resp.status, resp.read(), dict(resp.headers)
         except urllib.error.HTTPError as e:
@@ -204,6 +205,7 @@ class S3Client:
                 # strand no uploaded parts on the backend
                 try:
                     self.abort_multipart(bucket, key, upload_id)
+                # sweedlint: ok broad-except best-effort abort; the complete error re-raises below
                 except Exception:  # noqa: BLE001 — the upload's own error re-raises below
                     pass
                 raise

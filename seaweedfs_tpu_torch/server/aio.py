@@ -61,6 +61,7 @@ from ..stats import trace as _trace
 from ..util import deadline as _deadline
 from ..util import faultpoints, glog
 from ..util.aio_pipeline import ThreadFlume, ThreadFlumeClosed
+from ..util.racecheck import instrument
 from ..util.throttler import GOVERNOR, INTERNAL_TENANT
 from .http_util import (
     NATIVE_FALLBACK,
@@ -258,6 +259,7 @@ class _ShimConn:
         self._flume = flume
 
     def settimeout(self, t) -> None:
+        # sweedlint: ok cross-domain-race per-connection shim; only the one worker serving this connection writes it
         self._rfile.timeout = t
 
     def gettimeout(self):
@@ -410,6 +412,7 @@ def _run_request(handler_cls, server, conn, rfile, wfile,
     return bool(h.close_connection)
 
 
+@instrument
 class AioHTTPServer:
     """Event-loop serving core with the socketserver lifecycle surface.
 
@@ -492,6 +495,7 @@ class AioHTTPServer:
             loop.run_until_complete(self._main())
         except Exception as e:
             if not self._ready.is_set():
+                # sweedlint: ok cross-domain-race startup handshake: the write happens-before _ready.set(); readers wait on _ready
                 self._startup_error = e
                 self._ready.set()
             else:
@@ -499,6 +503,7 @@ class AioHTTPServer:
         finally:
             try:
                 loop.close()
+            # sweedlint: ok broad-except loop teardown best-effort; process is moving on
             except Exception:  # noqa: BLE001 — teardown is best effort
                 pass
 
@@ -700,12 +705,14 @@ class AioHTTPServer:
             flume.close_read()  # unblock any producer thread still stuck
             try:
                 await pump
+            # sweedlint: ok broad-except pump already poisoned the flume; connection is closing
             except BaseException:  # noqa: BLE001 — the connection is closing
                 pass
             self._conn_meta.pop(writer, None)
             self._conns.discard(writer)
             try:
                 writer.close()
+            # sweedlint: ok broad-except transport may already be gone
             except Exception:  # noqa: BLE001 — the transport may be gone
                 pass
 
@@ -834,6 +841,7 @@ class AioHTTPServer:
             if span is not None:
                 span.tags["status"] = status
                 if status >= 500:
+                    # sweedlint: ok cross-domain-race per-request span; created and finished on the one task/thread serving the request
                     span.status = "error"
                 extra.setdefault(_trace.TRACE_ID_HEADER, span.trace_id)
             close = (
@@ -938,6 +946,7 @@ class AioHTTPServer:
                     if aclose is not None:
                         try:
                             await aclose()
+                        # sweedlint: ok broad-except generator already failed; nothing to report
                         except Exception:  # noqa: BLE001 — the generator already failed
                             pass
                 if sent != payload.length:

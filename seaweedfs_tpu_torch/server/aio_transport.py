@@ -62,6 +62,7 @@ class _AConn:
     def close(self) -> None:
         try:
             self.writer.close()
+        # sweedlint: ok broad-except transport may already be gone
         except Exception:  # noqa: BLE001 — the transport may already be gone
             pass
 

@@ -66,6 +66,7 @@ from ..stats import trace as _trace
 from ..util import deadline as _deadline
 from ..util import faultpoints, glog
 from ..util import hedge as _hedge
+from ..util.locks import lock_stats, make_lock
 from ..util.parsers import tolerant_ufloat, tolerant_uint
 from ..wdclient import MasterClient
 from .http_util import (
@@ -124,7 +125,7 @@ class _FidBatch:
         self._batch = max(1, batch)
         self._lanes = max(1, lanes)
         self._pending: list[operation.Assignment] = []
-        self._lock = threading.Lock()
+        self._lock = make_lock("_FidBatch._lock")
 
     def _one_batch(self) -> list[operation.Assignment]:
         a = operation.assign(
@@ -194,7 +195,7 @@ class _AssignCoalescer:
 
     def __init__(self, fs: "FilerServer"):
         self._fs = fs
-        self._lock = threading.Lock()
+        self._lock = make_lock("_AssignCoalescer._lock")
         self._queues: dict = {}  # key → list of waiter dicts
         self._leading: set = set()  # keys with an RPC loop running
 
@@ -253,6 +254,7 @@ class _AssignCoalescer:
         got = max(1, a.count)
         usable = got if (not a.auth or self._fs.jwt_signing_key) else 1
         usable = min(usable, len(waiters))
+        SERVING.note_assign_batch(usable)
         waiters[0]["a"] = a
         waiters[0]["evt"].set()
         for i, w in enumerate(waiters[1:], start=1):
@@ -326,7 +328,7 @@ class FilerServer:
         # the filer-side scan's device (cuda | cpu); None reads
         # $SWEED_QUERY_BACKEND, else cuda, and never falls back to the CPU
         self.query_backend = query_backend
-        self._routes_lock = threading.Lock()
+        self._routes_lock = make_lock("FilerServer._routes_lock")
         self._routes = {"pushdown": 0, "filer_side": 0}
 
         self.jwt_signing_key = jwt_signing_key
@@ -911,6 +913,9 @@ class FilerServer:
                 "read_window": self.read_window,
                 "write_window": self.write_window,
             },
+            # OrderedLock sanitizer counters + observed order edges
+            # (all-zero unless the process runs with SWEED_LOCK_CHECK=1)
+            "locks": lock_stats(),
             # scan-engine counters (process-wide: rows/bytes through every
             # /_query and /_select plan of this process)
             "query": self._query_stats(),

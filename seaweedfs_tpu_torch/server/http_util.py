@@ -52,6 +52,8 @@ from typing import Any, Callable, Optional
 from ..stats import trace as _trace
 from ..util import deadline as _deadline
 from ..util import glog
+from ..util.locks import make_lock
+from ..util.racecheck import instrument
 from ..util.throttler import GOVERNOR, INTERNAL_HEADER, INTERNAL_TENANT, classify_tenant
 
 # Set by start_server(): a process that serves cluster traffic marks its
@@ -147,13 +149,14 @@ def admission_reject_response() -> bytes:
     ).encode("ascii")
 
 
+@instrument
 class _ServingState:
     """Process-wide serving-core counters (the ``sweed_serving_*`` gauges
     and ``/status``'s ``serving``). Live servers of either core register
     themselves; inflight is summed from them on demand."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("_ServingState._lock")
         self._servers: "weakref.WeakSet" = weakref.WeakSet()
         self._rejected = 0
         self._keepalive_shed = 0
@@ -164,6 +167,10 @@ class _ServingState:
         self._native_hits = 0
         self._native_fallbacks = 0
         self._qos = {"ok": 0, "delay": 0, "shed": 0}
+        # the filer's coalesced master assigns: rounds, fids, largest round
+        self._assign_batches = 0
+        self._assign_fids = 0
+        self._assign_max_batch = 0
 
     def register_server(self, srv) -> None:
         with self._lock:
@@ -176,6 +183,7 @@ class _ServingState:
         for s in servers:
             try:
                 total += s.inflight_count()
+            # sweedlint: ok broad-except a dying server mid-teardown must not break the gauge
             except Exception:  # noqa: BLE001 — a server mid-teardown
                 pass
         return total
@@ -193,6 +201,12 @@ class _ServingState:
         with self._lock:
             self._loop_lag_last_ms = ms
             self._loop_lag_max_ms = max(self._loop_lag_max_ms, ms)
+
+    def note_assign_batch(self, n: int) -> None:
+        with self._lock:
+            self._assign_batches += 1
+            self._assign_fids += n
+            self._assign_max_batch = max(self._assign_max_batch, n)
 
     def note_request_seconds(self, seconds: float) -> None:
         with self._lock:
@@ -235,6 +249,11 @@ class _ServingState:
                 "keepalive_shed": self._keepalive_shed,
                 "loop_lag_ms": round(self._loop_lag_last_ms, 3),
                 "loop_lag_max_ms": round(self._loop_lag_max_ms, 3),
+                "assign_batches": self._assign_batches,
+                "assign_fids": self._assign_fids,
+                "assign_max_batch": self._assign_max_batch,
+                "assign_avg_batch": round(self._assign_fids / self._assign_batches, 2)
+                if self._assign_batches else 0.0,
                 "request_p99_ms": round(self._p99_locked() * 1000.0, 3),
                 "reaped_idle": self._reaped.get("idle", 0),
                 "reaped_deadline": self._reaped.get("deadline", 0),
@@ -275,6 +294,7 @@ def relay_stream(handler, payload, declared_len: Optional[int] = None) -> None:
     finally:
         try:
             payload.close()
+        # sweedlint: ok broad-except close of an already-failed upstream body; nothing to report
         except Exception:  # noqa: BLE001 — closing a failed upstream body
             pass
     if declared_len is not None and sent != declared_len:
@@ -860,6 +880,7 @@ def _pooled_request(method: str, url: str, body: Optional[bytes],
                 conn.close()
                 conns.pop(key, None)
             else:
+                # sweedlint: ok cross-domain-race thread-local pool (_pool_local): a pooled connection is only used by the thread that made it
                 conn._sweed_idle_since = time.monotonic()
             return resp.status, data, resp_headers
         except (http.client.RemoteDisconnected, http.client.BadStatusLine,
@@ -1001,6 +1022,7 @@ class _PooledStreamBody:
             self._discard()
         try:
             self._resp.close()
+        # sweedlint: ok broad-except socket already torn down; nothing to report
         except Exception:  # noqa: BLE001 — the socket is torn down already
             pass
 

@@ -77,8 +77,9 @@ from ..storage.file_id import FileId
 from ..storage.replica_placement import ReplicaPlacement
 from ..storage.ttl import EMPTY_TTL, read_ttl
 from ..util import glog
+from ..util.locks import lock_stats, make_lock
 from ..util.parsers import tolerant_ufloat, tolerant_uint
-from .http_util import JsonHandler, http_json, start_server
+from .http_util import SERVING, JsonHandler, http_json, start_server
 from .status_ui import render_status_page
 
 # Beats checkpoint the sequence ahead of use (peek + margin), as the
@@ -118,7 +119,7 @@ class MasterServer:
         )
         self.node_timeout = node_timeout
         self._nodes: dict[str, DataNode] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("MasterServer._lock")
         # fleet EC scheduler: fans encode/rebuild jobs over the volume
         # servers (cluster/fleet.py); membership rides heartbeats
         self.fleet = EcJobScheduler(
@@ -367,6 +368,11 @@ class MasterServer:
             "is_leader": self.election.is_leader,
             "term": self.election.term,
             "topology": self.master.topology_info(),
+            # OrderedLock sanitizer counters + observed order edges
+            # (all-zero unless the process runs with SWEED_LOCK_CHECK=1)
+            "locks": lock_stats(),
+            # serving-core counters (mode, inflight, admission shedding)
+            "serving": SERVING.snapshot(),
             # fleet EC scheduler: members + job ledger
             "fleet": self.fleet.stats(),
             # assign latency quantiles from the cumulative-bucket histogram

@@ -9,11 +9,12 @@ volumes keep their read heat in the store (``Store.ec_read_heat``).
 from __future__ import annotations
 
 import os
-import threading
 import time
 import weakref
 
+from ..util.locks import make_lock
 from ..util.parsers import tolerant_ufloat
+from ..util.racecheck import instrument
 
 # one half-life of inactivity halves a volume's heat. SWEED_HEAT_HALFLIFE
 # (seconds, read at import) overrides it; garbage, negative, non-finite and
@@ -23,6 +24,7 @@ HEAT_HALFLIFE_SECONDS = tolerant_ufloat(
 ) or 60.0
 
 
+@instrument
 class EwmaHeat:
     """Exponentially-decayed op counter: an op marked now weighs 1, an op a
     half-life ago weighs 0.5."""
@@ -33,7 +35,7 @@ class EwmaHeat:
         self.halflife = halflife
         self._v = 0.0
         self._t = time.monotonic()
-        self._lock = threading.Lock()
+        self._lock = make_lock("EwmaHeat._lock")
 
     def _decay_locked(self) -> None:
         now = time.monotonic()

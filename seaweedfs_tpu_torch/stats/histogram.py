@@ -27,6 +27,7 @@ import time
 from typing import Optional
 
 from ..util.locks import make_lock
+from ..util.racecheck import instrument
 from .trace import current_trace_id
 
 _DEFAULT_BUCKETS = (
@@ -48,6 +49,7 @@ def _fmt_labels(labels: dict) -> str:
     return "{" + inner + "}"
 
 
+@instrument
 class Histogram:
     """Prometheus-shaped histogram with quantile estimates.
 

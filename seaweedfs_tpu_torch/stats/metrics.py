@@ -37,14 +37,17 @@ import threading
 from typing import Callable, Optional
 
 from ..util import glog
+from ..util.locks import make_lock
+from ..util.racecheck import instrument
 from .histogram import Histogram, _fmt_labels
 
 
+@instrument
 class Counter:
     def __init__(self, name: str, help_: str = ""):
         self.name, self.help = name, help_
         self._values: dict[tuple, float] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("Counter._lock")
 
     def inc(self, amount: float = 1.0, **labels) -> None:
         key = tuple(sorted(labels.items()))
@@ -69,12 +72,13 @@ class Counter:
         return out
 
 
+@instrument
 class Gauge:
     def __init__(self, name: str, help_: str = ""):
         self.name, self.help = name, help_
         self._values: dict[tuple, float] = {}
         self._fns: dict[tuple, Callable[[], float]] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("Gauge._lock")
 
     def set(self, value: float, **labels) -> None:
         with self._lock:
@@ -111,7 +115,7 @@ class Gauge:
 class Registry:
     def __init__(self):
         self._metrics: dict[str, object] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("Registry._lock")
 
     def counter(self, name: str, help_: str = "") -> Counter:
         return self._get_or_make(name, lambda: Counter(name, help_))
@@ -145,6 +149,35 @@ class Registry:
 
 
 default_registry = Registry()
+
+
+def register_lock_metrics(registry: Optional[Registry] = None) -> None:
+    """Gauges over the OrderedLock sanitizer's counters (util/locks.py):
+    total acquisitions, contended acquires, deepest held-while-acquiring
+    nesting, and the observed order-graph edge count.  All zero unless
+    the process runs with SWEED_LOCK_CHECK=1."""
+    from ..util.locks import lock_stats
+
+    reg = registry if registry is not None else default_registry
+    reg.gauge(
+        "sweed_lock_acquisitions_total",
+        "instrumented lock acquisitions (SWEED_LOCK_CHECK=1)",
+    ).set_function(lambda: lock_stats()["acquisitions"])
+    reg.gauge(
+        "sweed_lock_contended_total",
+        "acquires that found the lock held",
+    ).set_function(lambda: lock_stats()["contended"])
+    reg.gauge(
+        "sweed_lock_max_held_depth",
+        "deepest held-while-acquiring nesting observed",
+    ).set_function(lambda: lock_stats()["max_held_depth"])
+    reg.gauge(
+        "sweed_lock_order_edges",
+        "distinct observed lock-order edges",
+    ).set_function(lambda: len(lock_stats()["edges"]))
+
+
+register_lock_metrics()
 
 
 class MetricsPusher:
@@ -195,6 +228,13 @@ def _gauges(reg: Registry, snap: Callable[[str], float], specs) -> None:
         reg.gauge(name, help_).set_function(lambda key=key: snap(key))
 
 
+def serving_stats() -> dict:
+    """Snapshot of the serving-core counters for /_status."""
+    from ..server.http_util import SERVING
+
+    return SERVING.snapshot()
+
+
 def register_serving_metrics(registry: Optional[Registry] = None) -> None:
     """Gauges over the serving core (``server/http_util.SERVING``)."""
 
@@ -215,6 +255,12 @@ def register_serving_metrics(registry: Optional[Registry] = None) -> None:
          "loop_lag_ms"),
         ("sweed_serving_loop_lag_max_ms",
          "worst event-loop scheduling lag observed (aio mode)", "loop_lag_max_ms"),
+        ("sweed_serving_assign_batches_total", "coalesced master assign RPC rounds",
+         "assign_batches"),
+        ("sweed_serving_assign_fids_total",
+         "fids handed out through coalesced assign rounds", "assign_fids"),
+        ("sweed_serving_assign_max_batch", "largest coalesced assign batch observed",
+         "assign_max_batch"),
         ("sweed_serving_request_p99_ms",
          "p99 request service time over the recent ring (feeds Retry-After)",
          "request_p99_ms"),

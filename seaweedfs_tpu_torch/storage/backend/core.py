@@ -9,7 +9,7 @@ file (backend/disk_file.go). The remote S3 tier lives beside it
 from __future__ import annotations
 
 import os
-import threading
+from ...util.locks import make_lock
 
 
 class BackendStorageFile:
@@ -52,7 +52,7 @@ class DiskFile(BackendStorageFile):
         # unbuffered: every write() reaches the kernel before the ack, as
         # with Go's os.File, so a kill -9 loses no acknowledged needle
         self._f = open(path, mode, buffering=0)
-        self._lock = threading.Lock()
+        self._lock = make_lock("DiskFile._lock")
 
     # Positional IO (pread/pwrite) never moves the file offset, which the fd
     # shares with its dups: a zero-copy reply sendfiles from a dup of this fd,
@@ -100,9 +100,42 @@ class DiskFile(BackendStorageFile):
 
     def sync(self) -> None:
         with self._lock:
+            # sweedlint: ok blocking-under-lock per-fd leaf lock serializing write+fsync; nothing nests inside it
             os.fsync(self._f.fileno())
 
     def close(self) -> None:
         with self._lock:
             if not self._f.closed:
                 self._f.close()
+
+
+class MemoryFile(BackendStorageFile):
+    """In-memory backend (tests; analog of backend/memory_map)."""
+
+    def __init__(self, name: str = "<memory>"):
+        self._buf = bytearray()
+        self._name = name
+        self._lock = make_lock("MemoryFile._lock")
+
+    def read_at(self, offset: int, size: int) -> bytes:
+        with self._lock:
+            return bytes(self._buf[offset : offset + size])
+
+    def write_at(self, offset: int, data: bytes) -> int:
+        with self._lock:
+            end = offset + len(data)
+            if end > len(self._buf):
+                self._buf.extend(b"\x00" * (end - len(self._buf)))
+            self._buf[offset:end] = data
+            return len(data)
+
+    def truncate(self, size: int) -> None:
+        with self._lock:
+            del self._buf[size:]
+
+    def size(self) -> int:
+        with self._lock:
+            return len(self._buf)
+
+    def name(self) -> str:
+        return self._name

@@ -158,6 +158,7 @@ class _Handler(BaseHTTPRequestHandler):
             return self._reply(204)
         if bucket and key:
             try:
+                # sweedlint: ok durability fake-S3 object store under the test root, not the volume data plane; S3 DeleteObject has no staged-commit semantics to preserve
                 os.unlink(self._obj_path(bucket, key))
             except FileNotFoundError:
                 pass

@@ -106,6 +106,7 @@ def build() -> str:
                          capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"g++ failed ({res.returncode}):\n{res.stdout}{res.stderr}")
+    # sweedlint: ok durability build artifact under csrc/build, not volume data; tmp+rename makes a concurrent build atomic
     os.replace(tmp, lib_path)  # atomic: a concurrent builder sees all or nothing
     return lib_path
 

@@ -9,11 +9,11 @@ process (storage/commit.py).
 from __future__ import annotations
 
 import os
-import threading
 from typing import Optional
 
 from ..ec.ec_volume import EcShardsError, EcVolume
 from ..util import glog
+from ..util.locks import make_rlock
 from .commit import recover_directory
 from .volume import Volume, check_needle_map_kind
 
@@ -37,12 +37,13 @@ class DiskLocation:
         self.needle_map_kind = needle_map_kind
         self.volumes: dict[int, Volume] = {}
         self.ec_volumes: dict[int, EcVolume] = {}
-        self._lock = threading.RLock()
+        self._lock = make_rlock("DiskLocation._lock")
         self._recovered = False
 
     # -- loading (disk_location.go:104-160) ----------------------------------
     def load_existing_volumes(self) -> None:
         with self._lock:
+            # sweedlint: ok blocking-under-lock mount-time recovery; the location lock is uncontended until the scan returns
             self._recover_staged_commits()
             for entry in sorted(os.listdir(self.directory)):
                 if not os.path.isfile(os.path.join(self.directory, entry)):
@@ -54,6 +55,7 @@ class DiskLocation:
                     if ext in (".dat", ".tier"):
                         collection, vid = parse_volume_base_name(base)
                         if vid not in self.volumes:
+                            # sweedlint: ok blocking-under-lock mount-time scan; a remote-tier volume probes its backend during open
                             self.volumes[vid] = Volume(
                                 self.directory, collection, vid,
                                 create_if_missing=False,

@@ -109,6 +109,7 @@ class Needle:
         return bool(self.flags & flag)
 
     def set_flag(self, flag: int) -> None:
+        # sweedlint: ok cross-domain-race per-request Needle; one request path builds it, never shared across domains
         self.flags |= flag
 
     @property
@@ -144,6 +145,7 @@ class Needle:
         """The full on-disk record (prepareWriteBuffer, needle_read_write.go:33)."""
         self.checksum = crc32c.new(self.data)
         if version == VERSION1:
+            # sweedlint: ok cross-domain-race per-request Needle; one request path builds it, never shared across domains
             self.size = len(self.data)
             out = bytearray()
             out += cookie_to_bytes(self.cookie)
@@ -195,7 +197,9 @@ class Needle:
 
     # -- deserialization -----------------------------------------------------
     def parse_header(self, b: bytes) -> None:
+        # sweedlint: ok cross-domain-race per-request Needle; one request path builds it, never shared across domains
         self.cookie = bytes_to_cookie(b[0:4])
+        # sweedlint: ok cross-domain-race per-request Needle; one request path builds it, never shared across domains
         self.id = bytes_to_needle_id(b[4:12])
         self.size = bytes_to_size(b[12:16])
 
@@ -247,6 +251,7 @@ class Needle:
             idx += 2
             if pairs_size + idx > n:
                 raise ValueError("needle body truncated: pairs")
+            # sweedlint: ok cross-domain-race per-request Needle; one request path builds it, never shared across domains
             self.pairs = bytes(b[idx : idx + pairs_size])
             idx += pairs_size
 

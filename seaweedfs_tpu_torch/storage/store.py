@@ -31,6 +31,7 @@ from ..ec.ec_volume import EcVolume, NeedsShardError
 from ..ec.ec_volume import NotFoundError as EcNotFoundError
 from ..stats import heat
 from ..util import faultpoints, glog
+from ..util.locks import make_lock, make_rlock
 from ..util.retry import TRANSIENT, RetryError, RetryPolicy, retry_call
 from .commit import StagedCommit
 from .disk_location import DiskLocation, parse_volume_base_name
@@ -181,7 +182,7 @@ class Store:
         if self.ec_backend not in ("cuda", "cpu", "mesh"):
             raise ValueError(f"ec backend {self.ec_backend!r}: want cuda, cpu or mesh")
         self._ec_codec: Optional[Codec] = None
-        self._codec_lock = threading.Lock()
+        self._codec_lock = make_lock("Store._codec_lock")
         # the native data plane (storage/turbo.py), set by the volume server
         # when the engine owns its public port
         self.turbo_engine = None
@@ -200,7 +201,7 @@ class Store:
         # rebuilt
         self.corrupt_needles: dict[int, set[int]] = {}
         self.corrupt_shards: dict[int, set[int]] = {}
-        self._lock = threading.RLock()
+        self._lock = make_rlock("Store._lock")
         heat.register_store(self)
 
     @property

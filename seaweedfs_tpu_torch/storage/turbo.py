@@ -75,13 +75,53 @@ def build() -> str:
                          capture_output=True, text=True, timeout=300)
     if res.returncode != 0:
         try:
+            # sweedlint: ok durability failed build's temp file under csrc/build, not volume data
             os.remove(tmp)
         except FileNotFoundError:
             pass
         raise RuntimeError(f"g++ failed ({res.returncode}) building turbo.cpp:\n"
                            f"{res.stdout}{res.stderr}")
+    # sweedlint: ok durability build artifact under csrc/build, not volume data; tmp+rename makes a concurrent build atomic
     os.replace(tmp, lib_path)  # atomic: a concurrent build sees all or nothing
     return lib_path
+
+
+TSAN_SOURCE = os.path.join(_CSRC, "tsan_harness.cpp")
+TSAN_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall",
+              "-fsanitize=thread", "-O1", "-g")
+
+
+def build_tsan_harness() -> str:
+    """Compile the ThreadSanitizer stress harness (``tsan_harness.cpp``
+    linked with ``turbo.cpp``) into ``csrc/build/`` unless one built from
+    the same sources and flags, for this CPU, is there. Returns the
+    executable's path; raises RuntimeError (with the compiler's output)
+    when it cannot be built."""
+    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    if cxx is None:
+        raise RuntimeError("no C++ compiler (g++): cannot build tsan_harness.cpp")
+    h = hashlib.sha256(" ".join(TSAN_FLAGS + LD_FLAGS).encode() + _cpu_signature())
+    for src in (SOURCE, TSAN_SOURCE):
+        with open(src, "rb") as f:
+            h.update(f.read())
+    exe = os.path.join(BUILD_DIR, f"tsan_harness-{h.hexdigest()[:16]}")
+    if os.path.exists(exe):
+        return exe
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{exe}.{os.getpid()}.{threading.get_ident()}.tmp"
+    res = subprocess.run([cxx, *TSAN_FLAGS, "-o", tmp, SOURCE, TSAN_SOURCE, *LD_FLAGS],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        try:
+            # sweedlint: ok durability failed build's temp file under csrc/build, not volume data
+            os.remove(tmp)
+        except FileNotFoundError:
+            pass
+        raise RuntimeError(f"g++ failed ({res.returncode}) building tsan_harness.cpp:\n"
+                           f"{res.stdout}{res.stderr}")
+    # sweedlint: ok durability build artifact under csrc/build, not volume data; tmp+rename makes a concurrent build atomic
+    os.replace(tmp, exe)
+    return exe
 
 
 _lock = threading.Lock()

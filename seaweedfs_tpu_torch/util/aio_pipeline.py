@@ -19,6 +19,8 @@ import asyncio
 import threading
 from collections import deque
 from typing import AsyncIterable, Callable, Iterable, Optional, Union
+from .locks import make_lock
+from .racecheck import instrument
 
 
 async def _aiter(items: Union[Iterable, AsyncIterable]):
@@ -101,6 +103,7 @@ class ThreadFlumeClosed(Exception):
     producer writes raise this so handler threads stop generating."""
 
 
+@instrument
 class ThreadFlume:
     """Bounded thread→loop byte channel.
 
@@ -125,7 +128,7 @@ class ThreadFlume:
     def __init__(self, loop: asyncio.AbstractEventLoop, window: int = 8):
         self._loop = loop
         self._window = max(1, window)
-        self._mu = threading.Lock()
+        self._mu = make_lock("ThreadFlume._mu")
         self._chunks: deque = deque()
         self._space = threading.Semaphore(self._window)
         self._closed = False  # producer finished

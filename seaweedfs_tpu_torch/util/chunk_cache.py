@@ -11,9 +11,9 @@ from __future__ import annotations
 
 import hashlib
 import os
-import threading
 from collections import OrderedDict
 from typing import Optional
+from .locks import make_lock
 
 
 class MemoryChunkCache:
@@ -21,7 +21,7 @@ class MemoryChunkCache:
         self.budget = budget_bytes
         self._lru: OrderedDict[str, bytes] = OrderedDict()
         self._bytes = 0
-        self._lock = threading.Lock()
+        self._lock = make_lock("MemoryChunkCache._lock")
         self.hits = 0
         self.misses = 0
 
@@ -60,7 +60,7 @@ class DiskChunkCache:
         self.dir = directory
         self.budget = budget_bytes
         os.makedirs(directory, exist_ok=True)
-        self._lock = threading.Lock()
+        self._lock = make_lock("DiskChunkCache._lock")
         self.hits = 0
         self.misses = 0
         self._bytes = self._walk_bytes()

@@ -36,6 +36,8 @@ import os
 import queue
 import threading
 from typing import Callable, Optional
+from .locks import make_lock
+from .racecheck import instrument
 
 
 def enabled() -> bool:
@@ -66,11 +68,12 @@ def delay_override_s() -> Optional[float]:
     return max(0.0, v) / 1000.0 if v == v else None
 
 
+@instrument
 class HedgeStats:
     """Process-wide hedge counters + the budget gate."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("HedgeStats._lock")
         self.tracked = 0        # calls that passed through the hedger
         self.fired = 0          # hedge legs actually launched
         self.wins = {"primary": 0, "hedge": 0}

@@ -22,15 +22,17 @@ handlers, so a hit is always the bytes a disk read would have returned.
 
 from __future__ import annotations
 
-import threading
 import weakref
 from collections import OrderedDict
 from typing import Optional
+from .locks import make_lock
+from .racecheck import instrument
 
 
 DEFAULT_SHARDS = 16
 
 
+@instrument
 class _Shard:
     """One LRU shard: key -> (cookie, payload), most-recent last."""
 
@@ -38,7 +40,7 @@ class _Shard:
                  "hits", "misses", "evictions")
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = make_lock("NeedleCache._Shard._lock")
         self._entries: "OrderedDict[tuple[int, int], tuple[int, bytes]]" = OrderedDict()
         self._bytes = 0
         self.capacity = 0
@@ -90,13 +92,14 @@ class _Shard:
                     self._bytes, len(self._entries))
 
 
+@instrument
 class NeedleCache:
     """Sharded LRU over needle payloads, keyed ``(vid, needle_id)``."""
 
     def __init__(self, capacity_bytes: int = 0, shards: int = DEFAULT_SHARDS):
         self._shards = [_Shard() for _ in range(shards)]
         self._capacity = 0
-        self._resize_mu = threading.Lock()
+        self._resize_mu = make_lock("NeedleCache._resize_mu")
         self.set_capacity(capacity_bytes)
         _caches.add(self)
 

@@ -182,6 +182,7 @@ class BoundedExecutor:
         for fut in self._futures:
             try:
                 fut.result()
+            # sweedlint: ok broad-except error-path settle; the caller re-raises the original failure
             except BaseException:  # noqa: BLE001 — error-path settle; the caller re-raises the original failure
                 pass
         self._pool.shutdown(wait=True)

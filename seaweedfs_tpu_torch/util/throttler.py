@@ -24,8 +24,9 @@ from __future__ import annotations
 
 import os
 import time
-
 from .locks import make_lock
+from .racecheck import instrument
+
 
 
 class WriteThrottler:
@@ -95,6 +96,7 @@ def classify_tenant(header_get, remote_addr: str) -> str:
     return "ip:" + ".".join(remote_addr.split(".")[:3])
 
 
+@instrument
 class TokenBucket:
     """Monotonic-clock token bucket; thread-safe (shared by the threads
     core's workers and the aio loop).
@@ -134,6 +136,7 @@ class TokenBucket:
             return None
 
 
+@instrument
 class _Tenant:
     __slots__ = ("bucket", "weight", "last_seen",
                  "admitted", "delayed", "shed")
@@ -147,6 +150,7 @@ class _Tenant:
         self.shed = 0
 
 
+@instrument
 class TenantGovernor:
     """Weighted-fair request admission across tenants.
 

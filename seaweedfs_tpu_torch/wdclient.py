@@ -99,6 +99,7 @@ def find_reachable_master(seeds: list[str], timeout: float = 2.0,
         try:
             http_json("GET", f"http://{m}/cluster/status", timeout=timeout)
             return m
+        # sweedlint: ok broad-except seed probe; an unreachable master is the expected case
         except Exception:  # noqa: BLE001 — an unreachable seed is the expected case
             continue
     if strict:
@@ -133,6 +134,7 @@ class MasterClient:
                 st = http_json("GET", f"http://{m}/cluster/status", timeout=3.0)
                 leader = st.get("leader") or m
                 return leader
+            # sweedlint: ok broad-except master probe; try the next seed
             except Exception:  # noqa: BLE001 — try the next seed
                 continue
         return None

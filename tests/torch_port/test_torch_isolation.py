@@ -70,7 +70,9 @@ def test_port_imports_nothing_of_jax():
                  "mount.fuse_mount", "server.webdav_server", "server.ftp_server",
                  "messaging.log_buffer", "messaging.broker", "messaging.client",
                  "util.images", "util.netports", "util.glog", "util.profiling",
-                 "__main__"):
+                 "analysis", "analysis.rules", "analysis.callgraph",
+                 "analysis.lockgraph", "analysis.domaingraph", "analysis.racecheck",
+                 "analysis.taint", "analysis.__main__", "__main__"):
         assert "seaweedfs_tpu_torch." + name in walked, name
     assert lines["BAD"] == "[]", r.stdout
     assert lines["NEW_THREADS"] == "0", r.stdout
