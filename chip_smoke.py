@@ -34,7 +34,8 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    MasterServer takes 1 GiB of needles (1 KiB-1 MiB, log-uniform) over HTTP
    from 8 threads; /admin/ec/generate (shards checked as in phase 4), mount,
    delete_volume, delete_shards {0, 3, 10, 13}, 64 degraded GETs compared
-   byte for byte, /admin/ec/rebuild (sha256 against the .vif), then
+   byte for byte (with their remote fetches, attempts, backoff and
+   ``/dir/lookup_ec`` asks), /admin/ec/rebuild (sha256 against the .vif), then
    /admin/ec/to_volume with data shards 1, 2, 5 lost (.dat identical, .idx
    identical in key order). Each EC step must launch the kernel, and the
    needle CRC must be the native build;
@@ -58,7 +59,8 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    is filled to 512 MiB from 8 threads, every fid from /dir/assign;
    ``ec.encode`` generates on the card and spreads the shards 4/4/3/3; the
    server with shards 1, 5, 9, 13 stops and the master's reaper drops it;
-   64 degraded GETs and 64 healthy remote GETs go through /dir/lookup;
+   64 degraded GETs and 64 healthy remote GETs go through /dir/lookup, and
+   none may retry, with backoff, a shard the master lists no holder for;
    ``ec.rebuild`` copies survivors in and rebuilds the 4 lost shards on the
    card; the server with shards 3, 7, 11 stops too and ``ec.decode``
    rebuilds data shards 3 and 7 in to_volume; a seeded 1 024 needles read
@@ -132,8 +134,9 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    reply equal to the cpu backend's. Then ``ec.encode`` seals every volume
    of the collection (4/4/3/3), the server with shards 1, 5, 9, 13 of the
    first stops, a seeded 256 of the small files and the cipher'd object
-   read back through the filer and the probe runs again on two sealed CSVs. The seal and the degraded reads
-   must launch the kernel.
+   read back through the filer (with phase 8's fetch counts) and the probe
+   runs again on two sealed CSVs. The seal and the degraded reads must
+   launch the kernel.
 13. the S3 gateway: the port's master, four port volume servers (CUDA
    backend, the engine on), one port filer (``weed filer`` defaults) and the
    port's gateway (``weed s3`` defaults, an ``s3.json`` of two identities:
@@ -327,6 +330,7 @@ from seaweedfs_tpu_torch.storage.file_id import FileId  # noqa: E402
 from seaweedfs_tpu_torch.storage.needle import Needle, get_actual_size  # noqa: E402
 from seaweedfs_tpu_torch.storage.needle_map import IdxLogMixin  # noqa: E402
 from seaweedfs_tpu_torch.storage.store import (  # noqa: E402
+    NoShardHolderError,
     Store,
     ec_encode_volume,
     read_ec_shard_needle,
@@ -857,6 +861,90 @@ class _Timed:
                 setattr(obj, name, old)
 
 
+class _FetchTally:
+    """Within the block, the degraded-read path of each of ``servers`` is
+    counted and timed: ``Store._remote_shard_read`` (one call per shard
+    range wanted from another server), the remote reader's attempts inside
+    it, the codec's reconstructs and the ``/dir/lookup_ec`` asks. A fetch
+    spends in backoff what it does not spend in attempts; an attempt made
+    after the reader answered that no server holds the shard is a retry
+    that sleeps for nothing (``no_holder_retries``)."""
+
+    def __init__(self, servers: list):
+        self.servers = servers
+        self.lock = threading.Lock()
+        self.local = threading.local()
+        self.calls: collections.Counter = collections.Counter()
+        self.seconds: collections.Counter = collections.Counter()
+
+    def _add(self, what: str, sec: float) -> None:
+        with self.lock:
+            self.calls[what] += 1
+            self.seconds[what] += sec
+
+    def _wrap(self, obj, name: str, make) -> None:
+        self.saved.append((obj, name, obj.__dict__.get(name)))
+        setattr(obj, name, make(getattr(obj, name)))
+
+    def _fetch(self, fn):
+        def fetch(*args):
+            self.local.no_holder = False
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                self._add("fetch", time.perf_counter() - t0)
+        return fetch
+
+    def _attempt(self, fn):
+        def attempt(*args):
+            if getattr(self.local, "no_holder", False):
+                self._add("no_holder_retry", 0.0)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            except NoShardHolderError:
+                self.local.no_holder = True
+                raise
+            finally:
+                self._add("attempt", time.perf_counter() - t0)
+        return attempt
+
+    def _reconstruct(self, fn):
+        def reconstruct(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self._add("reconstruct", time.perf_counter() - t0)
+        return reconstruct
+
+    def __enter__(self):
+        self.saved: list = []
+        self.lookups0 = sum(vs.ec_lookups for vs in self.servers)
+        for vs in self.servers:
+            self._wrap(vs.store, "_remote_shard_read", self._fetch)
+            self._wrap(vs.store, "remote_shard_reader", self._attempt)
+            self._wrap(vs.store.ec_codec, "reconstruct", self._reconstruct)
+        return self
+
+    def __exit__(self, *exc):
+        self.lookups = sum(vs.ec_lookups for vs in self.servers) - self.lookups0
+        for obj, name, old in self.saved:
+            if old is None:
+                delattr(obj, name)  # an instance attribute over a method
+            else:
+                setattr(obj, name, old)
+
+    def summary(self) -> dict:
+        c, s = self.calls, self.seconds
+        return {"remote_fetch_calls": c["fetch"], "remote_fetch_s": s["fetch"],
+                "remote_attempts": c["attempt"], "remote_attempt_s": s["attempt"],
+                "retry_backoff_s": s["fetch"] - s["attempt"], "lookups": self.lookups,
+                "no_holder_retries": c["no_holder_retry"],
+                "reconstruct_calls": c["reconstruct"], "reconstruct_s": s["reconstruct"]}
+
+
 class _Engines:
     """The turbo engines of a phase's volume servers. ``check`` fails the
     phase if one started without its engine (naming why); ``stop`` stops a
@@ -1006,8 +1094,7 @@ def phase6(state) -> None:
         store = vs.store
         get_ms, bad_reads = [], 0
         l0 = gm.gf_matmul.launches
-        with _Timed((store, "_remote_shard_read"), (codec, "reconstruct"),
-                    (codec, "host_buffer")) as rt:
+        with _Timed((codec, "host_buffer")) as rt, _FetchTally([vs]) as tally:
             for i in pick:
                 fid, want = blobs[i]
                 status, data, sec = _call(url, "GET", "/" + fid)
@@ -1016,10 +1103,7 @@ def phase6(state) -> None:
         steps["degraded_get"] = gm.gf_matmul.launches - l0
         out.update(degraded_reads=len(pick), bad_reads=bad_reads,
                    get_ms_p50=_pct(get_ms, 50), get_ms_p99=_pct(get_ms, 99),
-                   get_s=sum(get_ms) / 1e3, remote_fetch_s=rt["_remote_shard_read"].seconds,
-                   remote_fetch_calls=rt["_remote_shard_read"].calls,
-                   reconstruct_s=rt["reconstruct"].seconds,
-                   reconstruct_calls=rt["reconstruct"].calls,
+                   get_s=sum(get_ms) / 1e3, **tally.summary(),
                    pinned_alloc_s=rt["host_buffer"].seconds,
                    retry_policy={"attempts": store.remote_fetch_attempts,
                                  "backoff_s": store.remote_fetch_backoff_s})
@@ -1672,36 +1756,25 @@ def phase8(state) -> None:
         far = {s for t, sids in spread.items() if t not in (answerer, victim) for s in sids}
         healthy = [i for i in order if held[i] <= far][:64]
         out["answerer"] = answerer
-        live = [vs.store for url, vs in by_url.items() if url not in stopped]
+        live = [vs for url, vs in by_url.items() if url not in stopped]
         for name, picked in (("degraded_get", picks), ("healthy_remote_get", healthy)):
             ms, bad_reads, answered = [], 0, collections.Counter()
             l0 = gm.gf_matmul.launches
-            with contextlib.ExitStack() as stack:  # every live server's read path
-                rts = [stack.enter_context(_Timed(
-                    (st, "_remote_shard_read"), (st, "remote_shard_reader"),
-                    (st.ec_codec, "reconstruct"))) for st in live]
+            with _FetchTally(live) as tally:  # every live server's read path
                 for i in picked:
                     status, data, sec, loc = get(fids[i])
                     ms.append(sec * 1e3)
                     answered[loc] += 1
                     bad_reads += status != 200 or data != blobs[i]
-
-            def total(attr: str, what: str = "seconds") -> float:
-                return sum(getattr(rt[attr], what) for rt in rts)
-            fetch_s, attempt_s = total("_remote_shard_read"), total("remote_shard_reader")
             steps[name] = {"s": sum(ms) / 1e3, "launches": gm.gf_matmul.launches - l0}
             out[name] = {"reads": len(picked), "bad_reads": bad_reads,
                          "answered_by": dict(answered),
-                         "ms_p50": _pct(ms, 50), "ms_p99": _pct(ms, 99),
-                         "remote_fetch_s": fetch_s,
-                         "remote_fetch_calls": total("_remote_shard_read", "calls"),
-                         "remote_attempt_s": attempt_s,
-                         "remote_attempts": total("remote_shard_reader", "calls"),
-                         "retry_backoff_s": fetch_s - attempt_s,
-                         "reconstruct_s": total("reconstruct"),
-                         "reconstruct_calls": total("reconstruct", "calls")}
+                         "ms_p50": _pct(ms, 50), "ms_p99": _pct(ms, 99), **tally.summary()}
             if bad_reads or len(picked) < 64:
                 raise SystemExit(f"phase 8: {bad_reads} of {len(picked)} {name} reads wrong")
+            if out[name]["no_holder_retries"]:
+                raise SystemExit(f"phase 8: {name} retried, with backoff, shards the master "
+                                 f"lists no holder for: {out[name]}")
         if steps["healthy_remote_get"]["launches"]:
             raise SystemExit("phase 8: a healthy remote read ran the kernel")
 
@@ -3300,8 +3373,10 @@ def phase12(state) -> None:
         # section 4)
         sealed_small = sorted(np.random.default_rng(1212).choice(
             sorted(small), min(FILER_SEALED_READS, len(small)), replace=False))
-        out["degraded_read"] = step("degraded_read", lambda: read_all(
-            [*sealed_small, *cipher], "degraded"))
+        with _FetchTally([vs for url, vs in by_url.items() if url not in stopped]) as tally:
+            out["degraded_read"] = step("degraded_read", lambda: read_all(
+                [*sealed_small, *cipher], "degraded"))
+        out["degraded_read"].update(tally.summary())
         q0, r0 = served(), filer.query_routes()
         ec_bad, ec_ms = [], []
 

@@ -967,28 +967,34 @@ class FilerServer:
             and not chunks[0].is_chunk_manifest
         ):
             fid = chunks[0].file_id
-            try:
-                vid = int(fid.split(",")[0])
-                for loc in self._lookup.lookup(vid):
-                    fwd = dict(req)
-                    fwd["fid"] = fid
-                    fwd.pop("path", None)
-                    if self.jwt_read_key:
-                        # volume-side /_query enforces the fid-scoped read
-                        # gate; mint the token so locality still engages in
-                        # auth-enabled deployments
-                        from ..security import gen_jwt
+            fwd = {k: v for k, v in req.items() if k != "path"}
+            fwd["fid"] = fid
+            if self.jwt_read_key:
+                # volume-side /_query enforces the fid-scoped read gate;
+                # mint the token so locality still engages in auth-enabled
+                # deployments
+                from ..security import gen_jwt
 
-                        fwd["auth"] = gen_jwt(self.jwt_read_key, fid)
+                fwd["auth"] = gen_jwt(self.jwt_read_key, fid)
+            try:
+                locations = self._lookup.lookup(int(fid.split(",")[0]))
+            except Exception as e:  # noqa: BLE001 — locality is best-effort
+                glog.V(1).info("data-local query fell back: %s", e)
+                locations = []
+            # every holder in turn: one that refuses or fails hands the
+            # query to the next; the filer scans only when all have failed
+            for loc in locations:
+                try:
                     r = http_json(
                         "POST", f"http://{loc['url']}/_query", fwd, timeout=30
                     )
-                    if "rows" in r or r.get("error", "").startswith("bad sql"):
-                        status = 400 if "rows" not in r else 200
-                        self._count_route("pushdown")
-                        return status, r
-            except Exception as e:  # noqa: BLE001 — locality is best-effort
-                glog.V(1).info("data-local query fell back: %s", e)
+                except Exception as e:  # noqa: BLE001 — locality is best-effort
+                    glog.V(1).info("data-local query at %s failed: %s", loc["url"], e)
+                    continue
+                if "rows" in r or r.get("error", "").startswith("bad sql"):
+                    status = 400 if "rows" not in r else 200
+                    self._count_route("pushdown")
+                    return status, r
         from ..query import scan_request
 
         self._count_route("filer_side")

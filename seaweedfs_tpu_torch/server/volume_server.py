@@ -86,7 +86,7 @@ from collections import defaultdict
 from typing import Optional
 
 from ..ec import encoder
-from ..ec.constants import TOTAL_SHARDS, shard_ext
+from ..ec.constants import DATA_SHARDS, TOTAL_SHARDS, shard_ext
 from ..ec.decoder import decode_to_volume
 from ..ec.ec_volume import rebuild_ecx_file
 from ..ec.gf_matmul import gf_matmul
@@ -112,11 +112,12 @@ from ..storage.needle import (
     parse_needle_header,
 )
 from ..storage.replica_placement import ReplicaPlacement
-from ..storage.store import Store
+from ..storage.store import NoShardHolderError, Store
 from ..storage.ttl import read_ttl
 from ..storage.types import NEEDLE_HEADER_SIZE
 from ..storage.volume import DeletedError, NotFoundError, volume_file_name
 from ..util import faultpoints, glog, images
+from ..util.deadline import DeadlineExceeded
 from ..util.locks import make_lock
 from ..util.needle_cache import NeedleCache
 from ..util.parsers import tolerant_uint
@@ -146,6 +147,10 @@ TURBO_BACKEND_HOST = os.environ.get("SWEED_TURBO_BACKEND_HOST", "127.0.0.2")
 # the longest a SWEED_MESH rendezvous may hold start(): torch.distributed's
 # own default is 30 minutes
 MESH_INIT_TIMEOUT_S = 60.0
+# how long a /dir/lookup_ec answer serves remote shard reads: upstream's
+# shortest refresh tier (store_ec.go cachedLookupEcShardLocations); a holder
+# that fails drops the answer at once, so a moved shard is followed sooner
+EC_LOOKUP_TTL_S = 11.0
 
 
 def _q_req_uint(q: dict, key: str) -> int:
@@ -228,6 +233,12 @@ class VolumeServer:
                            public_url=public_url or f"{host}:{port}",
                            ec_backend=ec_backend, needle_map_kind=needle_map_kind)
         self.store.remote_shard_reader = self._remote_shard_reader
+        # vid -> (monotonic time, shard id -> holder urls): the master's
+        # /dir/lookup_ec answers, kept for EC_LOOKUP_TTL_S (upstream
+        # cachedLookupEcShardLocations); ec_lookups counts the asks
+        self._ec_locations: dict[int, tuple[float, dict[int, list[str]]]] = {}
+        self._ec_locations_lock = make_lock("VolumeServer._ec_locations_lock")
+        self.ec_lookups = 0
         # the hot-needle RAM cache: SWEED_NCACHE bytes (0, the default, is
         # off), resizable live through POST /admin/ncache
         self.ncache = NeedleCache(tolerant_uint(os.environ.get("SWEED_NCACHE"), 0) or 0)
@@ -244,20 +255,85 @@ class VolumeServer:
         self._mesh_group = False  # this server made the default process group
 
     # -- remote EC shard read through the master's shard lookup -------------
-    def _remote_shard_reader(self, vid, shard_id, offset, size):
+    def _ec_shard_locations(self, vid: int, fresh: bool = False) -> tuple[dict, bool]:
+        """shard id -> holder urls of EC volume ``vid``, and whether they
+        came from the cache. An answer naming fewer than k shards is not
+        kept: no read can be served on it, so the next one asks again."""
+        if not fresh:
+            with self._ec_locations_lock:
+                hit = self._ec_locations.get(vid)
+            if hit is not None and time.monotonic() - hit[0] < EC_LOOKUP_TTL_S:
+                return hit[1], True
+        t = time.monotonic()
         r = http_json("GET", f"http://{self.master_url}/dir/lookup_ec?volumeId={vid}")
-        locs = r.get("shard_id_locations", {})
-        holders = locs.get(str(shard_id)) or locs.get(shard_id, [])
+        if r.get("_status", 200) >= 500:
+            raise IOError(f"lookup_ec {vid}: {r['_status']} {r.get('error', '')}")
+        # a 404 is the master's word that no server holds any shard of vid
+        locs = {int(sid): list(urls)
+                for sid, urls in r.get("shard_id_locations", {}).items() if urls}
+        with self._ec_locations_lock:
+            self.ec_lookups += 1
+            if len(locs) >= DATA_SHARDS:
+                self._ec_locations[vid] = (t, locs)
+            else:
+                self._ec_locations.pop(vid, None)
+        return locs, False
+
+    def _forget_ec_locations(self, vid: int, shard_id: Optional[int] = None,
+                             holders: frozenset = frozenset()) -> None:
+        """Drop vid's cached answer, or only ``holders`` from its list for
+        ``shard_id`` when another holder of that shard answered."""
+        with self._ec_locations_lock:
+            hit = self._ec_locations.pop(vid, None)
+            if hit is not None and shard_id is not None:
+                t, locs = hit
+                locs = dict(locs)
+                locs[shard_id] = [u for u in locs.get(shard_id, ()) if u not in holders]
+                self._ec_locations[vid] = (t, locs)
+
+    def _remote_shard_reader(self, vid, shard_id, offset, size):
+        """The range of shard ``shard_id`` from another server that holds
+        it. A holder that refuses, fails or answers short leaves the cached
+        answer: the holder alone when another one answered, else the whole
+        answer, and then a cached one is checked against the master once
+        more. Returns None when every holder named failed; raises
+        NoShardHolderError when the master names no other holder."""
         me = f"{self.host}:{self.port}"
-        for holder in holders:
-            if holder == me:
-                continue
+        failed: set[str] = set()
+        locs, cached = self._ec_shard_locations(vid)
+        while True:
+            named = [u for u in locs.get(shard_id, ()) if u != me]
+            if not named:
+                raise NoShardHolderError(f"no server holds shard {vid}.{shard_id}")
+            for holder in named:
+                if holder in failed:
+                    continue
+                data = self._shard_range(holder, vid, shard_id, offset, size)
+                if data is not None:
+                    if failed:
+                        self._forget_ec_locations(vid, shard_id, frozenset(failed))
+                    return data
+                failed.add(holder)
+            self._forget_ec_locations(vid)
+            if not cached:
+                return None
+            locs, cached = self._ec_shard_locations(vid, fresh=True)
+
+    @staticmethod
+    def _shard_range(holder: str, vid: int, shard_id: int, offset: int,
+                     size: int) -> Optional[bytes]:
+        """One holder's answer for the range, or None if it refused, failed
+        or answered short."""
+        try:
             status, data = http_bytes(
                 "GET", f"http://{holder}/admin/ec/shard_read?volume={vid}"
                        f"&shard={shard_id}&offset={offset}&size={size}")
-            if status == 200 and len(data) == size:
-                return data
-        return None
+        except DeadlineExceeded:
+            raise
+        except OSError as e:
+            glog.V(1).info("shard %d.%d from %s: %s", vid, shard_id, holder, e)
+            return None
+        return data if status == 200 and len(data) == size else None
 
     # -- data plane ----------------------------------------------------------
     @staticmethod

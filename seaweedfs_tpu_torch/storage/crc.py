@@ -17,8 +17,12 @@ Two versions compute the same function:
   MB/s. It is the plain version the tests hold the native one to, and what
   runs where no C++ compiler is installed.
 
-``implementation()`` says which one ``update`` runs; nothing is built at
-import.
+``implementation()`` builds (or loads) the native library and says which
+version ``update`` runs; the ``Store`` calls it before it opens a volume, so
+no needle write waits on ``g++`` under a volume's lock. Nothing is built at
+import, and ``update`` never builds on its caller's thread: before
+``implementation()`` has run (volumes opened without a ``Store``), it runs
+the table version while the library is built on a thread of its own.
 """
 
 from __future__ import annotations
@@ -114,6 +118,7 @@ def build() -> str:
 _lock = threading.Lock()
 _native = None  # the bound C function once loaded
 _impl: "str | None" = None  # "native" or "table", decided at first use
+_build_thread: "threading.Thread | None" = None  # the build started by ``update``
 
 
 def _select() -> str:
@@ -154,10 +159,21 @@ def native_update(crc: int, data) -> int:
     return _call_native(crc, data)
 
 
+def _build_in_background() -> None:
+    """Start the one-time build on a thread of its own: ``update``'s caller
+    may hold a volume's lock, which must not wait on the compiler."""
+    global _build_thread
+    if _build_thread is None:
+        _build_thread = threading.Thread(target=_select, name="crc32c-build", daemon=True)
+        _build_thread.start()
+
+
 def update(crc: int, data) -> int:
     """Incremental CRC-32C, matching Go's ``crc32.Update`` semantics."""
-    if (_impl or _select()) == "native":
+    if _impl == "native":
         return _call_native(crc, data)
+    if _impl is None:
+        _build_in_background()
     return table_update(crc, data)
 
 

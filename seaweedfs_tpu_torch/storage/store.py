@@ -12,14 +12,24 @@ read path with on-the-fly reconstruction (store_ec.go:122-375):
 The EC pieces are module functions (``ec_encode_volume``,
 ``read_ec_shard_needle``, ``recover_interval``) that take the codec and the
 remote reader as arguments; the ``Store`` methods call them with its own.
+
+Two departures from the JAX package's read path, in timing and fetch order
+only (the bytes are the same for any k survivors): a reader that reports no
+holder for a shard (``NoShardHolderError``) gets no further attempt and no
+backoff, and ``recover_interval`` reads the local siblings first and fetches
+the remote ones it still needs concurrently, as upstream
+``recoverOneRemoteEcShardInterval`` does.
 """
 
 from __future__ import annotations
 
+import contextvars
 import hashlib
+import itertools
 import os
 import threading
 from collections import deque
+from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
 from typing import Callable, Optional
 
 import numpy as np
@@ -32,7 +42,8 @@ from ..ec.ec_volume import NotFoundError as EcNotFoundError
 from ..stats import heat
 from ..util import faultpoints, glog
 from ..util.locks import make_lock, make_rlock
-from ..util.retry import TRANSIENT, RetryError, RetryPolicy, retry_call
+from ..util.retry import POISON, TRANSIENT, RetryError, RetryPolicy, retry_call
+from . import crc
 from .commit import StagedCommit
 from .disk_location import DiskLocation, parse_volume_base_name
 from .needle import Needle
@@ -40,8 +51,15 @@ from .replica_placement import ReplicaPlacement
 from .ttl import EMPTY_TTL, TTL, read_ttl
 from .volume import NotFoundError, Volume
 
-# remote_read(vid, shard_id, offset, size) -> bytes | None
+# remote_read(vid, shard_id, offset, size) -> bytes, or None when the
+# servers that hold the shard failed; raises NoShardHolderError when none does
 RemoteShardReader = Callable[[int, int, int, int], Optional[bytes]]
+
+
+class NoShardHolderError(LookupError):
+    """A remote shard reader's answer that no other server holds the shard:
+    a fact of the placement, not a failed attempt, so the read goes straight
+    to reconstruction."""
 
 
 # -- EC functions ------------------------------------------------------------
@@ -118,26 +136,29 @@ def _read_interval(ev: EcVolume, codec: CodecArg, interval,
 def recover_interval(ev: EcVolume, codec: CodecArg, missing_shard: int,
                      offset: int, size: int,
                      remote_read: Optional[RemoteShardReader] = None) -> bytes:
-    """Read the same byte range from ≥k sibling shards, local or through
-    ``remote_read``, and RS-decode it (recoverOneRemoteEcShardInterval,
-    store_ec.go:322)."""
+    """Read the same byte range from k sibling shards and RS-decode it
+    (recoverOneRemoteEcShardInterval, store_ec.go:322). The local siblings
+    are read first; the remote ones still needed are fetched through
+    ``remote_read`` concurrently, and a sibling that cannot be had is
+    replaced by the next one."""
     shards: list[Optional[np.ndarray]] = [None] * ev.total_shards
-    have = 0
+    have, remote = 0, []
     for sid in range(ev.total_shards):
         if sid == missing_shard:
             continue
         local = ev.shards.get(sid)
-        if local is not None:
-            buf = local.read_at(offset, size)
-        elif remote_read is not None:
-            buf = remote_read(ev.id, sid, offset, size)
-        else:
-            buf = None
-        if buf is not None and len(buf) == size:
+        if local is None:
+            remote.append(sid)
+            continue
+        buf = local.read_at(offset, size)
+        if len(buf) == size:
             shards[sid] = np.frombuffer(buf, dtype=np.uint8)
             have += 1
         if have >= ev.data_shards:
             break
+    if have < ev.data_shards and remote and remote_read is not None:
+        have += _fetch_siblings(ev.id, remote, ev.data_shards - have, offset, size,
+                                remote_read, shards)
     if have < ev.data_shards:
         raise EcNotFoundError(
             f"volume {ev.id} shard {missing_shard}: only {have} shards reachable")
@@ -145,6 +166,36 @@ def recover_interval(ev: EcVolume, codec: CodecArg, missing_shard: int,
         codec = codec()
     rebuilt = codec.reconstruct(shards, data_only=missing_shard < ev.data_shards)
     return rebuilt[missing_shard].tobytes()
+
+
+def _fetch_siblings(vid: int, candidates: list[int], need: int, offset: int, size: int,
+                    remote_read: RemoteShardReader,
+                    shards: list[Optional[np.ndarray]]) -> int:
+    """Fetch ``need`` of the ``candidates`` shards' ranges at once, starting
+    the next candidate only when one fails; fills ``shards`` and returns how
+    many arrived. Each fetch runs in a copy of the caller's context, so it
+    carries the request's trace span and deadline."""
+    ctx = contextvars.copy_context()
+    pending = iter(candidates)
+    got = 0
+    with ThreadPoolExecutor(max_workers=need, thread_name_prefix="ec-sibling") as pool:
+        def start(sid: int):
+            return pool.submit(ctx.copy().run, remote_read, vid, sid, offset, size)
+
+        running = {start(sid): sid for sid in itertools.islice(pending, need)}
+        while running:
+            done, _ = wait(running, return_when=FIRST_COMPLETED)
+            for fut in done:
+                sid = running.pop(fut)
+                buf = fut.result()
+                if buf is not None and len(buf) == size:
+                    shards[sid] = np.frombuffer(buf, dtype=np.uint8)
+                    got += 1
+                else:
+                    nxt = next(pending, None)
+                    if nxt is not None:
+                        running[start(nxt)] = nxt
+    return got
 
 
 # -- the Store ---------------------------------------------------------------
@@ -171,6 +222,9 @@ class Store:
         self.remote_fetch_attempts = remote_fetch_attempts
         self.remote_fetch_backoff_s = remote_fetch_backoff_s
         self.remote_fetch_timeout_s = remote_fetch_timeout_s
+        # the needle CRC's native library is built (or loaded) here, before
+        # any volume is opened: never at a first write under a volume's lock
+        crc.implementation()
         self.locations = [DiskLocation(d, needle_map_kind=needle_map_kind)
                           for d in directories]
         for loc in self.locations:
@@ -473,7 +527,8 @@ class Store:
                            size: int) -> Optional[bytes]:
         """Remote shard fetch with bounded retry, backoff and deadline
         (store_ec.go readRemoteEcShardInterval). Returns None when the range
-        cannot be had remotely, so the caller reconstructs it."""
+        cannot be had remotely, so the caller reconstructs it: at once when
+        the reader reports that no server holds the shard."""
         if self.remote_shard_reader is None:
             return None
 
@@ -493,9 +548,11 @@ class Store:
         )
         try:
             # every failure here (peer down, timeout, short read) heals the
-            # same way: try again, then fall through to reconstruction
+            # same way: try again, then fall through to reconstruction; a
+            # shard no server holds is not tried again
             return retry_call(
-                fetch, policy=policy, classify=lambda e: TRANSIENT,
+                fetch, policy=policy,
+                classify=lambda e: POISON if isinstance(e, NoShardHolderError) else TRANSIENT,
                 on_retry=lambda e, attempt, delay: glog.warning(
                     "remote shard %d.%d fetch attempt %d failed: %s",
                     vid, sid, attempt, e),

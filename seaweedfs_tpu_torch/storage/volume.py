@@ -439,7 +439,6 @@ class Volume:
                 if cookie != n.cookie:
                     raise VolumeError(f"mismatching cookie {n.cookie:x}")
             n.append_at_ns = append_at_ns or time.time_ns()
-            # sweedlint: ok blocking-under-lock the subprocess is the CRC's one-time build at first use (storage/crc.py); every later call is native
             blob = n.to_bytes(self.version)
             if self.turbo is not None:
                 if n.id == 0xFFFFFFFFFFFFFFFF:
@@ -486,7 +485,6 @@ class Volume:
                 return 0
             n.data = b""
             n.append_at_ns = append_at_ns or time.time_ns()
-            # sweedlint: ok blocking-under-lock the subprocess is the CRC's one-time build at first use (storage/crc.py); every later call is native
             blob = n.to_bytes(self.version)
             if self.turbo is not None:
                 self.turbo.append(self.id, n.id, blob, 0, True)

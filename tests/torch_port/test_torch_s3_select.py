@@ -34,6 +34,10 @@ def stack(tmp_path_factory):
                                             "adminsecret")
         assert c.create_bucket("sel")[0] == 200
         assert c.put_object("sel", "t.csv", ref.CSV)[0] == 200
+        # one scan on each side before any case: the reference's counter
+        # case reads what its earlier cases' scans left, and a case may run
+        # alone or first on its worker
+        assert ref._select_raw(c, "t.csv", ref._req_xml("SELECT * FROM s3object"))[0] == 200
     yield st
     st.stop()
 
