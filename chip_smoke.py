@@ -104,8 +104,9 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
 11. the master's autopilot, with no operator command after setup: three port
    masters (``master -peers A,B,C -mdir D`` subprocesses, ``SWEED_LIFECYCLE=1``
    at a cycle a second, the cold tier at the in-repo fake S3) and four port
-   volume servers (CUDA backend, the scrub on, the Python data plane: the
-   engine marks no heat). A 256 MiB volume with 40 % of its needles deleted
+   volume servers (CUDA backend, the scrub on, the engine on: the heartbeat
+   turns its per-volume read and write counts into heat). A 256 MiB volume
+   with 40 % of its needles deleted
    is vacuumed; a 256 MiB volume read once a second cools and is fleet-EC'd
    on the card, the first leader dying (``lifecycle.journal.running=crash``)
    as that EC starts and a follower, elected, running it once (one generate);
@@ -125,8 +126,9 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    two 64 MiB streaming PUTs, one 64 MiB ``?cipher=true`` object, CSV
    objects of phase 7's schema (three of 32 MiB, one of 96 MiB in three
    chunks, one gzip'd). Every directory listed page by page, every file read
-   back, 32 ranged GETs, a directory renamed and another deleted (its
-   chunks purged on the volume servers). Phase 7's six queries through the
+   back, 32 ranged GETs (with the bytes the volume servers sent for them), a
+   directory renamed and another deleted (its chunks purged on the volume
+   servers). Phase 7's six queries through the
    filer's ``/_query``: pushed down to the volume server holding each
    single-chunk CSV (its own scan count must grow by one a query), scanned
    on the filer's card for the 3-chunk one; the probe as ``/_select``
@@ -134,9 +136,11 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    reply equal to the cpu backend's. Then ``ec.encode`` seals every volume
    of the collection (4/4/3/3), the server with shards 1, 5, 9, 13 of the
    first stops, a seeded 256 of the small files and the cipher'd object
-   read back through the filer (with phase 8's fetch counts) and the probe
-   runs again on two sealed CSVs. The seal and the degraded reads must
-   launch the kernel.
+   read back through the filer (with phase 8's fetch counts), 32 seeded
+   ranged GETs of a plain 64 MiB object (byte for byte, with their
+   reconstructs and the bytes the volume servers sent) and the probe runs
+   again on two sealed CSVs. The seal, the degraded reads and the sealed
+   ranged GETs must launch the kernel.
 13. the S3 gateway: the port's master, four port volume servers (CUDA
    backend, the engine on), one port filer (``weed filer`` defaults) and the
    port's gateway (``weed s3`` defaults, an ``s3.json`` of two identities:
@@ -253,7 +257,7 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    cross-checks saw, and the fill's MB/s with both sanitizers on. The seal
    and the sealed reads must launch the kernel.
 
-Phases 6, 8, 9, 10, 12, 13, 15 and 16 run with the JAX package's default serving stack: the
+Phases 6, 8, 9, 10, 11, 12, 13, 15 and 16 run with the JAX package's default serving stack: the
 native turbo engine (built from ``seaweedfs_tpu_torch/csrc/turbo.cpp``)
 owns each volume server's public port, the asyncio core serves the rest.
 Each of them fails if a volume server in it started without the engine, and
@@ -870,10 +874,14 @@ class _FetchTally:
     after the reader answered that no server holds the shard is a retry
     that sleeps for nothing (``no_holder_retries``)."""
 
+    # shared by every tally: a fetch begun under an earlier one (a read the
+    # filer left in flight) may still make its attempts under this one
+    _thread_state = threading.local()
+
     def __init__(self, servers: list):
         self.servers = servers
         self.lock = threading.Lock()
-        self.local = threading.local()
+        self.local = _FetchTally._thread_state
         self.calls: collections.Counter = collections.Counter()
         self.seconds: collections.Counter = collections.Counter()
 
@@ -972,6 +980,49 @@ class _Engines:
             if vs.turbo is not None:
                 tot.update(vs.turbo.counters())
         return {k: tot[k] for k in ("gets", "posts", "deletes", "proxied")}
+
+
+class _VolumeBytes:
+    """Within the block, the needle GETs this process's clients (the filer's
+    threaded and asyncio chunk fetches, ``operation``'s downloads) send the
+    volume servers at ``urls``, and the bytes of their replies."""
+
+    def __init__(self, urls: list):
+        self.urls = tuple(f"//{u}/" for u in urls)
+        self.bytes = self.requests = 0
+        self.lock = threading.Lock()
+
+    def _count(self, method: str, url: str, body: bytes) -> None:
+        if method == "GET" and "/admin/" not in url and any(u in url for u in self.urls):
+            with self.lock:
+                self.bytes += len(body)
+                self.requests += 1
+
+    def __enter__(self):
+        from seaweedfs_tpu_torch import operation
+        from seaweedfs_tpu_torch.server import aio_transport, http_util
+
+        sync, areq = http_util.http_bytes, aio_transport.request
+        self.saved = [(http_util, "http_bytes", sync), (operation, "http_bytes", sync),
+                      (aio_transport, "request", areq)]
+
+        def counted(method, url, *args, **kwargs):
+            status, body = sync(method, url, *args, **kwargs)
+            self._count(method, url, body)
+            return status, body
+
+        async def acounted(method, url, *args, **kwargs):
+            status, body, hdrs = await areq(method, url, *args, **kwargs)
+            self._count(method, url, body)
+            return status, body, hdrs
+
+        http_util.http_bytes = operation.http_bytes = counted
+        aio_transport.request = acounted
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, old in self.saved:
+            setattr(obj, name, old)
 
 
 def phase6(state) -> None:
@@ -2641,7 +2692,8 @@ def phase11(state) -> None:
     """The master's autopilot, with no operator command after setup: three
     port masters (``master -peers A,B,C -mdir D``, subprocesses, the
     lifecycle on at a cycle a second, the tier at the in-repo fake S3), four
-    port volume servers in this process (CUDA backend, the scrub on) and
+    port volume servers in this process (CUDA backend, the scrub on, the
+    engine on: its read and write counts are the heat) and
     three volumes of their own collections filled with phase 8's needles,
     every fid from ``/dir/assign`` through the leader. ``garbage`` (256 MiB,
     40 % deleted) is vacuumed. ``cool`` (256 MiB, one read a second) is
@@ -2701,9 +2753,11 @@ def phase11(state) -> None:
                 proc.wait()
 
     saved_env = {k: os.environ.get(k) for k in ("SWEED_SCRUB", "SWEED_SCRUB_RATE", "SWEED_TURBO")}
-    # the native engine serves needles without marking heat (as in the JAX
-    # package), and the autopilot steers by heat: the Python data plane
-    os.environ.update(SWEED_SCRUB="1", SWEED_SCRUB_RATE=str(SCRUB_RATE), SWEED_TURBO="0")
+    # the default stack: the native engine counts each volume's reads and
+    # writes, and the heartbeat turns them into the heat the autopilot
+    # steers by
+    os.environ.update(SWEED_SCRUB="1", SWEED_SCRUB_RATE=str(SCRUB_RATE))
+    os.environ.pop("SWEED_TURBO", None)
     lock = threading.Lock()
     generates: collections.Counter = collections.Counter()
     moves: list = []  # (direction, vid, bytes, seconds) of each tier move
@@ -2734,6 +2788,7 @@ def phase11(state) -> None:
                           pulse_seconds=0.5, ec_backend=EC_BACKEND)
         servers.append(vs)
         dirs[f"127.0.0.1:{vs.port}"] = d
+    eng = _Engines(11, servers)
     journals = _Journals({u: os.path.join(mdirs[u], f"lifecycle_{u.rsplit(':', 1)[1]}.json")
                           for u in murls})
     halt = threading.Event()
@@ -2799,6 +2854,7 @@ def phase11(state) -> None:
     try:
         for vs in servers:
             vs.start()
+        eng.check()
         start_master(A, fault="lifecycle.journal.running=crash::1")  # the vacuum's passes
         start_master(B)
         start_master(C)
@@ -2826,7 +2882,9 @@ def phase11(state) -> None:
         dat_before = gv.size()
         wait(lambda: done("vacuum", gv.id), "the autopilot never vacuumed garbage", 60)
         out["vacuum"] = {"dat_bytes_before": dat_before, "dat_bytes_after": gv.size(),
-                         "actions": action_s(done("vacuum", gv.id))}
+                         "actions": action_s(done("vacuum", gv.id)),
+                         # the heat the heartbeats carry, from the engine's counts
+                         "heat": {"read": gv.read_heat.value(), "write": gv.write_heat.value()}}
         if gv.size() >= dat_before:
             raise SystemExit(f"phase 11: the vacuum left {gv.size()} bytes of {dat_before}")
 
@@ -2975,7 +3033,7 @@ def phase11(state) -> None:
             t.join()
         journals.stop()
         for vs in servers:
-            vs.stop()
+            eng.stop(vs)
         for u in list(procs):
             stop_master(u)
         s3.stop()
@@ -2994,7 +3052,8 @@ def phase11(state) -> None:
                     tail = f.read()[-3000:].decode("utf-8", "replace")
                 print(f"phase 11: master {murls.index(u)} log tail:\n{tail}", file=sys.stderr)
     out.update(wall_s=time.perf_counter() - t_start, generates=dict(generates),
-               launches=gm.gf_matmul.launches - state["l_phase"], nvidia_smi=state["smi"])
+               turbo=eng.totals(), launches=gm.gf_matmul.launches - state["l_phase"],
+               nvidia_smi=state["smi"])
     emit(out)
 
 
@@ -3063,8 +3122,10 @@ def phase12(state) -> None:
     every reply equal to the cpu backend's. Then the shell's ``ec.encode``
     seals every volume of the collection (4/4/3/3), the server with shards
     1, 5, 9, 13 of the first stops, a seeded 256 of the small files and the
-    cipher'd object read back through the filer and the probe runs again on
-    a sealed single-chunk CSV and the 3-chunk one, through gf_matmul."""
+    cipher'd object read back through the filer, 32 seeded ranged GETs of a
+    plain 64 MiB object rebuild only the bytes they ask for, and the probe
+    runs again on a sealed single-chunk CSV and the 3-chunk one, through
+    gf_matmul."""
     t_start = time.perf_counter()
     n_servers, threads = 4, FILER_THREADS
     out: dict = {"phase": 12, "servers": n_servers, "collection": FILER_COL,
@@ -3207,21 +3268,34 @@ def phase12(state) -> None:
                     "large_MBps": sum(len(files[p]) for p in lg) / sum(ms[p] for p in lg) / 1e6}
 
         out["read_back"] = step("read_back", lambda: read_all(list(files), "read-back"))
-        rr = np.random.default_rng(1212)
-        rng_ms, bad = [], []
-        for _ in range(FILER_RANGED):
-            path = big[int(rr.integers(len(big)))]
-            n = int(rr.integers(1, MiB))
-            lo = int(rr.integers(0, len(files[path]) - n))
-            status, data, sec = _filer_call(furl, "GET", path,
-                                            headers={"Range": f"bytes={lo}-{lo + n - 1}"})
-            rng_ms.append(sec * 1e3)
-            if status != 206 or data != files[path][lo:lo + n]:
-                bad.append((path, lo, n, status))
-        out["ranged_get"] = {"n": FILER_RANGED, "ms_p50": _pct(rng_ms, 50),
-                             "ms_p99": _pct(rng_ms, 99), "bad": len(bad)}
-        if bad:
-            raise SystemExit(f"phase 12: ranged GETs wrong: {bad[:5]}")
+
+        def ranged_gets(paths: list, seed: int, what: str) -> dict:
+            """FILER_RANGED seeded GETs of 1 B-1 MiB of ``paths``, byte for
+            byte, with the bytes the volume servers sent for them."""
+            rr = np.random.default_rng(seed)
+            rng_ms, bad = [], []
+            kinds = {k: collections.Counter() for k in ("plain", "cipher")}
+            with _VolumeBytes(list(by_url)) as vb:
+                for _ in range(FILER_RANGED):
+                    path = paths[int(rr.integers(len(paths)))]
+                    n = int(rr.integers(1, MiB))
+                    lo = int(rr.integers(0, len(files[path]) - n))
+                    b0, g0 = vb.bytes, vb.requests
+                    status, data, sec = _filer_call(
+                        furl, "GET", path, headers={"Range": f"bytes={lo}-{lo + n - 1}"})
+                    rng_ms.append(sec * 1e3)
+                    kinds["cipher" if path in cipher else "plain"].update(
+                        n=1, asked=n, volume_server_gets=vb.requests - g0,
+                        volume_server_bytes=vb.bytes - b0)
+                    if status != 206 or data != files[path][lo:lo + n]:
+                        bad.append((path, lo, n, status))
+            if bad:
+                raise SystemExit(f"phase 12: {what} ranged GETs wrong: {bad[:5]}")
+            return {"n": FILER_RANGED, "ms_p50": _pct(rng_ms, 50), "ms_p99": _pct(rng_ms, 99),
+                    "volume_server_bytes": vb.bytes,
+                    **{k: dict(c) for k, c in kinds.items() if c}}
+
+        out["ranged_get"] = ranged_gets(big, 1212, "pre-seal")
 
         # rename one directory, delete another recursively: its chunks purged
         status, body, _ = _filer_call(furl, "POST", "/small/d00?mv.to=/small/renamed00")
@@ -3377,6 +3451,13 @@ def phase12(state) -> None:
             out["degraded_read"] = step("degraded_read", lambda: read_all(
                 [*sealed_small, *cipher], "degraded"))
         out["degraded_read"].update(tally.summary())
+        # ranged GETs of a plain 64 MiB object's chunks, on volumes that lost
+        # the stopped server's shards: only the bytes asked for are rebuilt
+        with _FetchTally([vs for url, vs in by_url.items() if url not in stopped]) as tally:
+            out["sealed_ranged_get"] = step("sealed_ranged_get", lambda: ranged_gets(
+                [next(iter(large))], 1213, "sealed"))
+        out["sealed_ranged_get"].update(tally.summary(),
+                                        launches=steps["sealed_ranged_get"]["launches"])
         q0, r0 = served(), filer.query_routes()
         ec_bad, ec_ms = [], []
 
@@ -3409,7 +3490,8 @@ def phase12(state) -> None:
     out.update(turbo=eng.totals(), steps=steps, wall_s=time.perf_counter() - t_start,
                launches=gm.gf_matmul.launches - state["l_phase"], nvidia_smi=state["smi"])
     emit(out)
-    idle = [name for name in ("ec_encode", "degraded_read") if not steps[name]["launches"]]
+    idle = [name for name in ("ec_encode", "degraded_read", "sealed_ranged_get")
+            if not steps[name]["launches"]]
     if idle:
         raise SystemExit(f"phase 12: no kernel launch in {idle}")
 

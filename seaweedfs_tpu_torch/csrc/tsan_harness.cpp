@@ -193,8 +193,8 @@ int main(int argc, char** argv) {
   // stats / counters / sync reader
   ts.emplace_back([&] {
     while (!stop.load()) {
-      unsigned long long st9[9], c4[4];
-      turbo_stats(h, 1, st9);
+      unsigned long long st[11], c4[4];
+      turbo_stats(h, 1, st);
       turbo_counters(h, c4);
       turbo_sync(h, 1);
     }
@@ -211,12 +211,21 @@ int main(int argc, char** argv) {
   std::this_thread::sleep_for(std::chrono::seconds(3));
   stop.store(true);
   for (auto& t : ts) t.join();
+  // the per-volume heat counts: every native GET answered 200/404 is a
+  // read, every 201 POST a write
+  unsigned long long fin[11];
+  turbo_stats(h, 1, fin);
   turbo_stop(h);
-  fprintf(stderr, "harness done: posts=%d gets=%d api_appends=%d\n",
-          http_posts.load(), http_gets.load(), api_appends.load());
+  fprintf(stderr, "harness done: posts=%d gets=%d api_appends=%d reads=%llu writes=%llu\n",
+          http_posts.load(), http_gets.load(), api_appends.load(), fin[9], fin[10]);
   if (http_posts.load() < 50 || http_gets.load() < 50 ||
       api_appends.load() < 50) {
     fprintf(stderr, "too little traffic exercised\n");
+    return 3;
+  }
+  if (fin[9] < (unsigned long long)http_gets.load() ||
+      fin[10] < (unsigned long long)http_posts.load()) {
+    fprintf(stderr, "heat counts below the replies served\n");
     return 3;
   }
   return 0;

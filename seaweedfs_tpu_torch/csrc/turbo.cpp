@@ -442,6 +442,11 @@ struct Vol {
   uint64_t max_key = 0;
   uint64_t last_modified_s = 0;
   uint64_t last_append_ns = 0;
+  // needle reads (GET/HEAD) and writes (POST/PUT/DELETE) this engine
+  // answered itself: the store turns their deltas into the volume's heat
+  // (a DELETE counts a read too: it reads the needle first, as the
+  // daemon's probe for a chunk manifest does)
+  std::atomic<uint64_t> n_reads{0}, n_writes{0};
 
   ~Vol() {
     if (dat_fd >= 0) close(dat_fd);
@@ -522,6 +527,11 @@ struct Engine {
 
   // counters for /metrics merge
   std::atomic<uint64_t> n_get{0}, n_post{0}, n_delete{0}, n_proxy{0};
+  // a volume's heat counts (Vol::n_reads, n_writes) when it was last
+  // unregistered, carried into its next registration so that they only
+  // grow while the engine runs (a compaction detaches and attaches it);
+  // under reg_mu
+  std::unordered_map<uint32_t, std::pair<uint64_t, uint64_t>> heat_carry;
 
   std::shared_ptr<Vol> get_vol(uint32_t vid) {
     std::shared_lock<std::shared_mutex> lk(reg_mu);
@@ -1144,12 +1154,14 @@ static int handle_get(Worker* w, Conn* c, const Req& r, const Fid& f,
     Slot* s = vol->map.find(f.key);
     if (!s || s->off == 0) {
       e->n_get++;
+      vol->n_reads++;
       return reply_json(w, c, 404,
                         "{\"error\": \"needle " + hexkey(f.key) + " not found\"}",
                         head_only) ? 0 : -1;
     }
     if (s->size < 0) {
       e->n_get++;
+      vol->n_reads++;
       return reply_json(w, c, 404,
                         "{\"error\": \"needle " + hexkey(f.key) + " deleted\"}",
                         head_only) ? 0 : -1;
@@ -1158,6 +1170,13 @@ static int handle_get(Worker* w, Conn* c, const Req& r, const Fid& f,
     size = s->size;
   }
   e->n_get++;
+  // counted for the heat unless the request goes on to Python, which
+  // marks its own (a chunk manifest)
+  struct ReadMark {
+    Vol* v;
+    bool on = true;
+    ~ReadMark() { if (on) v->n_reads++; }
+  } read_mark{vol.get()};
   if (size == 0)
     return reply(w, c, 200, "application/octet-stream",
                  "Accept-Ranges: bytes\r\n", "", 0, head_only) ? 0 : -1;
@@ -1183,8 +1202,10 @@ static int handle_get(Worker* w, Conn* c, const Req& r, const Fid& f,
   if (!p.ok)
     return reply_json(w, c, 500, "{\"error\": \"corrupt needle body\"}",
                       head_only) ? 0 : -1;
-  if (p.flags & FLAG_IS_CHUNK_MANIFEST)
+  if (p.flags & FLAG_IS_CHUNK_MANIFEST) {
+    read_mark.on = false;
     return 1;  // manifest resolution (cross-needle assembly) lives in Python
+  }
   // CRC (read_needle verifies on every read; covers the stored bytes)
   uint32_t stored = be32(rec.data() + NEEDLE_HEADER + size);
   if (stored != crc_masked(crc32c(p.data, p.data_len)))
@@ -1386,6 +1407,7 @@ static int handle_post(Worker* w, Conn* c, const Req& r, const Fid& f) {
       if (pread(vol->dat_fd, hdr, NEEDLE_HEADER, s->off) == NEEDLE_HEADER) {
         if (be32(hdr) != f.cookie) {
           e->n_post++;
+          vol->n_writes++;
           char cb[16];
           snprintf(cb, sizeof(cb), "%x", f.cookie);
           return reply_json(w, c, 500,
@@ -1402,6 +1424,7 @@ static int handle_post(Worker* w, Conn* c, const Req& r, const Fid& f) {
             if (op.ok && op.data_len == dlen &&
                 memcmp(op.data, data, dlen) == 0) {
               e->n_post++;
+              vol->n_writes++;
               snprintf(js, sizeof(js),
                        "{\"size\": %lld, \"eTag\": \"%08x\", \"unchanged\": true}",
                        (long long)dlen, crc);
@@ -1427,6 +1450,7 @@ static int handle_post(Worker* w, Conn* c, const Req& r, const Fid& f) {
     }
   }
   e->n_post++;
+  vol->n_writes++;
   snprintf(js, sizeof(js),
            "{\"size\": %lld, \"eTag\": \"%08x\", \"unchanged\": false}",
            (long long)dlen, crc);
@@ -1457,6 +1481,8 @@ static int handle_delete(Worker* w, Conn* c, const Req& r, const Fid& f) {
       Slot* s = vol->map.find(f.key);
       if (!s || s->off == 0 || s->size <= 0 || s->size == TOMBSTONE) {
         e->n_delete++;
+        vol->n_writes++;
+        vol->n_reads++;
         return reply_json(w, c, 202, "{\"size\": 0}") ? 0 : -1;
       }
       off = s->off;
@@ -1489,6 +1515,8 @@ static int handle_delete(Worker* w, Conn* c, const Req& r, const Fid& f) {
     Slot* s = vol->map.find(f.key);
     if (!s || s->off == 0 || s->size <= 0 || s->size == TOMBSTONE) {
       e->n_delete++;
+      vol->n_writes++;
+      vol->n_reads++;
       return reply_json(w, c, 202, "{\"size\": 0}") ? 0 : -1;
     }
     old_size = s->size;
@@ -1502,6 +1530,8 @@ static int handle_delete(Worker* w, Conn* c, const Req& r, const Fid& f) {
     vol->last_append_ns = ns;
   }
   e->n_delete++;
+  vol->n_writes++;
+  vol->n_reads++;
   char js[48];
   snprintf(js, sizeof(js), "{\"size\": %d}", old_size);
   return reply_json(w, c, 202, js) ? 0 : -1;
@@ -1896,6 +1926,11 @@ int turbo_register(long long handle, unsigned vid, const char* dat_path,
   }
   std::unique_lock<std::shared_mutex> lk(e->reg_mu);
   if (e->vols.count(vid)) return -2;
+  auto carry = e->heat_carry.find(vid);
+  if (carry != e->heat_carry.end()) {
+    v->n_reads.store(carry->second.first);
+    v->n_writes.store(carry->second.second);
+  }
   e->vols[vid] = v;
   return 0;
 }
@@ -1915,6 +1950,10 @@ int turbo_unregister(long long handle, unsigned vid) {
     // wait for the in-flight op (if any) and fence future ones
     std::lock_guard<std::mutex> lk(v->mu);
     v->dead.store(true);
+  }
+  {
+    std::unique_lock<std::shared_mutex> lk(e->reg_mu);
+    e->heat_carry[vid] = {v->n_reads.load(), v->n_writes.load()};
   }
   return 0;
 }
@@ -1968,8 +2007,9 @@ int turbo_append(long long handle, unsigned vid, unsigned long long key,
   return 0;
 }
 
-// out[9]: file_count, file_bytes, del_count, del_bytes, max_key,
-//         dat_size, idx_size, last_modified_s, last_append_ns
+// out[11]: file_count, file_bytes, del_count, del_bytes, max_key,
+//          dat_size, idx_size, last_modified_s, last_append_ns,
+//          native reads, native writes
 int turbo_stats(long long handle, unsigned vid, unsigned long long* out) {
   Engine* e = (Engine*)(intptr_t)handle;
   if (!e) return -1;
@@ -1985,6 +2025,8 @@ int turbo_stats(long long handle, unsigned vid, unsigned long long* out) {
   out[6] = v->idx_size;
   out[7] = v->last_modified_s;
   out[8] = v->last_append_ns;
+  out[9] = v->n_reads.load();
+  out[10] = v->n_writes.load();
   return 0;
 }
 

@@ -127,7 +127,35 @@ def lookup(master: str, vid: int) -> list[dict]:
     return r.get("locations", [])
 
 
-def download(master: str, fid: str, jwt_read_key: str = "") -> bytes:
+def range_header(byte_range: Optional[tuple[int, int]]) -> Optional[dict]:
+    """The ``Range`` header asking for ``(offset, size)`` of a needle's
+    bytes; None for the whole needle."""
+    if byte_range is None:
+        return None
+    offset, size = byte_range
+    return {"Range": f"bytes={offset}-{offset + size - 1}"}
+
+
+def reply_bytes(status: int, body: bytes,
+                byte_range: Optional[tuple[int, int]]) -> Optional[bytes]:
+    """The bytes a needle GET asked for, or None when the reply lacks them:
+    the whole needle from a 200; with ``(offset, size)``, exactly those
+    bytes from a 206, or cut from a 200 that sent the whole needle."""
+    if byte_range is None:
+        return body if status == 200 else None
+    offset, size = byte_range
+    if status == 206 and len(body) == size:
+        return body
+    if status == 200 and len(body) >= offset + size:
+        return body[offset:offset + size]
+    return None
+
+
+def download(master: str, fid: str, jwt_read_key: str = "",
+             byte_range: Optional[tuple[int, int]] = None) -> bytes:
+    """A needle's bytes from the first holder that serves them; with
+    ``byte_range`` ``(offset, size)`` only those bytes, asked for by
+    ``Range``."""
     file_id = FileId.parse(fid)
     locs = lookup(master, file_id.volume_id)
     if not locs:
@@ -137,9 +165,11 @@ def download(master: str, fid: str, jwt_read_key: str = "") -> bytes:
     auth = read_auth_query(jwt_read_key, fid)
     last_err = None
     for loc in locs:
-        status, data = http_bytes("GET", f"http://{loc['url']}/{fid}{auth}")
-        if status == 200:
-            return data
+        status, data = http_bytes("GET", f"http://{loc['url']}/{fid}{auth}",
+                                  headers=range_header(byte_range))
+        got = reply_bytes(status, data, byte_range)
+        if got is not None:
+            return got
         last_err = f"{loc['url']}: {status}"
     raise RuntimeError(f"download {fid}: {last_err}")
 

@@ -9,7 +9,9 @@ volume servers:
                       ``write_window`` in flight, then the entry (chunk
                       list) is saved (saveMetaData :129)
     GET  /path      — file: chunk views streamed with a ``read_window``-deep
-                      read-ahead, Range supported; directory: JSON listing
+                      read-ahead, Range supported (a view of part of a
+                      plain chunk too large to cache asks the volume
+                      server for its bytes only); directory: JSON listing
                       (_read_dir.go)
     HEAD /path      — meta only
     DELETE /path[?recursive=true]
@@ -1364,8 +1366,35 @@ class FilerServer:
             cipher_key=cipher_key_b64,
         )
 
-    def _fetch_chunk(self, file_id: str) -> bytes:
-        """One stored chunk's raw (possibly encrypted) bytes, cache-aside.
+    def _chunk_range(self, view) -> Optional[tuple[int, int]]:
+        """The ``(offset, size)`` to fetch of a chunk view's chunk, or None
+        to fetch the whole chunk and cache it. A view takes only its bytes
+        when it is not the whole chunk, the chunk is not cipher'd (AES-GCM
+        authenticates the whole blob) and the cache would not keep the
+        chunk: above the memory tier's limit, with no disk tier that takes
+        it (filer/reader_at.go asks for the range whenever a view is not
+        the whole chunk)."""
+        if view.is_full_chunk or view.cipher_key:
+            return None
+        cache = self.chunk_cache
+        if view.chunk_size <= cache.mem_limit:
+            return None
+        if cache.disk is not None and view.chunk_size <= cache.disk_limit:
+            return None
+        return view.offset, view.size
+
+    @staticmethod
+    def _fetch_key(view, byte_range):
+        """The read-ahead's single-flight key: the chunk, or the piece."""
+        if byte_range is None:
+            return view.file_id
+        return view.file_id, byte_range[0], byte_range[1]
+
+    def _fetch_chunk(self, file_id: str,
+                     byte_range: Optional[tuple[int, int]] = None) -> bytes:
+        """One stored chunk's raw (possibly encrypted) bytes, cache-aside;
+        with ``byte_range`` ``(offset, size)`` only those bytes, asked for
+        by ``Range`` from every holder tried and never cached.
 
         Tail-at-scale: with a second replica available, a hedge leg fires
         against it after a delay derived from this histogram's own live
@@ -1375,25 +1404,28 @@ class FilerServer:
         from ..storage.file_id import FileId
         from .http_util import http_bytes
 
-        data = self.chunk_cache.get(file_id)
-        if data is not None:
-            return data
+        if byte_range is None:
+            data = self.chunk_cache.get(file_id)
+            if data is not None:
+                return data
         fid = FileId.parse(file_id)
         locs = self._lookup.lookup(fid.volume_id)
         from ..security import read_auth_query
 
         auth = read_auth_query(self.jwt_read_key, file_id)
+        headers = operation.range_header(byte_range)
 
         def leg(url):
             def call():
                 status, body = http_bytes(
-                    "GET", f"http://{url}/{file_id}{auth}"
+                    "GET", f"http://{url}/{file_id}{auth}", headers=headers
                 )
-                if status != 200:
+                got = operation.reply_bytes(status, body, byte_range)
+                if got is None:
                     raise ConnectionError(
                         f"chunk {file_id}@{url}: HTTP {status}"
                     )
-                return body
+                return got
             return call
 
         if locs:
@@ -1412,20 +1444,23 @@ class FilerServer:
                 for loc in locs[2:]:
                     try:
                         status, body = http_bytes(
-                            "GET", f"http://{loc['url']}/{file_id}{auth}"
+                            "GET", f"http://{loc['url']}/{file_id}{auth}",
+                            headers=headers,
                         )
                     except OSError:
                         continue
-                    if status == 200:
-                        data = body
+                    data = operation.reply_bytes(status, body, byte_range)
+                    if data is not None:
                         break
         if data is None:
             self._lookup.invalidate(fid.volume_id)
             data = operation.download(
-                self.master_url, file_id, jwt_read_key=self.jwt_read_key
+                self.master_url, file_id, jwt_read_key=self.jwt_read_key,
+                byte_range=byte_range,
             )
-        # the cache (incl. its on-disk tiers) holds ciphertext only
-        self.chunk_cache.put(file_id, data)
+        if byte_range is None:
+            # the cache (incl. its on-disk tiers) holds ciphertext only
+            self.chunk_cache.put(file_id, data)
         return data
 
     def _read_chunk_plain(self, file_id: str, cipher_key: str) -> bytes:
@@ -1451,7 +1486,8 @@ class FilerServer:
 
     def _stream_range(self, entry: Entry, offset: int, size: int):
         """Generator of body pieces for [offset, offset+size): chunk views
-        are fetched (cache-aside) with an N-deep read-ahead — up to
+        are fetched (cache-aside, or only their bytes where
+        ``_chunk_range`` says so) with an N-deep read-ahead — up to
         ``read_window`` upcoming chunk fids in concurrent flight while the
         current piece streams (reader_cache.go MaybeCache) — and yielded
         strictly in view order, decrypting per chunk; implicit gaps between
@@ -1476,26 +1512,16 @@ class FilerServer:
                 window = 1  # nothing ahead to prefetch; skip the pool
             pos = offset
             memo: OrderedDict[str, bytes] = OrderedDict()
+            ranges = {v: self._chunk_range(v) for v in views}
             fetched = prefetch_iter(
                 views,
-                lambda v: self._fetch_chunk(v.file_id),
+                lambda v: self._fetch_chunk(v.file_id, ranges[v]),
                 window,
-                key=lambda v: v.file_id,  # single-flight per fid
+                # single-flight per fid, or per piece of a ranged view
+                key=lambda v: self._fetch_key(v, ranges[v]),
             )
             try:
                 for view, raw in fetched:
-                    data = memo.get(view.file_id)
-                    if data is None:
-                        data = raw
-                        if view.cipher_key:
-                            from ..util import cipher as cipher_mod
-
-                            data = cipher_mod.decrypt(
-                                data, base64.b64decode(view.cipher_key)
-                            )
-                        memo[view.file_id] = data
-                        while len(memo) > 2:
-                            memo.popitem(last=False)
                     if view.logic_offset > pos:  # sparse gap
                         gap = view.logic_offset - pos
                         while gap > 0:
@@ -1503,7 +1529,22 @@ class FilerServer:
                             yield b"\x00" * n
                             gap -= n
                             pos += n
-                    piece = data[view.offset : view.offset + view.size]
+                    if ranges[view] is not None:
+                        piece = raw  # the view's own bytes, plaintext
+                    else:
+                        data = memo.get(view.file_id)
+                        if data is None:
+                            data = raw
+                            if view.cipher_key:
+                                from ..util import cipher as cipher_mod
+
+                                data = cipher_mod.decrypt(
+                                    data, base64.b64decode(view.cipher_key)
+                                )
+                            memo[view.file_id] = data
+                            while len(memo) > 2:
+                                memo.popitem(last=False)
+                        piece = data[view.offset : view.offset + view.size]
                     if piece:
                         yield piece
                         pos += len(piece)
@@ -1539,27 +1580,32 @@ class FilerServer:
         return timed()
 
     async def _afetch_chunk(self, file_id: str, url: str,
-                            hedge_url: Optional[str] = None) -> bytes:
+                            hedge_url: Optional[str] = None,
+                            byte_range: Optional[tuple[int, int]] = None) -> bytes:
         """Async mirror of _fetch_chunk for the native read path: volume
         urls resolved by the caller from the cached vid map, the loop's
-        pooled keep-alive transport, cache-aside ciphertext. With a
-        second replica url the same p99-triggered hedge race runs here —
-        natively, so the losing task gets a real cancel()."""
-        data = self.chunk_cache.get(file_id)
-        if data is not None:
-            return data
+        pooled keep-alive transport, cache-aside ciphertext, or with
+        ``byte_range`` only those bytes, uncached. With a second replica
+        url the same p99-triggered hedge race runs here — natively, so the
+        losing task gets a real cancel()."""
+        if byte_range is None:
+            data = self.chunk_cache.get(file_id)
+            if data is not None:
+                return data
         from ..security import read_auth_query
         from . import aio_transport
 
         auth = read_auth_query(self.jwt_read_key, file_id)
+        headers = operation.range_header(byte_range)
 
         async def leg(u: str) -> bytes:
             status, body, _ = await aio_transport.request(
-                "GET", f"http://{u}/{file_id}{auth}"
+                "GET", f"http://{u}/{file_id}{auth}", headers=headers
             )
-            if status != 200:
+            got = operation.reply_bytes(status, body, byte_range)
+            if got is None:
                 raise ConnectionError(f"chunk {file_id}@{u}: HTTP {status}")
-            return body
+            return got
 
         t0 = time.perf_counter()
         try:
@@ -1576,17 +1622,20 @@ class FilerServer:
                     _tag_hedge_won()
         finally:
             self._chunk_hist.observe(time.perf_counter() - t0)
-        self.chunk_cache.put(file_id, body)
+        if byte_range is None:
+            self.chunk_cache.put(file_id, body)
         return body
 
     async def _astream_range(self, views, urls: dict, offset: int,
-                             size: int, alts: Optional[dict] = None):
+                             size: int, alts: Optional[dict] = None,
+                             first: Optional[bytes] = None):
         """Async generator of body pieces for [offset, offset+size) —
         the native mirror of _stream_range's produce(): aprefetch_iter
         drives up to ``read_window`` chunk fetches concurrently ON the
         loop, pieces yield strictly in view order, sparse gaps stream as
         bounded zero blocks, and a two-slot plaintext memo bounds
-        re-decryption. Byte-for-byte identical to the bridged stream."""
+        re-decryption. ``first`` is the first view's fetch, when the
+        caller has it. Byte-for-byte identical to the bridged stream."""
         from collections import OrderedDict
 
         from ..util.aio_pipeline import aprefetch_iter
@@ -1599,28 +1648,27 @@ class FilerServer:
         memo: OrderedDict[str, bytes] = OrderedDict()
         t0 = time.perf_counter()
         hedge_urls = alts or {}
+        ranges = {v: self._chunk_range(v) for v in views}
+
+        async def fetch(v):
+            nonlocal first
+            if first is not None and v is views[0]:
+                raw, first = first, None
+                return raw
+            return await self._afetch_chunk(
+                v.file_id, urls[v.file_id], hedge_urls.get(v.file_id),
+                ranges[v],
+            )
+
         fetched = aprefetch_iter(
             views,
-            lambda v: self._afetch_chunk(
-                v.file_id, urls[v.file_id], hedge_urls.get(v.file_id)
-            ),
+            fetch,
             window,
-            key=lambda v: v.file_id,  # single-flight per fid
+            # single-flight per fid, or per piece of a ranged view
+            key=lambda v: self._fetch_key(v, ranges[v]),
         )
         try:
             async for view, raw in fetched:
-                data = memo.get(view.file_id)
-                if data is None:
-                    data = raw
-                    if view.cipher_key:
-                        from ..util import cipher as cipher_mod
-
-                        data = cipher_mod.decrypt(
-                            data, base64.b64decode(view.cipher_key)
-                        )
-                    memo[view.file_id] = data
-                    while len(memo) > 2:
-                        memo.popitem(last=False)
                 if view.logic_offset > pos:  # sparse gap
                     gap = view.logic_offset - pos
                     while gap > 0:
@@ -1628,7 +1676,22 @@ class FilerServer:
                         yield b"\x00" * n
                         gap -= n
                         pos += n
-                piece = data[view.offset : view.offset + view.size]
+                if ranges[view] is not None:
+                    piece = raw  # the view's own bytes, plaintext
+                else:
+                    data = memo.get(view.file_id)
+                    if data is None:
+                        data = raw
+                        if view.cipher_key:
+                            from ..util import cipher as cipher_mod
+
+                            data = cipher_mod.decrypt(
+                                data, base64.b64decode(view.cipher_key)
+                            )
+                        memo[view.file_id] = data
+                        while len(memo) > 2:
+                            memo.popitem(last=False)
+                    piece = data[view.offset : view.offset + view.size]
                 if piece:
                     yield piece
                     pos += len(piece)
@@ -1711,19 +1774,20 @@ class FilerServer:
             urls[v.file_id] = locs[0].url
             if len(locs) > 1:
                 alts[v.file_id] = locs[1].url
+        first = None
         if views:
             # eager first chunk, like _stream_range's eager first piece:
             # a down volume surfaces as a bridged 500, not a truncated
-            # native 200 (and the fetch lands in chunk_cache either way)
+            # native 200; the stream starts from what it fetched
             try:
-                await self._afetch_chunk(
+                first = await self._afetch_chunk(
                     views[0].file_id, urls[views[0].file_id],
-                    alts.get(views[0].file_id),
+                    alts.get(views[0].file_id), self._chunk_range(views[0]),
                 )
             except Exception:  # noqa: BLE001 — bridge retries all replicas
                 return NATIVE_FALLBACK
         body = AsyncStreamBody(
-            size, self._astream_range(views, urls, offset, size, alts)
+            size, self._astream_range(views, urls, offset, size, alts, first)
         )
         self._req_hist.observe(time.perf_counter() - t0, op="read")
         if parsed is not None:
@@ -1734,8 +1798,8 @@ class FilerServer:
     def _read_range(self, entry: Entry, offset: int, size: int) -> bytes:
         """StreamContent (filer/stream.go:16): chunk views → volume reads.
 
-        Whole chunks are fetched and sliced (the reference issues ranged
-        chunk GETs — a volume-server Range feature to add); volume lookups
+        A view takes only its bytes where ``_chunk_range`` says so, else
+        its whole chunk is fetched (cache-aside) and sliced; volume lookups
         are cached to keep master round-trips off the read path."""
         # clamp to the entry's real extent: offset/size trace back to
         # request ranges, and the allocation below must never exceed what
@@ -1747,17 +1811,21 @@ class FilerServer:
         out = bytearray(size)
         decrypted: dict[str, bytes] = {}  # per-call memo; cache stays ciphertext
         for view in views:
-            data = decrypted.get(view.file_id)
-            if data is None:
-                data = self._fetch_chunk(view.file_id)
-                if view.cipher_key:
-                    from ..util import cipher as cipher_mod
+            byte_range = self._chunk_range(view)
+            if byte_range is not None:
+                piece = self._fetch_chunk(view.file_id, byte_range)
+            else:
+                data = decrypted.get(view.file_id)
+                if data is None:
+                    data = self._fetch_chunk(view.file_id)
+                    if view.cipher_key:
+                        from ..util import cipher as cipher_mod
 
-                    data = cipher_mod.decrypt(
-                        data, base64.b64decode(view.cipher_key)
-                    )
-                    decrypted[view.file_id] = data
-            piece = data[view.offset : view.offset + view.size]
+                        data = cipher_mod.decrypt(
+                            data, base64.b64decode(view.cipher_key)
+                        )
+                        decrypted[view.file_id] = data
+                piece = data[view.offset : view.offset + view.size]
             pos = view.logic_offset - offset
             out[pos : pos + len(piece)] = piece
         return bytes(out)

@@ -86,8 +86,9 @@ from collections import defaultdict
 from typing import Optional
 
 from ..ec import encoder
-from ..ec.constants import DATA_SHARDS, TOTAL_SHARDS, shard_ext
+from ..ec.constants import DATA_SHARDS, SMALL_BLOCK_SIZE, TOTAL_SHARDS, shard_ext
 from ..ec.decoder import decode_to_volume
+from ..ec.ec_volume import NotFoundError as EcNotFoundError
 from ..ec.ec_volume import rebuild_ecx_file
 from ..ec.gf_matmul import gf_matmul
 from ..query import execute_request
@@ -105,6 +106,7 @@ from ..storage.needle import (
     FLAG_HAS_TTL,
     FLAG_IS_CHUNK_MANIFEST,
     FLAG_IS_COMPRESSED,
+    VERSION1,
     CrcError,
     Needle,
     get_actual_size,
@@ -396,7 +398,12 @@ class VolumeServer:
         faultpoints.fire("volume.read.needle")
         n = Needle(id=nid)
         ext = None
+        rng = h.headers.get("Range", "")
         try:
+            if rng and not wants_resize:
+                resp = self._ec_range_reply(h, vid, nid, cookie, rng)
+                if resp is not None:
+                    return resp
             # a resize needs the bytes in userspace: never the zero-copy path
             ext = None if wants_resize else self._needle_extent(vid, n)
             if ext is None:
@@ -453,11 +460,70 @@ class VolumeServer:
             # on-read resize of an image needle (images/resizing.go)
             mime = n.mime.decode() if n.mime else "image/jpeg"
             data = images.resized(data, mime, width, height, q.get("mode", ""))
-        rng = h.headers.get("Range", "")
         if rng and not wants_resize and not serving_gzip:  # ranges address the plain bytes
             return self._range_reply(h, data, rng)
         h.extra_headers = (h.extra_headers or {}) | {"Accept-Ranges": "bytes"}
         return 200, data
+
+    def _ec_range_reply(self, h, vid: int, nid: int, cookie: int, rng: str):
+        """A Range on a needle of an EC volume, answered from the bytes it
+        needs (``Store.ec_needle_reader``): the header and data size, the
+        flags byte and the range, so a lost shard is reconstructed only
+        where they lie. None for what the whole-needle read serves: a plain
+        volume, a version 1 record, a record no larger than a small block
+        (it lies in at most two intervals, which that read takes whole), a
+        compressed needle, a chunk manifest, a range that is malformed or
+        covers all of the data. Unlike that read, this one cannot check the
+        needle's CRC, which covers all of its data."""
+        if self.store.find_volume(vid) is not None:
+            return None
+        ev = self.store.find_ec_volume(vid)
+        if ev is None or ev.version == VERSION1:
+            return None
+        # the read counts once for the heat, as in the whole-needle read:
+        # here unless that read takes over
+        try:
+            resp = self._ec_range_read(h, ev, nid, cookie, rng)
+        except Exception:
+            self.store.note_ec_read(vid)
+            raise
+        if resp is not None:
+            self.store.note_ec_read(vid)
+        return resp
+
+    def _ec_range_read(self, h, ev, nid: int, cookie: int, rng: str):
+        reader = self.store.ec_needle_reader(ev, nid)
+        if reader.record_size <= SMALL_BLOCK_SIZE:
+            return None
+        head_len = NEEDLE_HEADER_SIZE + 4  # the header, then the data size
+        head = reader.read([(0, head_len)])[0]
+        found = Needle()
+        found.parse_header(head)
+        if found.id != nid:
+            raise EcNotFoundError(f"unexpected needle {found.id:x} != {nid:x}")
+        if found.size != reader.size:
+            return None  # the whole read reports the mismatch
+        if found.cookie != cookie:
+            return 404, {"error": "cookie mismatch"}
+        data_size = int.from_bytes(head[NEEDLE_HEADER_SIZE:head_len], "big")
+        if data_size + 4 >= reader.size:
+            return None  # a corrupt length: the whole read reports it
+        parsed = parse_byte_range(rng, data_size)
+        spans = [(head_len + data_size, 1)]  # the flags byte
+        partial = isinstance(parsed, tuple) and parsed != (0, data_size - 1)
+        if partial:
+            start, end = parsed
+            spans.append((head_len + start, end - start + 1))
+        pieces = reader.read(spans)
+        if pieces[0][0] & (FLAG_IS_COMPRESSED | FLAG_IS_CHUNK_MANIFEST):
+            return None
+        if parsed == "unsatisfiable":
+            h.extra_headers = unsatisfiable_range_headers(data_size)
+            return 416, b""
+        if not partial:
+            return None
+        h.extra_headers = range_headers(start, end, data_size)
+        return 206, pieces[1]
 
     def _needle_extent(self, vid: int, n: Needle):
         """The zero-copy read setup (``Store.read_volume_needle_extent``),

@@ -24,6 +24,7 @@ the remote ones it still needs concurrently, as upstream
 from __future__ import annotations
 
 import contextvars
+import dataclasses
 import hashlib
 import itertools
 import os
@@ -117,6 +118,64 @@ def read_ec_shard_needle(ev: EcVolume, codec: CodecArg, needle_id: int,
     if n.id != needle_id:
         raise EcNotFoundError(f"unexpected needle {n.id:x} != {needle_id:x}")
     return n
+
+
+class EcNeedleReader:
+    """Byte spans of one needle record of an EC volume, read without the
+    rest of it: only the intervals that hold wanted bytes are read, locally,
+    from a remote holder, or reconstructed through ``codec``, and the pieces
+    of one interval that lie within a small block of each other are read
+    together. A ranged GET reads the header and data size, then the flags
+    byte and the range, so a lost shard is rebuilt only where those bytes
+    lie. Nothing here checks the needle's CRC, which covers all of its
+    data."""
+
+    def __init__(self, ev: EcVolume, codec: CodecArg, needle_id: int,
+                 remote_read: Optional[RemoteShardReader] = None):
+        self.ev, self.codec, self.remote_read = ev, codec, remote_read
+        _, self.size, self.intervals = ev.locate_needle(needle_id)
+        self._starts = list(itertools.accumulate(
+            (iv.size for iv in self.intervals), initial=0))
+        self.record_size = self._starts[-1]
+
+    def _pieces(self, start: int, size: int):
+        """(interval index, lo, hi) of the record's bytes [start,
+        start + size), lo and hi relative to the interval."""
+        end = start + size
+        for i, iv in enumerate(self.intervals):
+            base = self._starts[i]
+            lo, hi = max(start, base), min(end, base + iv.size)
+            if lo < hi:
+                yield i, lo - base, hi - base
+
+    def read(self, spans: list[tuple[int, int]]) -> list[bytes]:
+        """The record's bytes [start, start + size) for each
+        ``(start, size)`` of ``spans``."""
+        runs: dict[int, list[list[int]]] = {}
+        for start, size in spans:
+            for i, lo, hi in self._pieces(start, size):
+                for run in runs.setdefault(i, []):
+                    if max(hi, run[1]) - min(lo, run[0]) <= SMALL_BLOCK_SIZE:
+                        run[0], run[1] = min(lo, run[0]), max(hi, run[1])
+                        break
+                else:
+                    runs[i].append([lo, hi])
+        got: dict[int, list[tuple[int, bytes]]] = {}
+        for i, extents in runs.items():
+            iv = self.intervals[i]
+            for lo, hi in extents:
+                part = dataclasses.replace(
+                    iv, inner_block_offset=iv.inner_block_offset + lo, size=hi - lo)
+                got.setdefault(i, []).append(
+                    (lo, _read_interval(self.ev, self.codec, part, self.remote_read)))
+
+        def piece(i: int, lo: int, hi: int) -> bytes:
+            off, buf = next((off, buf) for off, buf in got[i]
+                            if off <= lo and hi <= off + len(buf))
+            return buf[lo - off: hi - off]
+
+        return [b"".join(piece(i, lo, hi) for i, lo, hi in self._pieces(start, size))
+                for start, size in spans]
 
 
 def _read_interval(ev: EcVolume, codec: CodecArg, interval,
@@ -250,6 +309,9 @@ class Store:
         self.delta_event = threading.Event()
         # EC volumes have no Volume.read_heat: theirs lives here
         self.ec_read_heat: dict[int, heat.EwmaHeat] = {}
+        # the engine's per-volume read and write counts already turned into
+        # heat, by vid (``_take_engine_heat``)
+        self._engine_heat_seen: dict[int, tuple[int, int]] = {}
         # scrub findings (corrupt needle / shard ids per vid), carried in
         # heartbeats; cleared when the local copy is deleted, re-copied or
         # rebuilt
@@ -516,12 +578,21 @@ class Store:
 
     # -- EC read path (store_ec.go:122-375) ----------------------------------
     def read_ec_shard_needle(self, ev: EcVolume, n: Needle) -> int:
-        with self._lock:
-            h = self.ec_read_heat.setdefault(ev.id, heat.EwmaHeat())
-        h.mark()
+        self.note_ec_read(ev.id)
         m = read_ec_shard_needle(ev, lambda: self.ec_codec, n.id, self._remote_shard_read)
         n.__dict__.update(m.__dict__)
         return len(n.data)
+
+    def ec_needle_reader(self, ev: EcVolume, needle_id: int) -> EcNeedleReader:
+        """A reader of byte spans of one EC needle, on this store's codec
+        and remote reader; the caller marks the read (``note_ec_read``)."""
+        return EcNeedleReader(ev, lambda: self.ec_codec, needle_id,
+                              self._remote_shard_read)
+
+    def note_ec_read(self, vid: int) -> None:
+        with self._lock:
+            h = self.ec_read_heat.setdefault(vid, heat.EwmaHeat())
+        h.mark()
 
     def _remote_shard_read(self, vid: int, sid: int, offset: int,
                            size: int) -> Optional[bytes]:
@@ -561,7 +632,33 @@ class Store:
             return None
 
     # -- heartbeat (store.go:204-297) ----------------------------------------
+    def _take_engine_heat(self, v: Volume) -> None:
+        """Mark into ``v``'s heat the needle reads and writes the native
+        engine answered for it since the last call (the engine counts them
+        per volume, across its registrations; what it proxies, Python marks
+        itself). A count below the last one seen comes from a new engine,
+        so all of it is new."""
+        engine = v.turbo
+        if engine is None:
+            return
+        with self._lock:
+            try:
+                s = engine.stats(v.id)
+            except KeyError:
+                return  # detached meanwhile
+            reads, writes = s["reads"], s["writes"]
+            seen_r, seen_w = self._engine_heat_seen.get(v.id, (0, 0))
+            self._engine_heat_seen[v.id] = (reads, writes)
+        new_r = reads - seen_r if reads >= seen_r else reads
+        new_w = writes - seen_w if writes >= seen_w else writes
+        if new_r:
+            v.read_heat.mark(new_r)
+        if new_w:
+            v.write_heat.mark(new_w)
+
     def _volume_message(self, v: Volume) -> dict:
+        # every heartbeat and /status reads heat through here
+        self._take_engine_heat(v)
         return {
             "id": v.id,
             "size": v.size(),

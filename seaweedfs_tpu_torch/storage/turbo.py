@@ -250,12 +250,13 @@ class TurboEngine:
         return out.value
 
     def stats(self, vid: int) -> dict:
-        buf = (ctypes.c_ulonglong * 9)()
+        buf = (ctypes.c_ulonglong * 11)()
         if self._lib.turbo_stats(self._h, vid, buf) != 0:
             raise KeyError(f"volume {vid} not attached to turbo")
         return {"file_count": buf[0], "file_bytes": buf[1], "del_count": buf[2],
                 "del_bytes": buf[3], "max_key": buf[4], "dat_size": buf[5],
-                "idx_size": buf[6], "last_modified_s": buf[7], "last_append_ns": buf[8]}
+                "idx_size": buf[6], "last_modified_s": buf[7], "last_append_ns": buf[8],
+                "reads": buf[9], "writes": buf[10]}
 
     def set_readonly(self, vid: int, ro: bool) -> None:
         self._lib.turbo_set_readonly(self._h, vid, 1 if ro else 0)

@@ -879,16 +879,23 @@ class Volume:
             self.data_backend.close()
 
     def destroy(self) -> None:
-        """Remove every file of this volume (volume_read_write.go:46-72)."""
+        """Remove every file of this volume (volume_read_write.go:46-72).
+
+        The ``.vif`` stays while an ``.ecx`` of the same base sits beside
+        it: the EC volume made from this one owns the file then, and its
+        scrub checks the shard sums in it (the JAX package removes it)."""
         with self._lock:
             if self._is_compacting:
                 raise VolumeError(f"volume {self.id} is compacting")
             self.close()
             base = self.file_name()
+            exts = [".dat", ".tier", ".idx", ".sdx", ".cpd", ".cpx", ".note",
+                    ".ldb", ".mdx", ".mdx.meta"]
+            if not os.path.exists(base + ".ecx"):
+                exts.append(".vif")
             # .tier too: a deleted tiered volume must not load again at the
             # next start (the JAX package's destroy leaves its descriptor)
-            for ext in (".dat", ".tier", ".idx", ".vif", ".sdx", ".cpd", ".cpx", ".note",
-                        ".ldb", ".mdx", ".mdx.meta"):
+            for ext in exts:
                 try:
                     # sweedlint: ok durability destroy path; deletion is the goal, FileNotFoundError makes re-runs idempotent
                     os.remove(base + ext)
