@@ -212,6 +212,10 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    back and renames it; ``filer.copy`` of 128 files (the function and the
    CLI); one ``MountSync`` round both ways; and where the host has FUSE the
    kernel mount (``cp``, ``cat``, ``ls``; else the line says why not);
+   c'. the meta cache: 4 writers rename, unlink and change xattrs under
+   ``/mc16`` while a ``WFS`` with its meta cache on walks and reads the
+   tree; once its poller has applied their last event, every entry it lists
+   reads back and its tree is the filer's (``stale_dropped`` printed);
    d. 8 000 messages published through the broker from 4 threads, every
    partition replayed from 0 in order, count and md5 equal; e. ``ec.encode``
    seals the collection (4/4/3/3), the server with shards 1, 5, 9, 13 of the
@@ -299,6 +303,7 @@ import sys
 import tarfile
 import threading
 import time
+import types
 import urllib.parse
 
 import numpy as np
@@ -342,6 +347,7 @@ from seaweedfs_tpu_torch.storage.store import (  # noqa: E402
 from seaweedfs_tpu_torch.storage.backend.fake_s3 import FakeS3Server  # noqa: E402
 from seaweedfs_tpu_torch.storage.super_block import SuperBlock  # noqa: E402
 from seaweedfs_tpu_torch.storage.volume import Volume, volume_file_name  # noqa: E402
+from seaweedfs_tpu_torch.util import retry as retry_mod  # noqa: E402
 
 MiB, GiB = 1 << 20, 1 << 30
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
@@ -868,11 +874,15 @@ class _Timed:
 class _FetchTally:
     """Within the block, the degraded-read path of each of ``servers`` is
     counted and timed: ``Store._remote_shard_read`` (one call per shard
-    range wanted from another server), the remote reader's attempts inside
-    it, the codec's reconstructs and the ``/dir/lookup_ec`` asks. A fetch
-    spends in backoff what it does not spend in attempts; an attempt made
-    after the reader answered that no server holds the shard is a retry
-    that sleeps for nothing (``no_holder_retries``)."""
+    range wanted from another server), the remote reader's attempts, the
+    codec's reconstructs and the ``/dir/lookup_ec`` asks. The backoff is
+    what the retry module sleeps inside a fetch, counted where it sleeps
+    (``retries``, ``retry_backoff_s``). An attempt made after the reader answered that no
+    server holds the shard is a retry that sleeps for nothing
+    (``no_holder_retries``). An attempt outside a fetch this tally counted
+    belongs to a fetch begun before the block: under an earlier tally (a
+    read the filer left in flight, such as a hedged chunk GET it stopped
+    waiting for) or with none."""
 
     # shared by every tally: a fetch begun under an earlier one (a read the
     # filer left in flight) may still make its attempts under this one
@@ -897,17 +907,23 @@ class _FetchTally:
     def _fetch(self, fn):
         def fetch(*args):
             self.local.no_holder = False
+            outer, self.local.fetch_of = getattr(self.local, "fetch_of", None), self
             t0 = time.perf_counter()
             try:
                 return fn(*args)
             finally:
                 self._add("fetch", time.perf_counter() - t0)
+                self.local.fetch_of = outer
         return fetch
 
     def _attempt(self, fn):
         def attempt(*args):
             if getattr(self.local, "no_holder", False):
                 self._add("no_holder_retry", 0.0)
+            owner = getattr(self.local, "fetch_of", None)
+            if owner is not self:
+                self._add("attempt_outside_fetch_" + ("none" if owner is None else "earlier"),
+                          0.0)
             t0 = time.perf_counter()
             try:
                 return fn(*args)
@@ -927,9 +943,19 @@ class _FetchTally:
                 self._add("reconstruct", time.perf_counter() - t0)
         return reconstruct
 
+    def _retry_time(self, real):
+        """The retry module's ``time`` for the block: a sleep on a thread
+        inside a fetch is a retry's backoff."""
+        def sleep(sec):
+            if getattr(self.local, "fetch_of", None) is not None:
+                self._add("backoff", sec)
+            real.sleep(sec)
+        return types.SimpleNamespace(monotonic=real.monotonic, sleep=sleep)
+
     def __enter__(self):
         self.saved: list = []
         self.lookups0 = sum(vs.ec_lookups for vs in self.servers)
+        self._wrap(retry_mod, "time", self._retry_time)
         for vs in self.servers:
             self._wrap(vs.store, "_remote_shard_read", self._fetch)
             self._wrap(vs.store, "remote_shard_reader", self._attempt)
@@ -946,10 +972,15 @@ class _FetchTally:
 
     def summary(self) -> dict:
         c, s = self.calls, self.seconds
+        if s["backoff"] < 0:
+            raise SystemExit(f"the degraded reads' retry backoff came to {s['backoff']} s "
+                             f"over {c['backoff']} retries")
         return {"remote_fetch_calls": c["fetch"], "remote_fetch_s": s["fetch"],
                 "remote_attempts": c["attempt"], "remote_attempt_s": s["attempt"],
-                "retry_backoff_s": s["fetch"] - s["attempt"], "lookups": self.lookups,
-                "no_holder_retries": c["no_holder_retry"],
+                "attempts_outside_fetch": {"earlier_tally": c["attempt_outside_fetch_earlier"],
+                                           "none": c["attempt_outside_fetch_none"]},
+                "retries": c["backoff"], "retry_backoff_s": float(s["backoff"]),
+                "lookups": self.lookups, "no_holder_retries": c["no_holder_retry"],
                 "reconstruct_calls": c["reconstruct"], "reconstruct_s": s["reconstruct"]}
 
 
@@ -4783,6 +4814,8 @@ GW_MESSAGES = 8_000  # 64-1 024 B each (64 000 before a cut: PERF.md section 4)
 GW_PARTITIONS = 4
 GW_SEALED_READS = 32  # small files a gateway reads back after the seal
 GW_THREADS = 8
+GW_MC_THREADS = 4  # writers beside the meta cache's reader
+GW_MC_ROUNDS = 3  # each: 6 files of 1-64 KiB, 2 renames, 4 xattr changes, 1 unlink
 
 
 def _log_uniform(rng, n: int, lo: int = 1024, hi: int = MiB) -> list:
@@ -4805,6 +4838,163 @@ def _fuse_mount(wfs, mountpoint: str, root: str):
         return FuseMount(wfs, mountpoint, root=root).mount(), None
     except Exception as e:  # noqa: BLE001 — the host refused the mount: said, not hidden
         return None, f"the mount was refused: {e!r}"
+
+
+def _wfs_tree(wfs, root: str) -> list:
+    """(path, is_dir, size, mode, xattrs, bytes) of every entry under root,
+    as ``wfs`` lists and reads them."""
+    out, stack = [], [root]
+    while stack:
+        for e in wfs.listdir(stack.pop()):
+            if e.is_directory:
+                stack.append(e.full_path)
+                out.append((e.full_path, True, 0, e.mode, {}, b""))
+                continue
+            xattrs = {n: wfs.getxattr(e.full_path, n) for n in wfs.listxattr(e.full_path)}
+            out.append((e.full_path, False, e.file_size(), e.mode, xattrs,
+                        wfs.read_file(e.full_path)))
+    return sorted(out)
+
+
+def _meta_cache_churn(new_wfs) -> dict:
+    """Phase 16's step c': ``GW_MC_THREADS`` writers (no meta cache) each run
+    ``GW_MC_ROUNDS`` rounds of writes, renames, xattr changes and an unlink
+    under ``/mc16``, while a reader ``WFS`` with its meta cache on walks and
+    reads the tree. Each round's two directories belong to one writer,
+    which says before each change the names a directory holds after each
+    of its steps (a rename inserts the new name, then drops the old). Every
+    listing the reader gives of such a directory must be one of those
+    states, and none before the latest one an earlier walk saw: a cache
+    that lags shows a past state, one that replays an old event over a
+    newer listing goes back to an earlier state or shows one the filer
+    never had. A read during the writes may fail only for a path a writer
+    removed; once the reader's poller has applied the writers' last event,
+    every entry it lists reads back and its tree (sizes, modes, xattrs,
+    bytes) is the filer's. ``new_wfs(**kw)`` makes a WFS the caller
+    closes."""
+    from seaweedfs_tpu_torch.mount.wfs import WfsError
+
+    reader = new_wfs()  # the meta cache on, as ``weed mount`` runs it
+    writers = [new_wfs(use_meta_cache=False) for _ in range(GW_MC_THREADS)]
+    removed: set = set()  # each path named here before it goes
+    states: dict = {}  # a writer's directory -> the names it holds, in order
+    seen: dict = {}  # such a directory -> the index of the latest state listed
+    lock, errors = threading.Lock(), []
+
+    def write(k: int) -> None:
+        rr, w = np.random.default_rng(16160 + k), writers[k]
+        try:
+            for r in range(GW_MC_ROUNDS):
+                root = f"/mc16/t{k}/r{r}"
+                held = {root: set(), f"{root}/sub": set()}
+                with lock:
+                    states.update((d, [frozenset()]) for d in held)
+
+                def will(*steps) -> None:
+                    """Before a change: each of its steps, (path, added)."""
+                    with lock:
+                        for path, added in steps:
+                            d, name = path.rsplit("/", 1)
+                            (held[d].add if added else held[d].discard)(name)
+                            states[d].append(frozenset(held[d]))
+
+                will((f"{root}/sub", True))
+                w.mkdir(f"{root}/sub")
+                names = [f"{root}/{'sub/' if i % 2 else ''}f{i}.bin" for i in range(6)]
+                for p in names:
+                    will((p, True))
+                    w.write_file(p, rr.bytes(int(rr.integers(1024, 64 * 1024))))
+                with lock:
+                    removed.update((names[1], names[3], names[5]))
+                will((f"{root}/renamed.bin", True), (names[3], False))
+                w.rename(names[3], f"{root}/renamed.bin")  # up a directory
+                will((f"{root}/sub/f1-renamed.bin", True), (names[1], False))
+                w.rename(names[1], f"{root}/sub/f1-renamed.bin")  # within one
+                w.setxattr(names[0], "user.color", b"indigo")
+                w.setxattr(f"{root}/renamed.bin", "user.gone", b"x")
+                w.removexattr(f"{root}/renamed.bin", "user.gone")
+                w.setxattr(f"{root}/renamed.bin", "user.kept", bytes(range(64)))
+                will((names[5], False))
+                w.unlink(names[5])
+        except Exception as e:  # noqa: BLE001 — said below, and the step fails
+            errors.append(f"writer {k}: {e!r}")
+
+    def check_view(d: str, listing: list) -> bool:
+        """Whether ``d`` is a writer's directory; an error if ``listing``
+        is a state it never held or one before the latest listed."""
+        names = frozenset(e.full_path.rsplit("/", 1)[1] for e in listing)
+        with lock:
+            if d not in states:
+                return False
+            if names not in states[d]:
+                errors.append(f"{d} listed {sorted(names)}, which it never held")
+                return True
+            i = states[d].index(names)
+            if i < seen.get(d, 0):
+                errors.append(f"{d} went back from {sorted(states[d][seen[d]])} "
+                              f"to {sorted(names)}")
+            seen[d] = max(i, seen.get(d, 0))
+        return True
+
+    def walk(strict: bool) -> collections.Counter:
+        """Entries listed, reads, reads of a path the writers removed that
+        failed (a failed read of any other path is an error, and of any
+        path at all once ``strict``) and views of a writer's directory
+        checked."""
+        n = collections.Counter(walks=1)
+        stack = ["/mc16"]
+        while stack:
+            d = stack.pop()
+            listing = reader.listdir(d)
+            n["dir_views_checked"] += check_view(d, listing)
+            for e in listing:
+                n["listed"] += 1
+                if e.is_directory:
+                    stack.append(e.full_path)
+                    continue
+                try:
+                    reader.read_file(e.full_path)
+                    n["reads"] += 1
+                except (FileNotFoundError, WfsError) as err:
+                    with lock:
+                        raced = e.full_path in removed
+                    if strict or not raced:
+                        errors.append(f"read {e.full_path}: {err!r}")
+                    n["raced_gone"] += 1
+        return n
+
+    t0 = time.perf_counter()
+    reader.mkdir("/mc16")
+    pool = [threading.Thread(target=write, args=(k,)) for k in range(GW_MC_THREADS)]
+    for t in pool:
+        t.start()
+    during = collections.Counter()
+    while True:
+        alive = any(t.is_alive() for t in pool)
+        during += walk(strict=False)
+        if not alive:
+            break
+        time.sleep(0.1)
+    for t in pool:
+        t.join()
+    write_s = time.perf_counter() - t0
+    # the reader's view is the filer's once its poller has applied the
+    # writers' last event
+    head = reader.meta_cache._feed_head()
+    caught_up = _until(lambda: reader.meta_cache._last_ts_ns >= head, timeout=10)
+    after = walk(strict=True)
+    got, want = _wfs_tree(reader, "/mc16"), _wfs_tree(writers[0], "/mc16")
+    sec = time.perf_counter() - t0
+    if errors or not caught_up or got != want:
+        raise SystemExit(f"phase 16: the meta cache: {errors[:5]}, caught up "
+                         f"{caught_up}, {len(got)} entries listed against the "
+                         f"filer's {len(want)}, equal: {got == want}")
+    keys = ("walks", "listed", "reads", "raced_gone", "dir_views_checked")
+    return {"writers": GW_MC_THREADS, "rounds": GW_MC_ROUNDS, "entries": len(want),
+            "during_writes": {k: during[k] for k in keys},
+            "after": {k: after[k] for k in keys},
+            "stale_dropped": reader.meta_cache.stale_dropped,
+            "write_s": write_s, "meta_cache_s": sec}
 
 
 def _replay(mc, partition: int) -> list:
@@ -4843,7 +5033,7 @@ def phase16(state) -> None:
     seeded 32 files read back through WebDAV and 32 through FTP, the 64 MiB
     file through WFS (and the 64 small files through FUSE where step c
     mounted), and one whole partition replayed from 0 through a restarted
-    broker, through gf_matmul."""
+    broker, through gf_matmul. Between c and d, c': ``_meta_cache_churn``."""
     import ftplib
 
     from seaweedfs_tpu_torch.__main__ import main as cli_main
@@ -5186,6 +5376,9 @@ def phase16(state) -> None:
             return res
 
         fuse_ran = step("c_mount", mount)["fuse"]["ran"]
+
+        step("c_meta_cache", lambda: {**_meta_cache_churn(new_wfs),
+                                      "nvidia_smi": state["smi"]})
 
         # d. the broker
         published = {}

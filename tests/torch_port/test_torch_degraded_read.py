@@ -15,6 +15,7 @@ Every needle read here must give the bytes the JAX package's ``Store`` gives
 on the same files, made from a seed with numpy.
 """
 
+import contextlib
 import os
 import shutil
 import socket
@@ -113,27 +114,51 @@ def _count_reconstructs(store):
 class _Reader:
     """A remote shard reader over the shards' bytes: ``no_holder`` shards
     raise NoShardHolderError (``none`` makes them answer None, the JAX
-    package's form), ``failing`` shards answer None after the delay; calls
-    are counted, with the trace span and deadline each one saw."""
+    package's form), ``failing`` shards answer None; calls are counted, with
+    the trace span and deadline each one saw, and ``events`` logs each
+    call's start and answer in order. With a ``barrier``, the first
+    ``barrier.parties`` calls wait at it before they answer, so they pass
+    only if that many are in flight at once."""
 
-    def __init__(self, shard_bytes, no_holder=(), failing=(), delay=0.0, none=False):
+    def __init__(self, shard_bytes, no_holder=(), failing=(), none=False, barrier=None):
         self.bytes, self.no_holder, self.failing = shard_bytes, set(no_holder), set(failing)
-        self.delay, self.none = delay, none
-        self.calls, self.seen = [], []
+        self.none, self.barrier = none, barrier
+        self.calls, self.seen, self.events = [], [], []
         self.lock = threading.Lock()
 
     def __call__(self, vid, sid, offset, size):
         with self.lock:
             self.calls.append(sid)
             self.seen.append((trace.current_span(), deadline.current()))
+            self.events.append(("start", sid))
+            held = self.barrier is not None and len(self.calls) <= self.barrier.parties
         if sid in self.no_holder:
             if self.none:
                 return None
             raise NoShardHolderError(f"no server holds shard {vid}.{sid}")
-        time.sleep(self.delay)
-        if sid in self.failing:
-            return None
-        return self.bytes[sid][offset:offset + size]
+        if held:
+            self.barrier.wait()
+        got = None if sid in self.failing else self.bytes[sid][offset:offset + size]
+        with self.lock:
+            self.events.append(("answer", sid, got is not None))
+        return got
+
+
+@contextlib.contextmanager
+def _read_path_sleeps(monkeypatch):
+    """Within the block, every ``time.sleep`` of the calling thread and of
+    the EC sibling fetches, as (thread name, seconds); each still sleeps."""
+    caller, real, slept = threading.current_thread(), time.sleep, []
+
+    def sleep(s):
+        t = threading.current_thread()
+        if t is caller or t.name.startswith("ec-sibling"):
+            slept.append((t.name, s))
+        real(s)
+
+    with monkeypatch.context() as m:
+        m.setattr(time, "sleep", sleep)
+        yield slept
 
 
 def test_no_holder_is_asked_once_with_no_backoff(tmp_path, sealed, monkeypatch):
@@ -142,7 +167,7 @@ def test_no_holder_is_asked_once_with_no_backoff(tmp_path, sealed, monkeypatch):
     three times; both reconstruct each interval once, to the same bytes."""
     ec, blobs = sealed
     others = set(range(14)) - {LOST}
-    ps = _mount(tmp_path, ec, "port", others, PStore, remote_fetch_backoff_s=0.5)
+    ps = _mount(tmp_path, ec, "port", others, PStore, remote_fetch_backoff_s=10.0)
     js = _mount(tmp_path, ec, "jax", others, JStore, remote_fetch_backoff_s=0.001)
     sleeps = []
     monkeypatch.setattr(pretry, "time", types.SimpleNamespace(
@@ -152,48 +177,71 @@ def test_no_holder_is_asked_once_with_no_backoff(tmp_path, sealed, monkeypatch):
         ps.remote_shard_reader = preader = _Reader(shard_bytes, no_holder={LOST})
         js.remote_shard_reader = jreader = _Reader(shard_bytes, no_holder={LOST}, none=True)
         precon, jrecon = _count_reconstructs(ps), _count_reconstructs(js)
-        t0 = time.perf_counter()
-        got = {nid: _read(ps, PNeedle, nid) for nid in blobs}
-        elapsed = time.perf_counter() - t0
+        with _read_path_sleeps(monkeypatch) as slept:
+            t0 = time.perf_counter()
+            got = {nid: _read(ps, PNeedle, nid) for nid in blobs}
+            elapsed = time.perf_counter() - t0
         for nid, want in blobs.items():
             assert got[nid] == _read(js, JNeedle, nid) == (COOKIE, want)
         assert precon[0] == jrecon[0] > 0
         assert preader.calls == [LOST] * precon[0]
         assert jreader.calls == [LOST] * (3 * jrecon[0])
         assert sleeps == []
-        # one backoff would be up to 0.5 s per lost interval
-        assert elapsed < 0.5 * precon[0]
+        # a backoff of up to 10 s per lost interval would be a sleep on the
+        # reading thread or a sibling's, or, taken some other way (an event
+        # or a future waited on), a pause of that size: far past what a
+        # loaded host adds to reads that make none
+        assert slept == []
+        assert elapsed < 10.0 * precon[0], (elapsed, precon[0])
     finally:
         ps.close()
         js.close()
 
 
 def test_siblings_are_fetched_concurrently(tmp_path, sealed):
-    """Three local shards: seven remote siblings are needed, each fetch
-    waiting 0.25 s, one of them failing. ``recover_interval`` fetches the
-    seven at once and replaces the failed one by the next holder, in well
-    under the serial sum, inside the caller's span and deadline; its bytes
-    are the lost shard's."""
+    """Three local shards: seven remote siblings are needed, one of them
+    failing. ``recover_interval`` fetches the seven at once (they meet at a
+    barrier of seven, which a serial fetch would break) and replaces the
+    failed one by the next holder only after it failed, inside the caller's
+    span and deadline; its bytes are the lost shard's."""
     ec, _ = sealed
     local = {0, 2, 3}
     ps = _mount(tmp_path, ec, "port", local, PStore)
     try:
         shard_bytes = _shard_bytes(ec)
-        reader = _Reader(shard_bytes, failing={5}, delay=0.25)
+        reader = _Reader(shard_bytes, failing={5}, barrier=threading.Barrier(7, timeout=10))
         ev = ps.find_ec_volume(VID)
         offset, size = 4096, 300_000
         with trace.start_span("degraded-read", service="test") as span, \
                 deadline.scope(deadline.after(30.0)) as dl:
-            t0 = time.perf_counter()
             got = pstore.recover_interval(ev, ps.ec_codec, LOST, offset, size, reader)
-            elapsed = time.perf_counter() - t0
         assert got == shard_bytes[LOST][offset:offset + size]
         # the first seven remote candidates at once, then shard 11 for shard 5
         assert sorted(reader.calls) == [4, 5, 6, 7, 8, 9, 10, 11]
-        assert reader.calls[-1] == 11
-        serial = 0.25 * len(reader.calls)
-        assert elapsed < 0.5 * serial, (elapsed, serial)
+        assert sorted(reader.calls[:7]) == [4, 5, 6, 7, 8, 9, 10]
+        assert not reader.barrier.broken
+        assert reader.events.index(("start", 11)) > reader.events.index(("answer", 5, False))
         assert reader.seen == [(span, dl)] * len(reader.calls)
+    finally:
+        ps.close()
+
+
+def test_a_failing_fetch_is_retried_with_backoff(tmp_path, sealed, monkeypatch):
+    """A remote fetch that keeps failing is tried ``remote_fetch_attempts``
+    times, with a backoff of at most the policy's before each retry, and
+    then left to reconstruction."""
+    ec, _ = sealed
+    ps = _mount(tmp_path, ec, "port", set(range(14)) - {LOST}, PStore,
+                remote_fetch_backoff_s=0.01)
+    sleeps = []
+    monkeypatch.setattr(pretry, "time", types.SimpleNamespace(
+        monotonic=time.monotonic, sleep=sleeps.append))
+    try:
+        ps.remote_shard_reader = reader = _Reader(_shard_bytes(ec), failing={LOST})
+        assert ps._remote_shard_read(VID, LOST, 0, 1000) is None
+        assert reader.calls == [LOST] * ps.remote_fetch_attempts
+        assert len(sleeps) == ps.remote_fetch_attempts - 1 > 0
+        assert all(0 <= s <= 0.01 * 2 ** k for k, s in enumerate(sleeps)), sleeps
     finally:
         ps.close()
 

@@ -320,12 +320,14 @@ def test_status_shape_and_stats(mk):
     assert st_["thresholds"]["heat_floor"] == pytest.approx(0.05)
 
 
-def test_metrics_expose_the_lifecycle_families(mk):
-    from seaweedfs_tpu_torch.stats.metrics import default_registry
+def test_metrics_expose_the_lifecycle_families(mk, pkg):
+    import seaweedfs_tpu.stats.metrics as j_metrics
+    import seaweedfs_tpu_torch.stats.metrics as p_metrics
 
     c = mk(make_vol(5, garbage=0.9))
     c.tick()
-    text = default_registry.expose()
+    # the registry of the package whose controller ticked
+    text = {"jax": j_metrics, "port": p_metrics}[pkg].default_registry.expose()
     for name in ("sweed_lifecycle_controllers", "sweed_lifecycle_actions_done_total",
                  "sweed_lifecycle_recovered_resumed_total", "lifecycle_cycle_seconds_count",
                  'lifecycle_action_seconds_count{kind="vacuum"}'):

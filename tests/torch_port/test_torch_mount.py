@@ -13,7 +13,8 @@ package's.
   port stack, ends in equal bytes and equal listings (name, size, mode,
   xattrs; fids differ).
 - Each package's ``WFS`` reads the tree the other's wrote, over either
-  package's filer, byte for byte.
+  package's filer, byte for byte: the port's at once, the JAX package's
+  once its meta cache has applied the writer's last event.
 - ``MountSync``'s state file and ``copy_from_filer``'s tree are the JAX
   package's: a state file written by one package's sync is resumed by the
   other's.
@@ -33,8 +34,10 @@ import pytest
 from seaweedfs_tpu.mount import WFS as JWFS
 from seaweedfs_tpu.mount import ContinuousIntervals as JIntervals
 from seaweedfs_tpu.mount.sync import MountSync as JMountSync
+from seaweedfs_tpu_torch.filer.client import FilerClient as PFilerClient
 from seaweedfs_tpu_torch.mount import WFS as PWFS
 from seaweedfs_tpu_torch.mount import ContinuousIntervals as PIntervals
+from seaweedfs_tpu_torch.mount.meta_cache import read_feed
 from seaweedfs_tpu_torch.mount.sync import MountSync as PMountSync
 
 import gateway_pair
@@ -155,10 +158,25 @@ def test_wfs_reads_the_other_packages_tree(stacks, filer_kind, writer):
     r = WFS_OF[reader](url, chunk_size=64 * 1024)  # the reader's meta cache on
     try:
         _script(w, root, 7)
+        if reader == "jax":
+            _until_applied(r.meta_cache, url)
         assert _tree(r, root) == _tree(w, root)
     finally:
         w.close()
         r.close()
+
+
+def _until_applied(cache, url: str, timeout: float = 10.0) -> None:
+    """Wait until ``cache`` has applied the filer's last event. The JAX
+    package's cache replays an event older than a listing over it (an entry
+    the writer renamed away comes back until a later poll), where the port's
+    drops it: so a JAX reader walks the tree only once its poller is past
+    the writer's last event, and a port reader at once."""
+    head = read_feed(PFilerClient(url), cache._last_ts_ns)[1]
+    deadline = time.time() + timeout
+    while cache._last_ts_ns < head and time.time() < deadline:
+        time.sleep(0.05)
+    assert cache._last_ts_ns >= head, "the JAX reader's cache never caught up"
 
 
 @pytest.mark.parametrize("first", ["jax", "port"])
