@@ -946,25 +946,41 @@ static bool send_502(int cfd, const char* msg) {
   return send_all_blocking(cfd, b, blen);
 }
 
+static uint64_t now_ns();
+
 // Blocking proxy, runs in its own detached thread with its own backend
 // connection.  Returns true if the client connection is still usable.
+// The request goes on as it came, with one header added after its request
+// line: X-Sweed-Engine-Ns, when this proxy began (CLOCK_REALTIME ns), so the
+// daemon's span of the request can tell how long it waited behind the proxy.
 static bool proxy_blocking(Engine* e, int cfd, const std::string& raw,
                            bool is_head) {
+  uint64_t began = now_ns();
   e->n_proxy++;
   int bfd = backend_connect(e);
   if (bfd < 0) return send_502(cfd, "{\"error\": \"backend unreachable\"}");
   bool client_ok = true;
   bool done = false;
-  // forward raw request bytes
-  size_t off = 0;
-  while (off < raw.size()) {
-    ssize_t n = send(bfd, raw.data() + off, raw.size() - off, MSG_NOSIGNAL);
-    if (n <= 0) {
-      client_ok = send_502(cfd, "{\"error\": \"backend send failed\"}");
-      done = true;
-      break;
+  // forward the request line, the stamp, then the rest of the raw bytes
+  size_t line = raw.find("\r\n");
+  line = line == std::string::npos ? raw.size() : line + 2;
+  char stamp[64];
+  int slen = snprintf(stamp, sizeof(stamp), "X-Sweed-Engine-Ns: %llu\r\n",
+                      (unsigned long long)began);
+  const char* part[3] = {raw.data(), stamp, raw.data() + line};
+  size_t plen[3] = {line, line < raw.size() ? (size_t)slen : 0, raw.size() - line};
+  for (int p = 0; p < 3 && !done; p++) {
+    size_t off = 0;
+    while (off < plen[p]) {
+      ssize_t n = send(bfd, part[p] + off, plen[p] - off,
+                       MSG_NOSIGNAL | (p < 2 ? MSG_MORE : 0));
+      if (n <= 0) {
+        client_ok = send_502(cfd, "{\"error\": \"backend send failed\"}");
+        done = true;
+        break;
+      }
+      off += n;
     }
-    off += n;
   }
   std::string rh;
   char buf[65536];

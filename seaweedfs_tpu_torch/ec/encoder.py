@@ -25,6 +25,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..stats import trace as _trace
 from ..storage import idx as idx_mod
 from ..storage.types import OFFSET_SIZE, TOMBSTONE_FILE_SIZE
 from ..util import faultpoints
@@ -39,6 +40,9 @@ from .constants import (
 # waiting in the write queue, one being written — _overlap_pipeline's queues
 # never hold more fetched chunks than that.
 FETCH_RING_DEPTH = 3
+
+# the span of each stage of _overlap_pipeline
+_LEG_SPANS = {"read": "ec.read", "compute": "ec.h2d", "fetch": "ec.d2h", "write": "ec.write"}
 
 
 def _is_hole(fd: int, start: int, length: int) -> bool:
@@ -315,7 +319,8 @@ def write_ec_files(
 
 
 def _overlap_pipeline(produce, compute, consume, fetch,
-                      stats: Optional[dict] = None, release=None) -> None:
+                      stats: Optional[dict] = None, release=None,
+                      nbytes=None) -> None:
     """Four-stage overlap shared by encode and rebuild: a reader thread
     runs `produce` (an iterator of host chunks), the main thread runs
     `compute` (H2D copy + kernel launch, both asynchronous), a fetch thread
@@ -326,10 +331,17 @@ def _overlap_pipeline(produce, compute, consume, fetch,
     every fetched chunk that the writer drops unconsumed after a failure,
     so the fetch leg's buffers go back to their ring.
 
-    With a ``stats`` dict, per-stage BUSY time (time inside the stage
-    callable, excluding queue blocking) and wall time are recorded, plus
-    ``efficiency`` = max(stage busy) / wall — 1.0 means the slowest stage
-    fully hides the others, i.e. wall ≈ max(stage) rather than Σ(stages)."""
+    Each call of a stage callable is one span (``stats/trace.py``) on its
+    thread, parented on the caller's span: ``ec.read`` (produce), ``ec.h2d``
+    (compute), ``ec.d2h`` (fetch) and ``ec.write`` (consume), tagged with
+    the ``bytes`` that ``nbytes(stage, got, out)`` gives for the call's
+    argument and result (``got`` is None for produce). With a ``stats``
+    dict, per-stage BUSY time (the sum of the stage's span times: time
+    inside the stage callable, excluding queue blocking) and wall time are
+    recorded, plus ``efficiency`` = max(stage busy) / wall — 1.0 means the
+    slowest stage fully hides the others, i.e. wall ≈ max(stage) rather
+    than Σ(stages)."""
+    import contextvars
     import threading
     import time as _time
 
@@ -343,13 +355,22 @@ def _overlap_pipeline(produce, compute, consume, fetch,
     busy = {"read": 0.0, "compute": 0.0, "fetch": 0.0, "write": 0.0}
     t_wall = _time.perf_counter()
 
+    def leg(stage: str, fn, got=None):
+        """One call of a stage callable, timed once: its span's stamps
+        give the stage's busy time."""
+        scope = _trace.start_span(_LEG_SPANS[stage], service="ec")
+        with scope:
+            out = fn() if got is None else fn(got)
+            if nbytes is not None:
+                scope.tag(bytes=nbytes(stage, got, out))
+        busy[stage] += scope.seconds
+        return out
+
     def reader():
         try:
             it = produce()
             while True:
-                t0 = _time.perf_counter()
-                item = next(it, None)
-                busy["read"] += _time.perf_counter() - t0
+                item = leg("read", lambda: next(it, None))
                 if item is None or errors:
                     return
                 read_q.put(item)
@@ -364,10 +385,7 @@ def _overlap_pipeline(produce, compute, consume, fetch,
                 got = fetch_q.get()
                 if got is None:
                     return
-                t0 = _time.perf_counter()
-                out = fetch(got)
-                busy["fetch"] += _time.perf_counter() - t0
-                write_q.put(out)
+                write_q.put(leg("fetch", fetch, got))
         except BaseException as e:
             errors.append(e)
             while fetch_q.get() is not None:  # drain so the feeder unblocks
@@ -381,9 +399,7 @@ def _overlap_pipeline(produce, compute, consume, fetch,
                 got = write_q.get()
                 if got is None:
                     return
-                t0 = _time.perf_counter()
-                consume(got)
-                busy["write"] += _time.perf_counter() - t0
+                leg("write", consume, got)
         except BaseException as e:
             errors.append(e)
             while True:  # drain so the fetcher unblocks
@@ -393,9 +409,10 @@ def _overlap_pipeline(produce, compute, consume, fetch,
                 if release is not None:
                     release(got)
 
-    rt = threading.Thread(target=reader, daemon=True)
-    wt = threading.Thread(target=writer, daemon=True)
-    ft = threading.Thread(target=fetcher, daemon=True)
+    # each leg thread runs in a copy of the caller's context, so its spans
+    # join the caller's trace
+    rt, wt, ft = (threading.Thread(target=contextvars.copy_context().run, args=(f,),
+                                   daemon=True) for f in (reader, writer, fetcher))
     rt.start()
     wt.start()
     ft.start()
@@ -407,10 +424,7 @@ def _overlap_pipeline(produce, compute, consume, fetch,
             if errors:
                 continue  # keep draining so the reader can finish
             try:
-                t0 = _time.perf_counter()
-                out = compute(got)
-                busy["compute"] += _time.perf_counter() - t0
-                fetch_q.put(out)
+                fetch_q.put(leg("compute", compute, got))
             except BaseException as e:
                 errors.append(e)
     finally:
@@ -477,6 +491,13 @@ def _encode_pipelined(dat, items, codec, outputs, dat_size: int,
         if got[3] is not None:
             ring.put(got[3])
 
+    def nbytes(stage, got, out):
+        if stage == "read":
+            return 0 if out is None else out[1].nbytes
+        if stage == "compute":
+            return 0 if out[2] is None else got[1].nbytes
+        return 0 if got[2] is None else (m if stage == "fetch" else k + m) * got[0]
+
     def consume(got):
         try:
             faultpoints.fire("ec.encode.chunk", path=outputs[0].name)
@@ -493,7 +514,7 @@ def _encode_pipelined(dat, items, codec, outputs, dat_size: int,
             release(got)
 
     _overlap_pipeline(produce, compute, consume, fetch, stats=stats,
-                      release=release)
+                      release=release, nbytes=nbytes)
 
 
 def rebuild_ec_files(
@@ -621,6 +642,13 @@ def _rebuild_pipelined(codec, ins, outs, missing, shard_size, chunk,
         if got[2] is not None:
             ring.put(got[2])
 
+    def nbytes(stage, got, out):
+        if stage == "read":
+            return 0 if out is None else out[1].nbytes
+        if stage == "compute":
+            return 0 if out[1] is None else got[1].nbytes
+        return 0 if got[1] is None else len(missing) * got[0]
+
     def consume(got):
         try:
             width, out, _ = got
@@ -634,7 +662,7 @@ def _rebuild_pipelined(codec, ins, outs, missing, shard_size, chunk,
             release(got)
 
     _overlap_pipeline(produce, compute, consume, fetch, stats=stats,
-                      release=release)
+                      release=release, nbytes=nbytes)
 
 
 # -- .ecx sorted index -------------------------------------------------------

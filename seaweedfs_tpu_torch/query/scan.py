@@ -20,6 +20,12 @@ Pipeline per CSV batch (the columnar format; the one the tree covers):
    compares, equality, lexicographic ordering, contains / starts_with) runs
    as tensor ops, and only two bool masks come back (``to_host``).
 
+Each step runs under a span of its layer (``stats/trace.py``): the
+structural index and the field vectors under ``query.index`` (rows), the
+staging, the tree and ``to_host`` under ``query.device`` (bytes staged),
+and the exact lane and the row building under ``query.rows`` (rows in and
+out).
+
 Backends: ``cuda`` (the default) and ``cpu``, the same tensor graph on CPU
 tensors, which the tests use. ``$SWEED_QUERY_BACKEND`` overrides the
 default. A ``cuda`` plan on a machine without a card raises an error that
@@ -64,12 +70,12 @@ import csv
 import io
 import json
 import os
-import threading
 from typing import Any, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
 
+from ..stats import trace as _trace
 from ..stats.metrics import QUERY_COUNTERS
 from . import engine as _engine
 
@@ -399,11 +405,8 @@ def _leaf_fields(flt, out):
 class TorchKernels:
     """Runs a plan's predicate tree on one device: ``cuda``, or ``cpu``
     (the same tensor graph on CPU tensors: the plain version the tests
-    use). ``evaluations`` counts tree evaluations per device name, over
-    every plan and thread."""
-
-    evaluations: dict[str, int] = {"cuda": 0, "cpu": 0}
-    _count_lock = threading.Lock()
+    use). ``sweed_query_rows_kernel_total`` counts the rows its tree
+    decided, by device name (``backend``)."""
 
     def __init__(self, device: str):
         if device == "cuda" and not torch.cuda.is_available():
@@ -426,8 +429,6 @@ class TorchKernels:
 
     def evaluate(self, tree, pad, vecs, widths) -> torch.Tensor:
         """One batch through the tree -> bool [2, rows]: match, valid."""
-        with TorchKernels._count_lock:
-            TorchKernels.evaluations[self.name] += 1
         return torch.stack(tree(pad, vecs, widths))
 
     def to_host(self, x: torch.Tensor) -> np.ndarray:
@@ -588,7 +589,7 @@ class ScanPlan:
         self.stats["rows_fallback"] += fallback
         if kernel:
             QUERY_COUNTERS["rows"].inc(kernel)
-            QUERY_COUNTERS["kernel"].inc(kernel)
+            QUERY_COUNTERS["kernel"].inc(kernel, backend=self.kernels.name)
         if fallback:
             QUERY_COUNTERS["rows"].inc(fallback)
             QUERY_COUNTERS["fallback"].inc(fallback)
@@ -600,36 +601,27 @@ class ScanPlan:
         index cannot be trusted for. Byte accounting happens once per
         incoming chunk in _scan_csv, not here."""
         tail = None
-        q1, q2 = seg.find(b'"'), seg.find(b"\r")
-        q = min(x for x in (q1, q2) if x >= 0) if max(q1, q2) >= 0 else -1
-        if q >= 0:
-            ls = seg.rfind(b"\n", 0, q) + 1
-            seg, tail = seg[:ls], seg[ls:]
-        consumed = 0
-        if header is None and seg:
-            nl = seg.find(b"\n")
-            first = seg if nl < 0 else seg[:nl]
-            consumed = len(seg) if nl < 0 else nl + 1
-            got = list(csv.reader([first.decode("utf-8", errors="replace")]))
-            header = got[0] if got else []
-        if header is None:
-            # no complete line yet and a quote in the header region
-            return header, [], tail
-        body = seg[consumed:]
         rows: list[dict] = []
-        if body:
+        with _trace.start_span("query.index", service="query") as ix:
+            q1, q2 = seg.find(b'"'), seg.find(b"\r")
+            q = min(x for x in (q1, q2) if x >= 0) if max(q1, q2) >= 0 else -1
+            if q >= 0:
+                ls = seg.rfind(b"\n", 0, q) + 1
+                seg, tail = seg[:ls], seg[ls:]
+            consumed = 0
+            if header is None and seg:
+                nl = seg.find(b"\n")
+                first = seg if nl < 0 else seg[:nl]
+                consumed = len(seg) if nl < 0 else nl + 1
+                got = list(csv.reader([first.decode("utf-8", errors="replace")]))
+                header = got[0] if got else []
+            if header is None:
+                # no complete line yet and a quote in the header region
+                return header, rows, tail
+            body = seg[consumed:]
+            if not body:
+                return header, rows, tail
             arr = np.frombuffer(body, np.uint8)
-            if self._tree is not None:
-                # pad once so field gathers need no per-batch clamping: any
-                # in-bounds span plus the width overhang lands in the pad.
-                # Only the overhang window needs zeroing: every read past a
-                # field's length is masked by lens/colmask
-                pad = np.empty(len(arr) + _MAX_FIELD_W + 8, dtype=np.uint8)
-                pad[: len(arr)] = arr
-                pad[len(arr):] = 0
-                staged = self.kernels.stage(pad)
-            else:
-                staged = None
             idt = np.int32 if len(arr) < 2**31 - 2 * _MAX_FIELD_W else np.int64
             nls = np.flatnonzero(arr == 10).astype(idt)
             starts = np.empty(len(nls) + 1, dtype=idt)
@@ -661,18 +653,33 @@ class ScanPlan:
                 commas, ci0, ci1 = None, None, None
             if not allkeep:
                 starts, ends = starts[keep], ends[keep]
-            for lo in range(0, len(starts), _ROW_BATCH):
-                if room >= 0 and len(rows) >= room:
-                    break
-                hi = min(lo + _ROW_BATCH, len(starts))
-                rows.extend(
-                    self._csv_batch(
-                        body, staged, starts[lo:hi], ends[lo:hi], commas,
-                        None if ci0 is None else ci0[lo:hi],
-                        None if ci1 is None else ci1[lo:hi], header,
-                        -1 if room < 0 else room - len(rows),
-                    )
+            if ix is not None:
+                ix.tags.update(rows=len(starts), bytes=len(body))
+        staged = None
+        if self._tree is not None:
+            with _trace.start_span("query.device", service="query") as dv:
+                # pad once so field gathers need no per-batch clamping: any
+                # in-bounds span plus the width overhang lands in the pad.
+                # Only the overhang window needs zeroing: every read past a
+                # field's length is masked by lens/colmask
+                pad = np.empty(len(arr) + _MAX_FIELD_W + 8, dtype=np.uint8)
+                pad[: len(arr)] = arr
+                pad[len(arr):] = 0
+                staged = self.kernels.stage(pad)
+                if dv is not None:
+                    dv.tags["bytes"] = pad.nbytes
+        for lo in range(0, len(starts), _ROW_BATCH):
+            if room >= 0 and len(rows) >= room:
+                break
+            hi = min(lo + _ROW_BATCH, len(starts))
+            rows.extend(
+                self._csv_batch(
+                    body, staged, starts[lo:hi], ends[lo:hi], commas,
+                    None if ci0 is None else ci0[lo:hi],
+                    None if ci1 is None else ci1[lo:hi], header,
+                    -1 if room < 0 else room - len(rows),
                 )
+            )
         return header, rows, tail
 
     def _field_vectors(self, starts, ends, commas, ci0, ci1, header, exact):
@@ -706,10 +713,28 @@ class ScanPlan:
         n = len(starts)
         exact = np.zeros(n, dtype=bool)
         if self._tree is not None:
-            vecs, widths = self._field_vectors(starts, ends, commas, ci0, ci1,
-                                               header, exact)
-            masks = self.kernels.to_host(self.kernels.evaluate(
-                self._tree, staged, self.kernels.stage(vecs), widths))
+            with _trace.start_span("query.index", service="query") as ix:
+                vecs, widths = self._field_vectors(starts, ends, commas, ci0, ci1,
+                                                   header, exact)
+                if ix is not None:
+                    ix.tags["batch_rows"] = n
+            with _trace.start_span("query.device", service="query") as dv:
+                masks = self.kernels.to_host(self.kernels.evaluate(
+                    self._tree, staged, self.kernels.stage(vecs), widths))
+                if dv is not None:
+                    dv.tags["bytes"] = vecs.nbytes
+        with _trace.start_span("query.rows", service="query") as rs:
+            out = self._batch_rows(body, starts, ends, header, room, exact,
+                                   masks if self._tree is not None else None)
+            if rs is not None:
+                rs.tags.update(rows_in=n, rows_out=len(out))
+        return out
+
+    def _batch_rows(self, body, starts, ends, header, room, exact, masks):
+        """The rows of one batch that the WHERE keeps, projected: the tree's
+        masks where it decided, the exact lane where it did not."""
+        n = len(starts)
+        if masks is not None:
             match, valid = masks[0], masks[1]
             sel = match & valid & ~exact
             exact |= ~valid
@@ -775,20 +800,23 @@ class ScanPlan:
         """Exact lane for quoted / CR-bearing regions: the stdlib csv parser
         resumed at a record boundary with the header captured by the
         vectorized prefix."""
-        text = data.decode("utf-8", errors="replace")
-        if header is None:
-            reader = csv.DictReader(io.StringIO(text))
-        else:
-            reader = csv.DictReader(io.StringIO(text), fieldnames=header)
-        out = []
-        nrows = 0
-        for doc in reader:
-            nrows += 1
-            if _engine._matches(doc, self.where):
-                out.append(_engine._project(doc, self.select))
-                if room >= 0 and len(out) >= room:
-                    break
-        self._count_rows(0, nrows)
+        with _trace.start_span("query.rows", service="query") as rs:
+            text = data.decode("utf-8", errors="replace")
+            if header is None:
+                reader = csv.DictReader(io.StringIO(text))
+            else:
+                reader = csv.DictReader(io.StringIO(text), fieldnames=header)
+            out = []
+            nrows = 0
+            for doc in reader:
+                nrows += 1
+                if _engine._matches(doc, self.where):
+                    out.append(_engine._project(doc, self.select))
+                    if room >= 0 and len(out) >= room:
+                        break
+            self._count_rows(0, nrows)
+            if rs is not None:
+                rs.tags.update(rows_in=nrows, rows_out=len(out))
         return out
 
     # -- JSON ---------------------------------------------------------------

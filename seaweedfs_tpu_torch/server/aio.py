@@ -71,6 +71,7 @@ from .http_util import (
     admission_reject_response,
     count_qos_decision,
     dynamic_retry_after,
+    engine_ns,
     observe_tenant_request,
     request_tenant,
     serving_watermark,
@@ -819,6 +820,7 @@ class AioHTTPServer:
             parent_header=headers.get(_trace.TRACE_HEADER),
             path=parsed.path,
         ) as span:
+            engine_ns(span, headers)
             try:
                 with _deadline.scope(ddl):
                     result = await fn(req, parsed.path, query)

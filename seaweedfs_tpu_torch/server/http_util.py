@@ -69,6 +69,16 @@ def mark_cluster_process() -> None:
     _cluster_process = True
 
 
+def engine_ns(span, headers) -> None:
+    """Tag a server span with the instant the native engine began to proxy
+    its request (``X-Sweed-Engine-Ns``), where it did."""
+    if span is None:
+        return
+    raw = headers.get(_trace.ENGINE_NS_HEADER)
+    if raw and raw.isascii() and raw.isdigit():
+        span.tags["engine_ns"] = int(raw)
+
+
 def _trace_headers(headers: Optional[dict]) -> Optional[dict]:
     """Outbound headers of every internal HTTP call: the active span as
     ``X-Sweed-Trace: <trace_id>:<span_id>`` (the receiver's server span joins
@@ -470,6 +480,15 @@ class JsonHandler(BaseHTTPRequestHandler):
         fn._streaming = True
         return fn
 
+    @staticmethod
+    def mark_reply_span(fn):
+        """Tag a route handler whose JSON reply is a layer's work (rows of a
+        query): the encoding and writing of its reply get a
+        ``daemon.reply`` span under the server span, in both serving cores
+        (the aio core runs such routes through this dispatch)."""
+        fn._reply_span = True
+        return fn
+
     def _dispatch(self, method: str) -> None:
         parsed = urllib.parse.urlparse(self.path)
         query = {k: v[0] for k, v in urllib.parse.parse_qs(parsed.query).items()}
@@ -512,6 +531,7 @@ class JsonHandler(BaseHTTPRequestHandler):
                 with _trace.start_span(f"{method} {prefix}", service=self.trace_service,
                                        parent_header=self.headers.get(_trace.TRACE_HEADER),
                                        path=parsed.path) as span:
+                    engine_ns(span, self.headers)
                     cancelled = False
                     try:
                         with _deadline.scope(ddl):
@@ -552,7 +572,13 @@ class JsonHandler(BaseHTTPRequestHandler):
                         self.extra_headers = dict(self.extra_headers or {})
                         self.extra_headers.setdefault(_trace.TRACE_ID_HEADER, span.trace_id)
                     glog.V(2).info("%s %s -> %d", method, parsed.path, status)
-                    self._reply(status, payload, head_only=(method == "HEAD"))
+                    if getattr(fn, "_reply_span", False) and isinstance(payload, (dict, list)):
+                        with _trace.start_span("daemon.reply", service=self.trace_service) as rs:
+                            n = self._reply(status, payload, head_only=(method == "HEAD"))
+                            if rs is not None:
+                                rs.tags["bytes"] = n
+                    else:
+                        self._reply(status, payload, head_only=(method == "HEAD"))
                     dt = time.monotonic() - t0
                     SERVING.note_request_seconds(dt)
                     observe_tenant_request(tenant, dt)
@@ -589,13 +615,15 @@ class JsonHandler(BaseHTTPRequestHandler):
         self._shed_keepalive_if_overloaded()
         self.end_headers()
 
-    def _reply(self, status: int, payload, head_only: bool = False) -> None:
+    def _reply(self, status: int, payload, head_only: bool = False) -> int:
+        """Send the reply; returns the bytes of an in-memory body (0 for a
+        streamed or sendfile'd one)."""
         if isinstance(payload, StreamBody):
             self._reply_stream(status, payload, head_only)
-            return
+            return 0
         if isinstance(payload, SendfileBody):
             self._reply_sendfile(status, payload, head_only)
-            return
+            return 0
         if isinstance(payload, (bytes, bytearray, memoryview)):
             data = bytes(payload)
             ctype = "application/octet-stream"
@@ -604,11 +632,12 @@ class JsonHandler(BaseHTTPRequestHandler):
             ctype = "application/json"
         self._send_head(status, ctype, str(len(data)))
         if head_only:
-            return
+            return len(data)
         try:
             self.wfile.write(data)
         except (BrokenPipeError, ConnectionResetError):
             self.close_connection = True
+        return len(data)
 
     def _reply_sendfile(self, status: int, body: SendfileBody, head_only: bool) -> None:
         """Zero-copy reply: the headers through the normal path, then the

@@ -699,6 +699,7 @@ class VolumeServer:
                 return status, data
         return 404, b""
 
+    @JsonHandler.mark_reply_span
     def _h_query(self, h, path, q, body):
         """Data-local query: run an S3-Select-ish request against a needle
         this server holds, without shipping the bytes anywhere
@@ -722,7 +723,10 @@ class VolumeServer:
             return 400, {"error": f"bad fid {fid!r}"}
         if self.store.find_volume(vid) is None and self.store.find_ec_volume(vid) is None:
             return 404, {"error": f"volume {vid} not local"}
-        status, data = self._fetch_fid(fid)
+        with trace.start_span("daemon.needle_read", service="volume") as span:
+            status, data = self._fetch_fid(fid)
+            if span is not None:
+                span.tags["bytes"] = len(data)
         if status != 200:
             return status, {"error": f"needle {fid}: HTTP {status}"}
         with self._query_lock:

@@ -502,7 +502,7 @@ def register_query_metrics(registry: Optional[Registry] = None) -> dict[str, Cou
         "bytes": reg.counter("sweed_query_bytes_scanned_total",
                              "object bytes fed through scan plans"),
         "kernel": reg.counter("sweed_query_rows_kernel_total",
-                              "rows decided by the vectorized kernels"),
+                              "rows decided by the vectorized kernels, by backend label"),
         "fallback": reg.counter("sweed_query_rows_fallback_total",
                                 "rows routed to the row-at-a-time exact lane"),
         "scans": reg.counter("sweed_query_scans_total",

@@ -19,6 +19,19 @@ The port of the JAX package's ``stats/trace.py``:
   command is not ported yet).
 - Slow requests: a span slower than ``SWEED_TRACE_SLOW_MS`` (default 1000)
   logs a warning with its trace id.
+- Layer spans: inside a request the port's layers open spans of their own
+  (``daemon.needle_read``, ``query.index``, ``query.device``,
+  ``query.rows``, ``daemon.reply``; ``ec.read``, ``ec.h2d``, ``ec.d2h``,
+  ``ec.write``; ``store.sums``, ``store.commit``, ``store.ec_read``,
+  ``store.fetch_sibling``, ``store.reconstruct``), each with its work as
+  tags (bytes, rows, shards, files).
+- Clock: a span stamps ``start_ns`` from ``time.time_ns()`` (the clock in
+  which ``torch.profiler`` stamps device events) and ``end_ns`` as
+  ``start_ns`` plus a ``perf_counter_ns`` delta, and records the native id
+  of the thread it ran on.
+- ``Recorder``: while one is open it receives every span the process
+  finishes, besides the ring, so that a measured window keeps all of its
+  spans however many the ring would drop.
 
 Ids are random hex: 16 chars of trace id, 8 of span id.
 """
@@ -28,6 +41,7 @@ from __future__ import annotations
 import contextvars
 import os
 import random
+import threading
 import time
 from collections import deque
 from typing import Optional
@@ -38,6 +52,9 @@ from ..util.racecheck import instrument
 
 TRACE_HEADER = "X-Sweed-Trace"
 TRACE_ID_HEADER = "X-Sweed-Trace-Id"  # response: tells the client its trace
+# request, set by the native engine on what it proxies to the daemon: when
+# it began to proxy, in ns since the epoch (CLOCK_REALTIME)
+ENGINE_NS_HEADER = "X-Sweed-Engine-Ns"
 
 
 def enabled() -> bool:
@@ -94,7 +111,7 @@ class Span:
 
     __slots__ = (
         "trace_id", "span_id", "parent_id", "name", "service",
-        "start", "duration", "tags", "status",
+        "start_ns", "end_ns", "thread", "tags", "status",
     )
 
     def __init__(
@@ -109,10 +126,20 @@ class Span:
         self.parent_id = parent_id
         self.name = name
         self.service = service
-        self.start = time.time()
-        self.duration = 0.0
+        self.start_ns = self.end_ns = time.time_ns()
+        self.thread = threading.get_native_id()
         self.tags: dict = {}
         self.status = "ok"
+
+    @property
+    def start(self) -> float:
+        """Seconds since the epoch."""
+        return self.start_ns / 1e9
+
+    @property
+    def duration(self) -> float:
+        """Seconds."""
+        return (self.end_ns - self.start_ns) / 1e9
 
     def to_dict(self) -> dict:
         return {
@@ -123,6 +150,9 @@ class Span:
             "service": self.service,
             "start": self.start,
             "duration_ms": round(self.duration * 1000.0, 3),
+            "start_ns": self.start_ns,
+            "end_ns": self.end_ns,
+            "thread": self.thread,
             "tags": dict(self.tags),
             "status": self.status,
         }
@@ -226,38 +256,85 @@ def trace_stats() -> dict:
     return RING.stats()
 
 
+class Recorder:
+    """Every span the process finishes while it is open, in finish order,
+    besides the ring: ``with Recorder() as rec: ...`` then ``rec.spans``
+    (the ``Span`` objects) or ``rec.dicts()``."""
+
+    def __init__(self):
+        self.spans: list[Span] = []
+
+    def open(self) -> "Recorder":
+        with _recorders_lock:
+            _recorders.append(self)
+        return self
+
+    def close(self) -> None:
+        with _recorders_lock:
+            if self in _recorders:
+                _recorders.remove(self)
+
+    def __enter__(self) -> "Recorder":
+        return self.open()
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def dicts(self) -> list[dict]:
+        return [s.to_dict() for s in self.spans]
+
+
+_recorders: list[Recorder] = []
+_recorders_lock = threading.Lock()
+
+
 class _SpanScope:
     """Context manager that owns one span's contextvar window. ``span``
-    is None when tracing is disabled — callers guard tag writes on it."""
+    is None when tracing is disabled — callers guard tag writes on it, or
+    use ``tag``. ``seconds`` is the time between enter and exit, measured
+    whether or not a span is recorded, so a caller that keeps its own
+    tally reads the span's own stamps."""
 
-    __slots__ = ("span", "_token", "_t0")
+    __slots__ = ("span", "seconds", "_token", "_t0")
 
     def __init__(self, span: Optional[Span]):
         self.span = span
+        self.seconds = 0.0
         self._token = None
-        self._t0 = 0.0
+        self._t0 = 0
+
+    def tag(self, **tags) -> None:
+        if self.span is not None:
+            self.span.tags.update(tags)
 
     def __enter__(self) -> Optional[Span]:
         if self.span is not None:
-            self._t0 = time.perf_counter()
             self._token = _current.set(self.span)
+            self.span.start_ns = time.time_ns()
+        self._t0 = time.perf_counter_ns()
         return self.span
 
     def __exit__(self, exc_type, exc, tb) -> None:
+        dt_ns = time.perf_counter_ns() - self._t0
+        self.seconds = dt_ns / 1e9
         if self.span is None:
             return
         _current.reset(self._token)
-        self.span.duration = time.perf_counter() - self._t0
+        self.span.end_ns = self.span.start_ns + dt_ns
         if exc_type is not None:
             self.span.status = "error"
             self.span.tags.setdefault("error", exc_type.__name__)
         RING.add(self.span)
+        # read without the lock: a recorder opened or closed at this
+        # instant may miss the span, never the rest of its window
+        for rec in _recorders:
+            rec.spans.append(self.span)
         slow = slow_threshold_s()
-        if slow and self.span.duration >= slow:
+        if slow and self.seconds >= slow:
             glog.warning(
                 "slow request: %s %s took %.1fms (trace %s span %s)",
                 self.span.service, self.span.name,
-                self.span.duration * 1000.0,
+                self.seconds * 1000.0,
                 self.span.trace_id, self.span.span_id,
             )
 

@@ -13,6 +13,12 @@ The EC pieces are module functions (``ec_encode_volume``,
 ``read_ec_shard_needle``, ``recover_interval``) that take the codec and the
 remote reader as arguments; the ``Store`` methods call them with its own.
 
+The EC read path runs under spans (``stats/trace.py``): ``store.ec_read``
+for each interval read, ``store.fetch_sibling`` for each remote shard fetch
+and ``store.reconstruct`` for each codec reconstruct, each tagged with its
+bytes; the seal's shard sums run under ``store.sums`` and its staged commit
+under ``store.commit``.
+
 Two departures from the JAX package's read path, in timing and fetch order
 only (the bytes are the same for any k survivors): a reader that reports no
 holder for a shard (``NoShardHolderError``) gets no further attempt and no
@@ -41,6 +47,7 @@ from ..ec.constants import LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE, TOTAL_SHARDS, sha
 from ..ec.ec_volume import EcVolume, NeedsShardError
 from ..ec.ec_volume import NotFoundError as EcNotFoundError
 from ..stats import heat
+from ..stats import trace
 from ..util import faultpoints, glog
 from ..util.locks import make_lock, make_rlock
 from ..util.retry import POISON, TRANSIENT, RetryError, RetryPolicy, retry_call
@@ -86,16 +93,22 @@ def ec_encode_volume(base: str, codec: Codec, version: int = 3,
         encoder.write_sorted_file_from_idx(base, ext=".ecx.tmp")
         # per-shard sha256 into the .vif: the integrity ground truth (RS is
         # deterministic, so rebuilt shards hash identically)
-        sums = []
-        for sid in range(TOTAL_SHARDS):
-            digest = hashlib.sha256()
-            with open(base + shard_ext(sid) + ".tmp", "rb") as sf:
-                for chunk in iter(lambda: sf.read(1 << 20), b""):
-                    digest.update(chunk)
-            sums.append(digest.hexdigest())
+        sums, hashed = [], 0
+        with trace.start_span("store.sums", service="store") as span:
+            for sid in range(TOTAL_SHARDS):
+                digest = hashlib.sha256()
+                with open(base + shard_ext(sid) + ".tmp", "rb") as sf:
+                    for chunk in iter(lambda: sf.read(1 << 20), b""):
+                        digest.update(chunk)
+                        hashed += len(chunk)
+                sums.append(digest.hexdigest())
+            if span is not None:
+                span.tags.update(bytes=hashed, shards=TOTAL_SHARDS)
         encoder.save_volume_info(vif_tmp, version=version,
                                  replication=replication, shard_sums=sums)
-        sc.commit()
+        # the 14 shards, the .ecx and the .vif
+        with trace.start_span("store.commit", service="store", files=TOTAL_SHARDS + 2):
+            sc.commit()
     except BaseException:
         sc.abort()
         raise
@@ -180,16 +193,27 @@ class EcNeedleReader:
 
 def _read_interval(ev: EcVolume, codec: CodecArg, interval,
                    remote_read: Optional[RemoteShardReader]) -> bytes:
-    try:
-        return ev.read_interval_local(interval)
-    except NeedsShardError:
-        sid, soff = interval.to_shard_id_and_offset(
-            LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE, ev.data_shards)
-        if remote_read is not None:
-            data = remote_read(ev.id, sid, soff, interval.size)
-            if data is not None:
-                return data
-        return recover_interval(ev, codec, sid, soff, interval.size, remote_read)
+    with trace.start_span("store.ec_read", service="store", bytes=interval.size):
+        try:
+            return ev.read_interval_local(interval)
+        except NeedsShardError:
+            sid, soff = interval.to_shard_id_and_offset(
+                LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE, ev.data_shards)
+            if remote_read is not None:
+                data = _fetch_remote(remote_read, ev.id, sid, soff, interval.size)
+                if data is not None:
+                    return data
+            return recover_interval(ev, codec, sid, soff, interval.size, remote_read)
+
+
+def _fetch_remote(remote_read: RemoteShardReader, vid: int, sid: int, offset: int,
+                  size: int) -> Optional[bytes]:
+    """One remote shard fetch, under its span."""
+    with trace.start_span("store.fetch_sibling", service="store", shard=sid) as span:
+        data = remote_read(vid, sid, offset, size)
+        if span is not None:
+            span.tags["bytes"] = 0 if data is None else len(data)
+    return data
 
 
 def recover_interval(ev: EcVolume, codec: CodecArg, missing_shard: int,
@@ -223,7 +247,9 @@ def recover_interval(ev: EcVolume, codec: CodecArg, missing_shard: int,
             f"volume {ev.id} shard {missing_shard}: only {have} shards reachable")
     if not isinstance(codec, Codec):
         codec = codec()
-    rebuilt = codec.reconstruct(shards, data_only=missing_shard < ev.data_shards)
+    with trace.start_span("store.reconstruct", service="store", shard=missing_shard,
+                          bytes=size):
+        rebuilt = codec.reconstruct(shards, data_only=missing_shard < ev.data_shards)
     return rebuilt[missing_shard].tobytes()
 
 
@@ -239,7 +265,8 @@ def _fetch_siblings(vid: int, candidates: list[int], need: int, offset: int, siz
     got = 0
     with ThreadPoolExecutor(max_workers=need, thread_name_prefix="ec-sibling") as pool:
         def start(sid: int):
-            return pool.submit(ctx.copy().run, remote_read, vid, sid, offset, size)
+            return pool.submit(ctx.copy().run, _fetch_remote, remote_read, vid, sid, offset,
+                               size)
 
         running = {start(sid): sid for sid in itertools.islice(pending, need)}
         while running:

@@ -1,0 +1,10 @@
+"""``query.device_ms.read``: the host feeding the card and waiting for it:
+staging, the tree, ``to_host`` (``query.device``), as the mean self time per
+query answered in the window (its span's time less its children's), from the
+program's spans (``swbench/spans.py``)."""
+
+from swbench import spans
+
+
+def read(run):
+    return spans.query_self_ms(run, "query.device")

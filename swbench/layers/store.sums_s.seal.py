@@ -1,0 +1,10 @@
+"""``store.sums_s.seal``: the seal's sha256 of the 14 staged shards
+(``store.sums``), in seconds per cycle: the summed spans under the window's
+generate and rebuild server spans over the generates that ended in the
+window, from the program's spans (``swbench/spans.py``)."""
+
+from swbench import spans
+
+
+def read(run):
+    return spans.seal_s_per_cycle(run, "store.sums")

@@ -203,7 +203,8 @@ def test_siblings_are_fetched_concurrently(tmp_path, sealed):
     failing. ``recover_interval`` fetches the seven at once (they meet at a
     barrier of seven, which a serial fetch would break) and replaces the
     failed one by the next holder only after it failed, inside the caller's
-    span and deadline; its bytes are the lost shard's."""
+    trace (each fetch under a ``store.fetch_sibling`` span of the caller's)
+    and deadline; its bytes are the lost shard's."""
     ec, _ = sealed
     local = {0, 2, 3}
     ps = _mount(tmp_path, ec, "port", local, PStore)
@@ -221,7 +222,8 @@ def test_siblings_are_fetched_concurrently(tmp_path, sealed):
         assert sorted(reader.calls[:7]) == [4, 5, 6, 7, 8, 9, 10]
         assert not reader.barrier.broken
         assert reader.events.index(("start", 11)) > reader.events.index(("answer", 5, False))
-        assert reader.seen == [(span, dl)] * len(reader.calls)
+        assert [(s.name, s.trace_id, s.parent_id, d) for s, d in reader.seen] == [
+            ("store.fetch_sibling", span.trace_id, span.span_id, dl)] * len(reader.calls)
     finally:
         ps.close()
 
@@ -383,3 +385,37 @@ def test_lookup_is_cached_and_a_moved_shard_is_followed(tmp_path, sealed, monkey
             if name not in stopped:
                 vs.stop()
         master.stop()
+
+
+def test_a_degraded_reads_tree_holds_the_store_spans(tmp_path, sealed):
+    """A needle read with shard 1 lost and six shards remote: the read's
+    trace holds a ``store.ec_read`` per interval read, a
+    ``store.fetch_sibling`` per remote shard fetch and a
+    ``store.reconstruct`` per interval rebuilt, each tagged with its bytes,
+    as an operator's ``/debug/traces?trace=<id>`` tree shows them."""
+    ec, blobs = sealed
+    local = {0, 2, 3, 4}
+    ps = _mount(tmp_path, ec, "port", local, PStore, remote_fetch_backoff_s=0.001)
+    try:
+        ps.remote_shard_reader = _Reader(_shard_bytes(ec), no_holder={LOST})
+        precon = _count_reconstructs(ps)
+        trace.RING.clear()
+        with trace.start_span("GET /", service="volume") as root:
+            got = {nid: _read(ps, PNeedle, nid) for nid in blobs}
+        assert got == {nid: (COOKIE, want) for nid, want in blobs.items()}
+        spans = trace.RING.for_trace(root.trace_id)
+    finally:
+        ps.close()
+    (tree,) = trace.assemble_tree(spans)
+    reads = [c for c in tree["children"] if c["name"] == "store.ec_read"]
+    assert len(reads) == len(tree["children"]) > len(blobs)
+    assert sum(r["tags"]["bytes"] for r in reads) >= sum(len(b) for b in blobs.values())
+    below = [c for r in reads for c in r["children"]]
+    recon = [c for c in below if c["name"] == "store.reconstruct"]
+    assert len(recon) == precon[0] > 0
+    assert all(r["tags"]["shard"] == LOST and r["tags"]["bytes"] > 0 for r in recon)
+    fetches = [c for c in below if c["name"] == "store.fetch_sibling"]
+    # the lost shard asked once per rebuilt interval, six remote siblings each
+    assert sorted({f["tags"]["shard"] for f in fetches}) == [1, 5, 6, 7, 8, 9, 10]
+    assert all((f["tags"]["bytes"] > 0) == (f["tags"]["shard"] != LOST) for f in fetches)
+    assert sum(f["tags"]["shard"] == LOST for f in fetches) == len(recon)

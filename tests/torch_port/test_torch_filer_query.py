@@ -34,11 +34,11 @@ import pytest
 from seaweedfs_tpu.server.filer_server import FilerServer as JFilerServer
 from seaweedfs_tpu_torch.query import execute_request
 from seaweedfs_tpu_torch.query import select as psel
-from seaweedfs_tpu_torch.query.scan import TorchKernels
 from seaweedfs_tpu_torch.server.filer_server import FilerServer as PFilerServer
 from seaweedfs_tpu_torch.server.http_util import http_bytes, http_json
 from seaweedfs_tpu_torch.server.master_server import MasterServer
 from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+from seaweedfs_tpu_torch.stats.metrics import QUERY_COUNTERS
 
 CHUNK = 1 << 20
 QUERIES = [
@@ -148,7 +148,7 @@ def test_query_rows_equal_and_pushdown_engaged(cluster, name, req):
     _, volumes, filers = cluster
     served0 = sum(v.queries_served for v in volumes)
     routes0 = filers["port"].query_routes()
-    cpu0 = TorchKernels.evaluations["cpu"]
+    cpu0 = QUERY_COUNTERS["kernel"].value(backend="cpu")
     paths = SINGLE + ["/q/three.csv", "/q/secret.csv"]
     for path in paths:
         want = execute_request(OBJECTS.get(path, OBJECTS["/q/one2.csv"]),
@@ -162,7 +162,7 @@ def test_query_rows_equal_and_pushdown_engaged(cluster, name, req):
     assert routes["pushdown"] - routes0["pushdown"] == len(SINGLE)
     assert routes["filer_side"] - routes0["filer_side"] == 2
     if name != "limit":  # a query with no WHERE evaluates no predicate tree
-        assert TorchKernels.evaluations["cpu"] > cpu0
+        assert QUERY_COUNTERS["kernel"].value(backend="cpu") > cpu0
     st = http_json("GET", f"http://{filers['port'].url}/_status")
     assert st["query_routes"] == routes
 
@@ -215,13 +215,13 @@ def test_default_backend_without_a_card_fails_naming_the_device(cluster, monkeyp
         time.sleep(0.3)
         for path, data in OBJECTS.items():
             assert http_bytes("POST", f"http://{f.url}{path}", data)[0] == 201
-        cpu0 = TorchKernels.evaluations["cpu"]
+        cpu0 = QUERY_COUNTERS["kernel"].value(backend="cpu")
         st, body = _query(f, "/q/three.csv", QUERIES[0][1])
         assert st == 500 and "cuda" in body["error"].lower(), body
         st, raw = http_bytes("POST", f"http://{f.url}/_select?path=/q/three.csv",
                              SELECT_XML % b"NONE")
         assert st == 500 and b"CUDA" in raw, raw
-        assert TorchKernels.evaluations["cpu"] == cpu0  # nothing scanned on the CPU
+        assert QUERY_COUNTERS["kernel"].value(backend="cpu") == cpu0  # nothing scanned on the CPU
         # the pushdown runs on the volume server's own device
         served0 = sum(v.queries_served for v in volumes)
         assert _query(f, "/q/one0.csv", QUERIES[0][1])[0] == 200

@@ -38,10 +38,16 @@ def _families(text: str) -> dict:
     return fams
 
 
+# the port's label sets where it departs from the JAX package on purpose:
+# its rows decided by the scan's kernels are counted by device, as its
+# scans are
+PORT_LABELS = {"sweed_query_rows_kernel_total": {("backend",)}}
+
+
 def _compare(jax_text: str, port_text: str):
     """The port exposes no family the JAX page lacks (its master's own
     assign histogram aside), every ported family the JAX page shows, and
-    the same label sets in each."""
+    the same label sets in each (``PORT_LABELS`` aside)."""
     j, p = _families(jax_text), _families(port_text)
     extra = sorted(set(p) - set(j) - {"master_assign_seconds"})
     assert extra == [], extra
@@ -51,7 +57,7 @@ def _compare(jax_text: str, port_text: str):
         # a family with no sample yet shows no label names; the registries
         # are process-wide, so what other tests of this process did counts
         if p[name] and j[name]:
-            assert p[name] == j[name], (name, p[name], j[name])
+            assert p[name] == PORT_LABELS.get(name, j[name]), (name, p[name], j[name])
 
 
 def test_volume_and_master_metrics_match_the_reference(tmp_path_factory):

@@ -160,13 +160,13 @@ CSV = b"id,region,score\n1,east,10\n2,west,995.5\n3,east,-4\n4,,0.25\n"
 def test_kernel_rows_stay_vectorized():
     """Plain ASCII simple-numeric CSV must NOT fall back to the exact lane
     (values like ``1e3`` or quoting would)."""
-    before = pscan.TorchKernels.evaluations["cpu"]
+    before = QUERY_COUNTERS["kernel"].value(backend="cpu")
     plan = pscan.compile_plan(None, {"field": "score", "op": ">", "value": 9}, 0, "csv", "cpu")
     rows = plan.execute(CSV)
     assert [r["id"] for r in rows] == ["1", "2"]
     assert plan.stats == {"rows_scanned": 4, "rows_kernel": 4, "rows_fallback": 0,
                           "bytes_scanned": len(CSV)}
-    assert pscan.TorchKernels.evaluations["cpu"] == before + 1
+    assert QUERY_COUNTERS["kernel"].value(backend="cpu") == before + 4
 
 
 def test_quoted_rows_take_exact_lane():
@@ -375,11 +375,11 @@ def test_cuda_backend_equals_cpu_backend_on_the_card():
     index (runs only where there is a card)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    before = pscan.TorchKernels.evaluations["cuda"]
+    before = QUERY_COUNTERS["kernel"].value(backend="cuda")
     for trial, case in enumerate(_corpus(99, 300)):
         want = _outcome(lambda: _scan("cpu", *case))
         got = _outcome(lambda: _scan("cuda", *case))
         assert got == want, (trial, case[:5])
-    assert pscan.TorchKernels.evaluations["cuda"] > before
+    assert QUERY_COUNTERS["kernel"].value(backend="cuda") > before
     _check_numeric("cuda")
     _check_first_index("cuda")
