@@ -88,7 +88,7 @@ Builds the GF(2^8) kernel from ``seaweedfs_tpu_torch/csrc`` and runs:
    port volume server on ``weed master``/``weed volume`` defaults (CUDA
    backend, the native turbo engine on the public port, the asyncio core
    behind it). ``run_benchmark`` at `weed/command/benchmark.go`'s defaults
-   but an eighth of its files (131 072 files of 1 KiB from 16 connections, assigns
+   but a sixteenth of its files (65 536 files of 1 KiB from 16 connections, assigns
    in batches of 100): no failure, a seeded 4 096 fids read back equal, the
    engine's native posts and gets covering the run and its proxied requests
    a sliver of it. The same server restarted with ``SWEED_TURBO=0`` (the
@@ -321,6 +321,7 @@ from seaweedfs_tpu_torch.ec.constants import shard_ext  # noqa: E402
 from seaweedfs_tpu_torch.ec.decoder import decode_to_volume  # noqa: E402
 from seaweedfs_tpu_torch.ec.ec_volume import EcVolume  # noqa: E402
 from seaweedfs_tpu_torch.ec.sharded import MeshCodec  # noqa: E402
+from seaweedfs_tpu_torch.query import csv_index  # noqa: E402
 from seaweedfs_tpu_torch.query import execute_request, parse_sql, run_query  # noqa: E402
 from seaweedfs_tpu_torch.query import scan as query_scan  # noqa: E402
 from seaweedfs_tpu_torch.query import select as s3select  # noqa: E402
@@ -438,11 +439,15 @@ def phase0(state) -> None:
     t0 = time.perf_counter()
     lib = gm.build(verbose=True)  # prints ptxas's registers and spills
     build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    csv_index.build(verbose=True)
+    index_build_s = time.perf_counter() - t0
     state["smi"] = smi_line()
     print(state["smi"], flush=True)
     emit({"phase": 0, "nvidia_smi": state["smi"], "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "kernel_library": os.path.relpath(lib, HERE), "build_s": build_s,
+          "csv_index_build_s": index_build_s,
           "sass": sass_summary(lib)})
 
 
@@ -1335,6 +1340,148 @@ def numeric_edge_check() -> dict:
     return {"cases": len(texts), "simple": int(simple.sum()), "mismatches": bad[:10]}
 
 
+# the benchmark's query: TPC-H Q6's predicate on lineitem (swbench's cell)
+Q6_WHERE = {"and": [{"field": "l_shipdate", "op": ">=", "value": "1994-01-01"},
+                    {"field": "l_shipdate", "op": "<", "value": "1995-01-01"},
+                    {"field": "l_discount", "op": ">=", "value": 0.05},
+                    {"field": "l_discount", "op": "<=", "value": 0.07},
+                    {"field": "l_quantity", "op": "<", "value": 24}]}
+INDEX_SIZES = (32 * MiB, 64 * 1024)
+
+
+def _index_differs(plan, idx, arr, header) -> list:
+    """What of the card's index ``idx`` of body ``arr`` differs from the
+    numpy index's (the plain version): the rows' starts and ends, each
+    batch's field vectors (start where present, len, present) and widths,
+    the exact rows and their count, as the ``cuda`` test compares them."""
+    starts, ends, commas, ci0, ci1 = plan._host_index(arr, header)
+    if idx.nrows != len(starts):
+        return [f"rows {idx.nrows} vs {len(starts)}"]
+    g_starts, g_ends, g_exact = idx.rows(0, idx.nrows)
+    bad = [k for k, g, w in (("starts", g_starts, starts), ("ends", g_ends, ends))
+           if not np.array_equal(g, w)]
+    batch = query_scan._ROW_BATCH
+    if idx.widths.shape != (-(-len(starts) // batch), len(plan._fields)):
+        return bad + [f"widths shape {idx.widths.shape}"]
+    exact = np.zeros(len(starts), dtype=bool)
+    vecs = idx.vecs.cpu().numpy()
+    for b, lo in enumerate(range(0, len(starts), batch)):
+        hi = min(lo + batch, len(starts))
+        want, _ = plan._field_vectors(starts[lo:hi], ends[lo:hi], commas, ci0[lo:hi],
+                                      ci1[lo:hi], header, exact[lo:hi])
+        got, present = vecs[:, :, lo:hi], want[:, 2] != 0
+        if not (np.array_equal(got[:, 1:], want[:, 1:]) and np.array_equal(
+                np.where(present, got[:, 0], 0), np.where(present, want[:, 0], 0))):
+            bad.append(f"vecs of batch {b}")
+        if idx.widths[b].tolist() != want[:, 1].max(axis=1).tolist():
+            bad.append(f"widths of batch {b}")
+    if not np.array_equal(g_exact, exact) or idx.nexact != int(exact.sum()):
+        bad.append("exact")
+    return bad
+
+
+def index_check() -> dict:
+    """The CSV structural index on the card (``csv_index.cu``) against the
+    host's (numpy) on TPC-H lineitem bodies under Q6's plan, at the
+    benchmark's 32 MiB and at 64 KiB (a small segment of a filer's chunk
+    stream): the kernels' device time a segment (torch.profiler), the card
+    index's host time with its one wait and the rows' copy, the numpy
+    index's (the plain version), a whole segment's scan on either path, the
+    memory bound, the launches, and whether both paths give the same index
+    (``_index_differs``) and the same rows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from seaweedfs_tpu_torch.query import csv_index
+    from swbench.gen.lineitem import COLUMNS, lineitem_csv
+
+    header = list(COLUMNS)
+    out = {}
+    for size in INDEX_SIZES:
+        data = lineitem_csv(2**31 + 11, 0, size)
+        body = data[data.find(b"\n") + 1:]
+        arr = np.frombuffer(body, np.uint8)
+        plan = compile_plan(["l_extendedprice", "l_discount"], Q6_WHERE, 0, "csv", "cuda")
+        pad = np.zeros(len(arr) + query_scan._MAX_FIELD_W + 8, dtype=np.uint8)
+        pad[:len(arr)] = arr
+        staged = torch.from_numpy(pad).cuda()
+
+        def card():
+            idx = plan._card_index(staged, len(arr), header)
+            idx.rows(0, idx.nrows)
+            return idx
+
+        def host():
+            starts, ends, commas, ci0, ci1 = plan._host_index(arr, header)
+            exact = np.zeros(len(starts), dtype=bool)
+            for lo in range(0, len(starts), query_scan._ROW_BATCH):
+                hi = lo + query_scan._ROW_BATCH
+                plan._field_vectors(starts[lo:hi], ends[lo:hi], commas, ci0[lo:hi],
+                                    ci1[lo:hi], header, exact[lo:hi])
+            return starts
+
+        def wall_ms(fn, runs):
+            times = []
+            for _ in range(runs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return times
+
+        idx = card()  # builds the library, warms the allocators
+        differs = _index_differs(plan, idx, arr, header)
+        l0 = csv_index.index.launches
+        card_ms = wall_ms(card, 20)
+        launches = (csv_index.index.launches - l0) / 20
+        host_ms = wall_ms(host, 3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                card()
+            torch.cuda.synchronize()
+        names = ("count_kernel", "scan_kernel", "walk_kernel<false>", "walk_kernel<true>")
+        by_name = {k: 0.0 for k in names}
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                and any(k.split("<")[0] in e.name for k in names)]
+        for e in kern:
+            key = next(k for k in names if k.split("<")[0] in e.name
+                       and ("<" not in k or ("true" in e.name) == ("true" in k)))
+            by_name[key] += e.time_range.elapsed_us() / 10
+        kernel_us = sum(e.time_range.elapsed_us() for e in kern) / 10
+        seg = data[: data.rfind(b"\n") + 1]
+        plans = {}
+        for path in ("card", "host"):
+            p = compile_plan(["l_extendedprice", "l_discount"], Q6_WHERE, 0, "csv", "cuda")
+            if path == "host":
+                p._indexes_on_card = lambda n: False  # this plan only: the parent's path
+            plans[path] = (p, p._csv_segment(seg, None, -1)[1])
+        scans = {"card": ([], None), "host": ([], None)}
+        for _ in range(6 if size > MiB else 20):  # in turns, so both see the same host
+            for path, (p, rows) in plans.items():
+                scans[path] = (scans[path][0] + wall_ms(lambda: p._csv_segment(seg, None, -1), 1),
+                               rows)
+        # the bytes the index must move: the body read once, 12 bytes a row
+        # (start, end, exact) and 12 a field a row (the vectors) written
+        moved = len(arr) + 12 * idx.nrows * (1 + len(plan._fields))
+        bound_us = moved / HBM_BYTES_PER_S * 1e6
+        out[str(size)] = {
+            "body_bytes": len(arr), "rows": idx.nrows, "index_equal_host": not differs,
+            "index_differs": differs, "bytes_moved": moved,
+            "card_index_ms_p50": _pct(card_ms, 50), "card_index_ms": card_ms,
+            "kernels_us": kernel_us, "kernels_us_by_name": by_name, "kernels_seen": len(kern),
+            "bound_us": bound_us,
+            "kernel_share_of_bound": bound_us / kernel_us if kernel_us else None,
+            "launches_per_index": launches,
+            "host_index_ms_p50": _pct(host_ms, 50), "host_index_ms": host_ms,
+            "segment_card_ms_p50": _pct(scans["card"][0], 50),
+            "segment_host_ms_p50": _pct(scans["host"][0], 50),
+            "segment_card_ms": scans["card"][0], "segment_host_ms": scans["host"][0],
+            "segment_rows_equal": scans["card"][1] == scans["host"][1],
+            "segment_rows": len(scans["card"][1])}
+    return out
+
+
 def _query_args(req: dict) -> tuple:
     """(select, where, limit) of a request, as the port's scan_request reads it."""
     if "sql" in req:
@@ -1344,11 +1491,11 @@ def _query_args(req: dict) -> tuple:
 
 def _split_query(vs, fid: str, req: dict) -> dict:
     """One query's time split apart, outside the latency runs: the needle
-    fetch, the host structural index (segment scan and field vectors), the
-    H2D copies, the tree's evaluation, the masks' D2H copy and the row
-    building, with the reply's JSON encoding. Host seconds exclude nested
-    timed calls; the three device steps are timed by CUDA events around
-    them (``*_device_ms``)."""
+    fetch, the structural index (the segment scan and field vectors on the
+    host, or the card's index and its one wait), the H2D copies, the tree's
+    evaluation, the masks' D2H copy and the row building, with the reply's
+    JSON encoding. Host seconds exclude nested timed calls; the four device
+    steps are timed by CUDA events around them (``*_device_ms``)."""
     t0 = time.perf_counter()
     status, data = vs._fetch_fid(fid)
     fetch_s = time.perf_counter() - t0
@@ -1384,6 +1531,7 @@ def _split_query(vs, fid: str, req: dict) -> dict:
 
     for name in ("_csv_segment", "_field_vectors", "_csv_batch"):
         wrap(plan, name, False)
+    wrap(plan, "_card_index", True)
     for name in ("stage", "evaluate", "to_host"):
         wrap(plan.kernels, name, True)
     t0 = time.perf_counter()
@@ -1396,13 +1544,14 @@ def _split_query(vs, fid: str, req: dict) -> dict:
     t0 = time.perf_counter()
     json.dumps({"rows": rows, "count": len(rows)})
     encode_s = time.perf_counter() - t0
-    parts = {"index_s": host["_csv_segment"] + host["_field_vectors"],
+    parts = {"index_s": host["_csv_segment"] + host["_field_vectors"] + host["_card_index"],
              "stage_s": host["stage"], "evaluate_enqueue_s": host["evaluate"],
-             "to_host_s": host["to_host"], "row_build_s": host["_csv_batch"]}
+             "to_host_s": host["to_host"],
+             "row_build_s": host["_csv_batch"]}
     return {"fetch_s": fetch_s, **parts, "scan_s": total_s,
             "scan_other_s": total_s - sum(parts.values()), "json_encode_s": encode_s,
             "stage_device_ms": dev["stage"], "evaluate_device_ms": dev["evaluate"],
-            "to_host_device_ms": dev["to_host"],
+            "to_host_device_ms": dev["to_host"], "index_device_ms": dev["_card_index"],
             "evaluations": sum(1 for e in events if e[0] == "evaluate"), "rows": len(rows)}
 
 
@@ -1455,6 +1604,12 @@ def phase7(state) -> None:
     out: dict = {"phase": 7, "scan_backend": "cuda", "numeric_edge": numeric_edge_check()}
     if out["numeric_edge"]["mismatches"]:
         raise SystemExit(f"phase 7: numeric parse differs from float(): {out['numeric_edge']}")
+    l0 = csv_index.index.launches
+    out["index"] = index_check()
+    state["index"] = dict(out["index"].get(str(INDEX_SIZES[0]), {}),
+                          launches=csv_index.index.launches - l0)
+    if not all(v["index_equal_host"] and v["segment_rows_equal"] for v in out["index"].values()):
+        raise SystemExit(f"phase 7: the card's index differs from the host's: {out['index']}")
     cnt = QUERY_COUNTERS
     try:
         vs.start()
@@ -2381,9 +2536,10 @@ def phase9(state) -> None:
 
 # -- phase 10: weed benchmark on the default data plane ------------------------
 # weed/command/benchmark.go's defaults (-c 16 -size 1024) with the reference's
-# -assign.batch 100, at half its -n 1048576 (a cut since phase 11 came, so
-# that the whole script stays well inside its time limit: PERF.md section 4)
-BENCH_N, BENCH_C, BENCH_SIZE, BENCH_BATCH = 1 << 17, 16, 1024, 100  # cuts: PERF.md section 4
+# -assign.batch 100, at a sixteenth of its -n 1048576 (cuts since phase 11
+# came and since the card's CSV index joined phase 7, so that the whole script
+# stays well inside its time limit: PERF.md section 4)
+BENCH_N, BENCH_C, BENCH_SIZE, BENCH_BATCH = 1 << 16, 16, 1024, 100  # cuts: PERF.md section 4
 BENCH_N_THREADS = 1 << 12  # the run on the asyncio core alone (cuts: PERF.md section 4)
 BENCH_SAMPLE = 4096  # fids read back and compared after the run
 SHED_WATERMARK, SHED_CONNS = 64, 512
@@ -6376,6 +6532,7 @@ def _free_port() -> int:
 
 MAIN_PATH = (phase2, phase3, phase4, phase5, phase6, phase7, phase8, phase9, phase10,
              phase11, phase12, phase13, phase14, phase15, phase16, phase17, phase18)
+INDEX_PHASES = (7, 12, 15)  # their queries' CSV plans index on the card (csv_index.cu)
 
 
 def main() -> int:
@@ -6389,10 +6546,12 @@ def main() -> int:
         phase0(state)
         phase1(state)
         gm.gf_matmul.launches = 0  # the main path starts here
+        csv_index.index.launches = 0
         phase_s = {}
         for i, phase in enumerate(MAIN_PATH, start=2):
             state["l_phase"] = gm.gf_matmul.launches
             children = state.get("child_launches", 0)
+            i0 = csv_index.index.launches
             t0 = time.perf_counter()
             phase(state)
             phase_s[i] = time.perf_counter() - t0
@@ -6402,12 +6561,14 @@ def main() -> int:
             if gm.gf_matmul.launches == state["l_phase"] and \
                     state.get("child_launches", 0) == children:
                 raise SystemExit(f"phase {i}: the kernel was never launched")
+            if i in INDEX_PHASES and csv_index.index.launches == i0:
+                raise SystemExit(f"phase {i}: csv_index was never launched")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     # the launches of phase 14's child ranks and phase 17's and 18's
     # servers, counted in their processes
     main_launches = gm.gf_matmul.launches + state.get("child_launches", 0)
-    kern = state["kernel"]
+    kern, ix = state["kernel"], state["index"]
     emit({"phase_s": phase_s})
     print(smi_line(), flush=True)
     emit({"kernels": [{
@@ -6417,6 +6578,14 @@ def main() -> int:
         "launches": main_launches, "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
         "bound_by": kern["bound_by"], "library_ms": None,
+    }, {
+        "name": "csv_index", "route": "cuda",
+        "source": "seaweedfs_tpu_torch/csrc/csv_index.cu",
+        "replaces": "seaweedfs_tpu/query/scan.py:632 (the host's numpy index)",
+        # the queries' launches, and phase 7's index_check's among them
+        "launches": csv_index.index.launches, "index_check_launches": ix["launches"],
+        "max_abs_err": 0, "ms": ix["kernels_us"] / 1e3, "plain_ms": ix["host_index_ms_p50"],
+        "bound_ms": ix["bound_us"] / 1e3, "bound_by": "bytes", "library_ms": None,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

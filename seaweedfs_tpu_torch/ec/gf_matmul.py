@@ -21,22 +21,15 @@ there is no CUDA toolkit.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 
 import numpy as np
 import torch
 
+from ..util import nvcc
 from ..util.locks import make_lock
 from . import gf
 
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCE = os.path.join(_CSRC, "gf_matmul.cu")
-BUILD_DIR = os.path.join(_CSRC, "build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+SOURCE = nvcc.source("gf_matmul.cu")
 MAX_ROWS = MAX_COLS = 64  # kMaxRows / kMaxCols in the source
 CHUNK = 16  # kChunk in the source: data rows per launch
 
@@ -52,38 +45,11 @@ _lib_lock = make_lock("gf_matmul._lib_lock")
 _count_lock = make_lock("gf_matmul._count_lock")
 
 
-def _nvcc() -> str:
-    for cand in (
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-        shutil.which("nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME): cannot build gf_matmul.cu")
-
-
 def build(verbose: bool = False) -> str:
-    """Compile ``gf_matmul.cu`` into ``csrc/build/`` unless a library built
-    from the same source and flags is already there. Returns its path;
-    raises if ``nvcc`` is missing or the build fails. ``verbose`` prints
-    ptxas's registers and spills."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = os.path.join(BUILD_DIR, f"libgf_matmul-{digest}.so")
-    if os.path.exists(lib_path):
-        return lib_path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, SOURCE]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
-    if verbose:
-        print(res.stdout + res.stderr, flush=True)
-    # sweedlint: ok durability build artifact under csrc/build, not volume data; tmp+rename makes a concurrent build atomic
-    os.replace(tmp, lib_path)  # atomic: a concurrent builder sees all or nothing
-    return lib_path
+    """Compile ``gf_matmul.cu`` into ``csrc/build/`` (``util.nvcc.build``).
+    Returns the library's path; ``verbose`` prints ptxas's registers and
+    spills."""
+    return nvcc.build(SOURCE, verbose)
 
 
 def _load():

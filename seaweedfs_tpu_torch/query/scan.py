@@ -8,12 +8,18 @@ index -> device batches -> predicate tree -> stream matched rows out.
 
 Pipeline per CSV batch (the columnar format; the one the tree covers):
 
-1. **Structural indexing** (host numpy): newline and delimiter positions via
-   dense byte compares + ``flatnonzero``/``searchsorted``, one memory-bound
-   pass that replaces the per-character csv state machine.
-2. **Staging**: the segment's bytes go to the device once (``stage``), and
-   per batch one ``[fields, 3, rows]`` array of each referenced column's
-   ``(start, len, present)``.
+1. **Staging**: the segment's bytes go to the device once (``stage``).
+2. **Structural indexing**: the non-blank rows' bounds and each referenced
+   column's ``(start, len, present)`` as ``[fields, 3, rows]``, with each
+   batch's field widths. On a CUDA device, for a plan with a tree, the
+   hand-written kernel ``csrc/csv_index.cu`` (``csv_index.py``) builds them
+   from the staged bytes: one wait for the card a segment, the vectors stay
+   there, the rows' bounds come back once. Otherwise (the ``cpu`` backend,
+   plans without a tree, bodies past int32) the host does it with numpy
+   (``_host_index``, ``_field_vectors``): newline and delimiter positions
+   via dense byte compares + ``flatnonzero``/``searchsorted``, and per batch
+   one vectors array staged. ``sweed_query_index_segments_total{where}``
+   counts which.
 3. **Predicate evaluation** on the device: each referenced column becomes a
    ``[rows, width]`` uint8 matrix by one gather from the staged bytes, so
    the byte matrices never exist on the host. The whole WHERE tree (numeric
@@ -21,10 +27,11 @@ Pipeline per CSV batch (the columnar format; the one the tree covers):
    as tensor ops, and only two bool masks come back (``to_host``).
 
 Each step runs under a span of its layer (``stats/trace.py``): the
-structural index and the field vectors under ``query.index`` (rows), the
-staging, the tree and ``to_host`` under ``query.device`` (bytes staged),
-and the exact lane and the row building under ``query.rows`` (rows in and
-out).
+structural index and the field vectors under ``query.index`` (rows,
+batch_rows; on the card the kernels and their one wait, and each batch's
+rows taken from the copy), the staging, the tree and ``to_host`` under
+``query.device`` (bytes staged), and the exact lane and the row building
+under ``query.rows`` (rows in and out).
 
 Backends: ``cuda`` (the default) and ``cpu``, the same tensor graph on CPU
 tensors, which the tests use. ``$SWEED_QUERY_BACKEND`` overrides the
@@ -67,6 +74,7 @@ without a host sync until its masks are read back.
 from __future__ import annotations
 
 import csv
+import functools
 import io
 import json
 import os
@@ -77,6 +85,7 @@ import torch
 
 from ..stats import trace as _trace
 from ..stats.metrics import QUERY_COUNTERS
+from . import csv_index
 from . import engine as _engine
 
 _MAX_FIELD_W = 512  # fields longer than this go to the exact lane
@@ -599,7 +608,8 @@ class ScanPlan:
         matched_rows, exact_tail_bytes_or_None); the tail is everything from
         the first line containing a quote or CR onward, bytes the newline
         index cannot be trusted for. Byte accounting happens once per
-        incoming chunk in _scan_csv, not here."""
+        incoming chunk in _scan_csv, not here. The body (``seg`` past the
+        header) is a view: rows are decoded from it one by one."""
         tail = None
         rows: list[dict] = []
         with _trace.start_span("query.index", service="query") as ix:
@@ -618,43 +628,16 @@ class ScanPlan:
             if header is None:
                 # no complete line yet and a quote in the header region
                 return header, rows, tail
-            body = seg[consumed:]
+            body = memoryview(seg)[consumed:]
             if not body:
                 return header, rows, tail
-            arr = np.frombuffer(body, np.uint8)
-            idt = np.int32 if len(arr) < 2**31 - 2 * _MAX_FIELD_W else np.int64
-            nls = np.flatnonzero(arr == 10).astype(idt)
-            starts = np.empty(len(nls) + 1, dtype=idt)
-            starts[0] = 0
-            np.add(nls, 1, out=starts[1:])
-            ends = np.empty(len(nls) + 1, dtype=idt)
-            ends[: len(nls)] = nls
-            ends[-1] = len(arr)
-            keep = ends > starts  # DictReader skips blank rows
-            allkeep = bool(keep.all())
-            if self._tree is not None:
-                # sentinel commas (== len(arr), pointing at the pad) make
-                # out-of-row column indices safe without clamping
-                nsent = len(header) + 2
-                real = np.flatnonzero(arr == 44)
-                commas = np.empty(len(real) + nsent, dtype=idt)
-                commas[: len(real)] = real
-                commas[len(real):] = len(arr)
-                # first-comma index per line, once per segment: the gap
-                # between a line's end and the next line's start is just the
-                # newline byte, so ci1 is ci0 shifted
-                ci0 = np.searchsorted(commas[: len(real)], starts).astype(idt)
-                ci1 = np.empty_like(ci0)
-                ci1[:-1] = ci0[1:]
-                ci1[-1] = len(real)
-                if not allkeep:
-                    ci0, ci1 = ci0[keep], ci1[keep]
-            else:
-                commas, ci0, ci1 = None, None, None
-            if not allkeep:
-                starts, ends = starts[keep], ends[keep]
-            if ix is not None:
-                ix.tags.update(rows=len(starts), bytes=len(body))
+            arr = np.frombuffer(seg, np.uint8, offset=consumed)
+            on_card = self._indexes_on_card(len(arr))
+            if not on_card:
+                starts, ends, commas, ci0, ci1 = self._host_index(arr, header)
+                if ix is not None:
+                    ix.tags.update(rows=len(starts), bytes=len(arr))
+        QUERY_COUNTERS["index_segments"].inc(where="card" if on_card else "host")
         staged = None
         if self._tree is not None:
             with _trace.start_span("query.device", service="query") as dv:
@@ -668,19 +651,96 @@ class ScanPlan:
                 staged = self.kernels.stage(pad)
                 if dv is not None:
                     dv.tags["bytes"] = pad.nbytes
-        for lo in range(0, len(starts), _ROW_BATCH):
+        if on_card:
+            with _trace.start_span("query.index", service="query") as ix:
+                index = self._card_index(staged, len(arr), header)
+                if ix is not None:
+                    ix.tags.update(rows=index.nrows, bytes=len(arr))
+            nrows = index.nrows
+        else:
+            nrows = len(starts)
+        for b, lo in enumerate(range(0, nrows, _ROW_BATCH)):
             if room >= 0 and len(rows) >= room:
                 break
-            hi = min(lo + _ROW_BATCH, len(starts))
-            rows.extend(
-                self._csv_batch(
-                    body, staged, starts[lo:hi], ends[lo:hi], commas,
-                    None if ci0 is None else ci0[lo:hi],
-                    None if ci1 is None else ci1[lo:hi], header,
-                    -1 if room < 0 else room - len(rows),
-                )
-            )
+            hi = min(lo + _ROW_BATCH, nrows)
+            vecs = widths = None
+            with _trace.start_span("query.index", service="query") as ix:
+                if on_card:
+                    # the vectors stay on the card; the rows' bounds are
+                    # read after the masks, whose wait covers their copy
+                    vecs = index.vecs[:, :, lo:hi]
+                    widths = tuple(_pow2(min(int(w), _MAX_FIELD_W) or 1)
+                                   for w in index.widths[b])
+                    bounds = functools.partial(index.rows, lo, hi)
+                else:
+                    exact = np.zeros(hi - lo, dtype=bool)
+                    if self._tree is not None:
+                        vecs, widths = self._field_vectors(starts[lo:hi], ends[lo:hi], commas,
+                                                           ci0[lo:hi], ci1[lo:hi], header,
+                                                           exact)
+                    bounds = functools.partial(tuple, (starts[lo:hi], ends[lo:hi], exact))
+                if ix is not None:
+                    ix.tags["batch_rows"] = hi - lo
+            rows.extend(self._csv_batch(body, staged, vecs, widths, bounds, header,
+                                        -1 if room < 0 else room - len(rows)))
         return header, rows, tail
+
+    def _indexes_on_card(self, n: int) -> bool:
+        """Does the card index a body of ``n`` bytes? Yes for a plan with a
+        tree on a CUDA device (the body is staged there for the tree
+        anyway) whose offsets fit the kernel's int32 and whose fields its
+        parameter block holds. Tree-less plans need only the newline pass
+        and stage nothing; the ``cpu`` backend runs the numpy index."""
+        return (self._tree is not None and self.kernels.device.type == "cuda"
+                and n <= csv_index.MAX_BYTES and len(self._fields) <= csv_index.MAX_FIELDS)
+
+    def _card_index(self, staged, n, header) -> csv_index.CardIndex:
+        """The card's index of the staged body's first ``n`` bytes."""
+        return csv_index.index(staged, n, self._columns(header), _ROW_BATCH)
+
+    def _columns(self, header) -> list[int]:
+        """Each referenced field's header column under last-dup header
+        semantics (DictReader's dict(zip(...))), -1 where the header lacks
+        it (or the name is dotted: CSV fields are never nested)."""
+        return [len(header) - 1 - header[::-1].index(f) if "." not in f and f in header else -1
+                for f in self._fields]
+
+    def _host_index(self, arr, header):
+        """The numpy index of a body: the non-blank rows' starts and ends,
+        and with a tree the comma positions and each row's first and
+        one-past-last comma index (ci0, ci1), for ``_field_vectors``."""
+        idt = np.int32 if len(arr) < 2**31 - 2 * _MAX_FIELD_W else np.int64
+        nls = np.flatnonzero(arr == 10).astype(idt)
+        starts = np.empty(len(nls) + 1, dtype=idt)
+        starts[0] = 0
+        np.add(nls, 1, out=starts[1:])
+        ends = np.empty(len(nls) + 1, dtype=idt)
+        ends[: len(nls)] = nls
+        ends[-1] = len(arr)
+        keep = ends > starts  # DictReader skips blank rows
+        allkeep = bool(keep.all())
+        if self._tree is not None:
+            # sentinel commas (== len(arr), pointing at the pad) make
+            # out-of-row column indices safe without clamping
+            nsent = len(header) + 2
+            real = np.flatnonzero(arr == 44)
+            commas = np.empty(len(real) + nsent, dtype=idt)
+            commas[: len(real)] = real
+            commas[len(real):] = len(arr)
+            # first-comma index per line, once per segment: the gap
+            # between a line's end and the next line's start is just the
+            # newline byte, so ci1 is ci0 shifted
+            ci0 = np.searchsorted(commas[: len(real)], starts).astype(idt)
+            ci1 = np.empty_like(ci0)
+            ci1[:-1] = ci0[1:]
+            ci1[-1] = len(real)
+            if not allkeep:
+                ci0, ci1 = ci0[keep], ci1[keep]
+        else:
+            commas, ci0, ci1 = None, None, None
+        if not allkeep:
+            starts, ends = starts[keep], ends[keep]
+        return starts, ends, commas, ci0, ci1
 
     def _field_vectors(self, starts, ends, commas, ci0, ci1, header, exact):
         """-> (vecs [fields, 3, rows] of (start, len, present), widths): each
@@ -692,9 +752,8 @@ class ScanPlan:
         ncols = (ci1 - ci0) + 1
         vecs = np.zeros((len(self._fields), 3, n), dtype=starts.dtype)
         widths = []
-        for i, f in enumerate(self._fields):
-            if "." not in f and f in header:
-                c = len(header) - 1 - header[::-1].index(f)
+        for i, c in enumerate(self._columns(header)):
+            if c >= 0:
                 present = c < ncols
                 fs = starts if c == 0 else commas[ci0 + c - 1] + 1
                 fe = np.where(c < ncols - 1, commas[ci0 + c], ends)
@@ -708,26 +767,24 @@ class ScanPlan:
             widths.append(_pow2(min(int(vecs[i, 1].max()), _MAX_FIELD_W) or 1))
         return vecs, tuple(widths)
 
-    def _csv_batch(self, body, staged, starts, ends, commas, ci0, ci1,
-                   header, room):
-        n = len(starts)
-        exact = np.zeros(n, dtype=bool)
+    def _csv_batch(self, body, staged, vecs, widths, bounds, header, room):
+        """One batch of a segment: the tree over its field vectors (host
+        arrays are staged first; the card's index leaves them on the card),
+        then its rows. ``bounds()`` gives the batch's (starts, ends, exact)."""
+        masks = None
         if self._tree is not None:
-            with _trace.start_span("query.index", service="query") as ix:
-                vecs, widths = self._field_vectors(starts, ends, commas, ci0, ci1,
-                                                   header, exact)
-                if ix is not None:
-                    ix.tags["batch_rows"] = n
             with _trace.start_span("query.device", service="query") as dv:
+                if isinstance(vecs, np.ndarray):
+                    if dv is not None:
+                        dv.tags["bytes"] = vecs.nbytes
+                    vecs = self.kernels.stage(vecs)
                 masks = self.kernels.to_host(self.kernels.evaluate(
-                    self._tree, staged, self.kernels.stage(vecs), widths))
-                if dv is not None:
-                    dv.tags["bytes"] = vecs.nbytes
+                    self._tree, staged, vecs, widths))
         with _trace.start_span("query.rows", service="query") as rs:
-            out = self._batch_rows(body, starts, ends, header, room, exact,
-                                   masks if self._tree is not None else None)
+            starts, ends, exact = bounds()
+            out = self._batch_rows(body, starts, ends, header, room, exact, masks)
             if rs is not None:
-                rs.tags.update(rows_in=n, rows_out=len(out))
+                rs.tags.update(rows_in=len(starts), rows_out=len(out))
         return out
 
     def _batch_rows(self, body, starts, ends, header, room, exact, masks):
@@ -766,8 +823,8 @@ class ScanPlan:
             if room >= 0 and len(out) >= room:
                 break
             if proj_cols is not None:
-                fields = body[int(starts[i]): int(ends[i])].decode(
-                    "utf-8", errors="replace").split(",")
+                fields = str(body[int(starts[i]): int(ends[i])], "utf-8",
+                             "replace").split(",")
                 # value = col if the row reaches the column's LAST dup
                 # index, else None: exactly DictReader's zip + restval
                 # overwrite behavior
@@ -786,7 +843,7 @@ class ScanPlan:
         """Replicate DictReader's dict building for one quote-free line
         (restkey None for long rows, restval None fill for short, and the
         fill OVERWRITES duplicated trailing names, same as the stdlib)."""
-        fields = body[s:e].decode("utf-8", errors="replace").split(",")
+        fields = str(body[s:e], "utf-8", "replace").split(",")
         d = dict(zip(header, fields))
         lf, lr = len(header), len(fields)
         if lf < lr:

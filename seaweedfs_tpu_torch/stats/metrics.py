@@ -494,7 +494,8 @@ def register_query_metrics(registry: Optional[Registry] = None) -> dict[str, Cou
     """Counters for the scan engine (query/scan.py): rows and bytes pushed
     through scan plans, and the kernel-vs-exact-lane split that tells an
     operator whether their data shape vectorizes. Scans are labelled by
-    backend (cuda / cpu)."""
+    backend (cuda / cpu), indexed segments by where the index ran (card /
+    host)."""
     reg = registry or default_registry
     return {
         "rows": reg.counter("sweed_query_rows_scanned_total",
@@ -507,6 +508,9 @@ def register_query_metrics(registry: Optional[Registry] = None) -> dict[str, Cou
                                 "rows routed to the row-at-a-time exact lane"),
         "scans": reg.counter("sweed_query_scans_total",
                              "scan plan executions, by backend label"),
+        "index_segments": reg.counter(
+            "sweed_query_index_segments_total",
+            "CSV segments structurally indexed, by where: card (csv_index.cu) or host (numpy)"),
     }
 
 

@@ -38,6 +38,10 @@ def _families(text: str) -> dict:
     return fams
 
 
+# the port's families that the JAX page lacks on purpose: its master's own
+# assign histogram, and where its scans' structural index ran (card / host)
+PORT_FAMILIES = {"master_assign_seconds", "sweed_query_index_segments_total"}
+
 # the port's label sets where it departs from the JAX package on purpose:
 # its rows decided by the scan's kernels are counted by device, as its
 # scans are
@@ -45,11 +49,11 @@ PORT_LABELS = {"sweed_query_rows_kernel_total": {("backend",)}}
 
 
 def _compare(jax_text: str, port_text: str):
-    """The port exposes no family the JAX page lacks (its master's own
-    assign histogram aside), every ported family the JAX page shows, and
-    the same label sets in each (``PORT_LABELS`` aside)."""
+    """The port exposes no family the JAX page lacks (``PORT_FAMILIES``
+    aside), every ported family the JAX page shows, and the same label sets
+    in each (``PORT_LABELS`` aside)."""
     j, p = _families(jax_text), _families(port_text)
-    extra = sorted(set(p) - set(j) - {"master_assign_seconds"})
+    extra = sorted(set(p) - set(j) - PORT_FAMILIES)
     assert extra == [], extra
     missing = sorted(n for n in set(j) - set(p) if PORTED.match(n))
     assert missing == [], missing

@@ -11,6 +11,7 @@ equal ``float()`` at the edge of its domain. Tolerance: none anywhere; every
 comparison is exact.
 """
 
+import csv
 import importlib.util
 import os
 import random
@@ -29,6 +30,7 @@ from seaweedfs_tpu_torch.query import execute_request
 from seaweedfs_tpu_torch.query import scan as pscan
 from seaweedfs_tpu_torch.query import sql as psql
 from seaweedfs_tpu_torch.stats.metrics import QUERY_COUNTERS, Counter
+from swbench.gen.lineitem import COLUMNS, lineitem_csv
 
 _GEN_PATH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                          "test_query_scan.py")
@@ -383,3 +385,200 @@ def test_cuda_backend_equals_cpu_backend_on_the_card():
     assert QUERY_COUNTERS["kernel"].value(backend="cuda") > before
     _check_numeric("cuda")
     _check_first_index("cuda")
+
+
+# ------------------------------------------- where the structural index runs
+
+def _index_segments(where):
+    return QUERY_COUNTERS["index_segments"].value(where=where)
+
+
+def test_cpu_plans_index_on_the_host():
+    """The ``cpu`` backend keeps the numpy index: every segment it scans
+    counts ``where="host"``, none ``"card"``."""
+    host, card = _index_segments("host"), _index_segments("card")
+    plan = pscan.compile_plan(None, {"field": "score", "op": ">", "value": 9}, 0, "csv", "cpu")
+    assert [r["id"] for r in plan.execute(CSV)] == ["1", "2"]
+    pieces = [CSV[:20], CSV[20:41], CSV[41:]]
+    assert [r for b in plan.scan_iter(iter(pieces)) for r in b] == plan.execute(CSV)
+    assert _index_segments("card") == card
+    assert _index_segments("host") > host + 2
+
+
+@pytest.mark.parametrize("where", [None, {"and": []}, {"field": "score", "op": ">", "value": 9}])
+def test_the_card_indexes_only_plans_with_a_tree_on_cuda(where):
+    """The routing reads what the plan holds: a CSV plan with a tree on a
+    CUDA device takes the card index (bodies the kernel's int32 offsets
+    reach, fields its parameter block holds); a plan without a tree (no
+    WHERE, or one that names no field), a ``cpu`` plan, and a body past
+    int32 take the host's."""
+    plan = pscan.compile_plan(None, where, 0, "csv", "cpu")
+    assert not plan._indexes_on_card(len(CSV))
+    plan.kernels.device = torch.device("cuda")  # what a cuda plan holds; nothing runs
+    tree = where is not None and bool(where.get("field"))
+    assert plan._indexes_on_card(len(CSV)) == tree
+    assert plan._indexes_on_card(pscan.csv_index.MAX_BYTES) == tree
+    assert not plan._indexes_on_card(pscan.csv_index.MAX_BYTES + 1)
+    many = {"and": [{"field": f"f{i}", "op": "=", "value": 1}
+                    for i in range(pscan.csv_index.MAX_FIELDS + 1)]}
+    wide = pscan.compile_plan(None, many, 0, "csv", "cpu")
+    wide.kernels.device = torch.device("cuda")
+    assert not wide._indexes_on_card(len(CSV))
+
+
+def test_a_cuda_plan_without_a_card_still_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pscan.compile_plan(None, {"field": "score", "op": ">", "value": 9}, 0, "csv", "cuda")
+
+
+def _numpy_card_index(plan, data):
+    """``csv_index.index`` as the numpy index computes it, on CPU tensors:
+    what the kernel must return (widths as the tree's buckets, which
+    ``_csv_segment`` buckets again to the same values)."""
+    nl = data.find(b"\n")
+    header = next(iter(csv.reader([data[:nl].decode("utf-8", errors="replace")])), [])
+
+    def index(staged, n, cols, row_batch):
+        assert list(cols) == plan._columns(header)
+        starts, ends, commas, ci0, ci1 = plan._host_index(staged[:n].numpy(), header)
+        exact = np.zeros(len(starts), dtype=bool)
+        parts, widths = [], []
+        for lo in range(0, len(starts), row_batch):
+            hi = min(lo + row_batch, len(starts))
+            v, w = plan._field_vectors(starts[lo:hi], ends[lo:hi], commas, ci0[lo:hi],
+                                       ci1[lo:hi], header, exact[lo:hi])
+            parts.append(v)
+            widths.append(w)
+        vecs = (np.concatenate(parts, axis=2) if parts
+                else np.zeros((len(cols), 3, 0), dtype=np.int32))
+        rows = np.stack([starts, ends, exact.astype(starts.dtype)]).astype(np.int32)
+        return pscan.csv_index.CardIndex(
+            len(starts), int(exact.sum()), np.array(widths).reshape(-1, len(cols)),
+            torch.from_numpy(vecs.astype(np.int32)), torch.from_numpy(rows), None)
+
+    return index
+
+
+@pytest.mark.parametrize("seed", [11, 12, 13])
+def test_card_batches_equal_the_reference_engine(seed, monkeypatch):
+    """The card path's glue (the batches over the card's index, their
+    widths, the exact rows, rows decoded from the body's view) on the CPU,
+    with the kernel's results computed by the numpy index: byte-identical
+    to ``engine.run_query`` whatever the chunk split, small batches
+    included, and every such segment counted ``where="card"``."""
+    monkeypatch.setattr(pscan, "_ROW_BATCH", 4)
+    monkeypatch.setattr(pscan.ScanPlan, "_indexes_on_card",
+                        lambda self, n: self._tree is not None)
+    card = _index_segments("card")
+    for trial, (fmt, data, select, where, limit, pieces) in enumerate(_corpus(seed, 150)):
+        if fmt != "csv":
+            continue
+        plan = pscan.compile_plan(select, where, limit, fmt, "cpu")
+        numpy_index = _numpy_card_index(plan, data)
+        plan._card_index = lambda staged, n, header: numpy_index(
+            staged, n, plan._columns(header), pscan._ROW_BATCH)
+        want = _outcome(lambda: jengine.run_query(data, input_format=fmt, select=select,
+                                                  where=where, limit=limit))
+        got = _outcome(lambda: [r for b in plan.scan_iter(iter(pieces or (data,))) for r in b])
+        assert got == want, (trial, select, where, limit, data[:200])
+    assert _index_segments("card") > card
+
+
+# ------------------------------------------------ the kernel against numpy
+
+def _blank_and_ragged():
+    """Blank lines (several in a row), short and long rows, duplicate
+    header names, a field of exactly 512 bytes and one of 513, a row
+    longer than the kernel's tile, a field name the header lacks."""
+    lines = [b"a,b,a,c,d"]
+    rng = random.Random(3)
+    for i in range(3000):
+        k = rng.random()
+        if k < 0.05:
+            lines.append(b"")
+        elif k < 0.07:
+            lines.extend([b"", b"", b""])
+        else:
+            ncol = rng.randint(0, 8)
+            lines.append(b",".join(str(rng.randint(-99, 99999)).encode() * rng.randint(1, 3)
+                                   for _ in range(ncol)))
+    lines[100] = b"1," + b"x" * 512 + b",2,3"
+    lines[200] = b"1,2," + b"y" * 513 + b",4"
+    lines[300] = b",".join([b"7"] * 3000) + b"," + b"z" * 6000  # > 4096 bytes
+    lines[301] = b"9," + b"w" * 9000  # a field across several tiles
+    return b"\n".join(lines)
+
+
+CARD_FIELDS = ["a", "b", "c", "d", "missing", "x.y"]
+
+
+def _card_segments():
+    body = _blank_and_ragged()
+    yield "ragged", body + b"\n", CARD_FIELDS, 2048
+    yield "no final newline", body, CARD_FIELDS, 2048
+    yield "blank tail", body + b"\n\n\n\n", CARD_FIELDS, 2048
+    yield "one row", b"1,2,3,4,5", CARD_FIELDS, pscan._ROW_BATCH
+    yield "only blank lines", b"\n\n\n", CARD_FIELDS, pscan._ROW_BATCH
+    item = lineitem_csv(2**31 + 23, 0, 32 << 20)
+    nl = item.find(b"\n")
+    yield "lineitem 32 MiB", item[nl + 1:], ["l_shipdate", "l_discount", "l_quantity"], \
+        pscan._ROW_BATCH
+
+
+@pytest.mark.cuda
+def test_card_index_equals_the_numpy_index_on_the_card():
+    """csv_index.cu's rows, field vectors (start where present), exact rows
+    and per-batch widths against the numpy index, on the corpus of
+    ``_card_segments`` (runs only where there is a card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    header_of = {"lineitem 32 MiB": list(COLUMNS)}
+    launches = pscan.csv_index.index.launches
+    for name, body, fields, row_batch in _card_segments():
+        header = header_of.get(name, ["a", "b", "a", "c", "d"])
+        where = {"and": [{"field": f, "op": "=", "value": 1} for f in fields]}
+        plan = pscan.compile_plan(None, where, 0, "csv", "cpu")
+        arr = np.frombuffer(body, np.uint8)
+        pad = np.zeros(len(arr) + pscan._MAX_FIELD_W + 8, dtype=np.uint8)
+        pad[:len(arr)] = arr
+        got = pscan.csv_index.index(torch.from_numpy(pad).cuda(), len(arr),
+                                    plan._columns(header), row_batch)
+        starts, ends, commas, ci0, ci1 = plan._host_index(arr, header)
+        assert got.nrows == len(starts), name
+        g_starts, g_ends, g_exact = got.rows(0, got.nrows)
+        assert np.array_equal(g_starts, starts) and np.array_equal(g_ends, ends), name
+        exact = np.zeros(len(starts), dtype=bool)
+        vecs = got.vecs.cpu().numpy()
+        for b, lo in enumerate(range(0, len(starts), row_batch)):
+            hi = min(lo + row_batch, len(starts))
+            want, buckets = plan._field_vectors(starts[lo:hi], ends[lo:hi], commas, ci0[lo:hi],
+                                                ci1[lo:hi], header, exact[lo:hi])
+            v = vecs[:, :, lo:hi]
+            present = want[:, 2] != 0
+            assert np.array_equal(v[:, 1:], want[:, 1:]), (name, b)
+            assert np.array_equal(np.where(present, v[:, 0], 0),
+                                  np.where(present, want[:, 0], 0)), (name, b)
+            assert got.widths[b].tolist() == want[:, 1].max(axis=1).tolist(), (name, b)
+            assert tuple(pscan._pow2(min(int(w), pscan._MAX_FIELD_W) or 1)
+                         for w in got.widths[b]) == buckets, (name, b)
+        assert np.array_equal(g_exact, exact) and got.nexact == int(exact.sum()), name
+        assert got.widths.shape == (-(-len(starts) // row_batch), len(fields)), name
+    assert pscan.csv_index.index.launches > launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data", [b"", b"a,b,c\n", b"a,b,c", b"a,b,c\n\n\n",
+                                  b"a,b,c\n1,2,3", b"a,b,c\n" + b"1,2,3\n" * 5000])
+def test_empty_and_header_only_objects_on_the_card(data):
+    """An empty object, a header-only one, blank bodies and a body without
+    a final newline: the cuda plan's rows equal the cpu plan's, and every
+    segment with a body counts ``where="card"``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    where = {"field": "b", "op": ">=", "value": 2}
+    card = _index_segments("card")
+    got = pscan.run_scan(data, "csv", where=where, backend="cuda")
+    assert got == pscan.run_scan(data, "csv", where=where, backend="cpu")
+    body = data[data.find(b"\n") + 1:] if b"\n" in data else b""
+    assert _index_segments("card") == card + bool(body)
